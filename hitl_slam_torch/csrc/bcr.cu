@@ -11,64 +11,135 @@
 // identity blocks and zero couplings, same adjugate inverse, same
 // subtraction order.
 //
-// What bounds it on this card: latency, not bytes or flops. A solve at
-// n = 1024 moves ~250 KB and does ~0.3 MFLOP, but its 2*log2(m) + log2(m)
-// phases are serially dependent, each a few hundred dependent flops deep.
-// The design is therefore a single thread block (up to 512 threads, more
-// registers per thread than 1024 would leave) that runs the whole solve in
-// ONE launch, with a __syncthreads() between phases instead of a kernel
-// boundary:
-//   - init: the block reads D, U, b once and lays them out as per-lane
-//     planes (D, L = U[i-1]^T, U: 9 floats each; b: 3) in a global scratch
-//     buffer, identity/zero padded to m lanes;
-//   - each downward level runs one phase in which every odd lane computes
-//     Dinv, Dinv L, Dinv U and Dinv b, then one phase in which every even
-//     lane absorbs its two odd neighbours; eliminated lanes keep their
-//     rows (and their Dinv), which is all back-substitution needs;
-//   - the root lane solves, then each upward level recovers its odd lanes.
-// The scratch buffer (63 floats per lane, 258 KB at m = 1024, 4 MB at
-// m = 16384) stays resident in the 50 MB L2, so the exchange through it
-// costs L2 latency. Staging the planes in shared memory, several blocks
-// per solve, and tensor-core formulations are later work. Every n >= 1 is
-// accepted: there is no size gate.
+// What bounds it on this card: the chain of dependent levels, not bytes or
+// flops. A solve at n = 1024 reads 98 KB and does ~0.5 MFLOP, but its
+// 2*log2(m) + 1 steps are serially dependent: past the first few levels a
+// step is one warp running a few hundred dependent instructions, so the
+// time is the number of steps times the length of one step's instruction
+// chain, plus the flops of the wide top levels on the SMs that hold them.
+// The design keeps every step on chip and runs a solve of up to 16384 poses
+// as ONE launch:
+//   - the lane state lives in shared memory, in planes of floats: D (which
+//     becomes Dinv once the lane is eliminated), L, U, b (which becomes x),
+//     and for an eliminated lane its products Dinv L, Dinv U, Dinv b: 51
+//     floats a lane. D, U, b are read from device memory once (each thread
+//     with the loads of two lanes in flight) and x is written once. Every
+//     block lays its planes out for 1024 lanes, lane i at slot i + i/32, so
+//     the lanes a level touches (2^k apart) fall in distinct banks and every
+//     plane offset is a compile-time constant of the address;
+//   - a level is two steps: the odd lanes invert their D and write their
+//     products to their own slots, then, after a barrier, the even lanes
+//     read them and absorb both neighbours. (Having each even lane recompute
+//     its neighbours' products in registers instead saves a barrier a level
+//     but inverts each odd block twice; on the H100 it was within a few
+//     per cent of this either way, so only this one is kept.);
+//   - m <= 1024 lanes: one block of up to 512 threads, __syncthreads()
+//     between steps;
+//   - m = 2048 .. 16384: a thread-block cluster of m/1024 blocks (up to 16,
+//     a non-portable size), each holding 1024 lanes in its shared memory.
+//     A level's only cross-block read is the left neighbour of a block's
+//     first active lane (and, once the active lanes are more than a block
+//     apart, every neighbour), read from the owner's shared memory through
+//     distributed shared memory; cluster.sync() separates the steps whose
+//     reads cross blocks. Those last log2(m/1024) levels keep one active
+//     lane in each of the blocks that still have one;
+//   - m > 16384 (up to 2^25, the range of int32 offsets into the state):
+//     the top log2(m/16384) levels run over a lane-major copy of the state
+//     in device memory, two many-block launches a level (odd lanes, then
+//     even lanes) with the same device functions in the same order; the
+//     cluster of 16 then solves the 16384 lanes left (every 2^top-th lane)
+//     as above, and one launch a top level back-substitutes its odd lanes.
+// Up to 16384 poses no device memory holds intermediate state.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxThreads = 512;
+constexpr int kMaxLanesPerBlock = 1024;
+constexpr int kMaxCluster = 16;
+// the most lanes shared memory holds; a larger system first runs its top
+// levels in device memory
+constexpr int kMaxSharedLanes = kMaxLanesPerBlock * kMaxCluster;
+// lanes of the largest system: lane-major offsets into the state fit int32
+constexpr int kMaxLanes = 1 << 25;
+constexpr int kLevelThreads = 256;
+// every block lays its planes out for kMaxLanesPerBlock lanes, so plane
+// offsets are compile-time constants of the shared-memory addresses
+constexpr int kStride = kMaxLanesPerBlock + kMaxLanesPerBlock / 32;
 
 enum Plane {
-  kD = 0,
+  kD = 0,       // D, then Dinv once eliminated
   kL = 9,
   kU = 18,
-  kB = 27,
-  kDinv = 30,
-  kDinvL = 39,
-  kDinvU = 48,
-  kDinvB = 57,
-  kX = 60,
-  kPlanes = 63  // scratch floats per lane (the wrapper allocates 63*m)
+  kB = 27,      // b, then x
+  kDinvL = 30,  // Dinv L, Dinv U, Dinv b of an eliminated lane
+  kDinvU = 39,
+  kDinvB = 48,
+  kPlanes = 51
 };
 
-template <int K>
-__device__ __forceinline__ void load(const float* ws, int plane, int m,
-                                     int lane, float* o) {
+__device__ __forceinline__ int slot(int i) { return i + (i >> 5); }
+
+// Where lane g's floats live: float q of lane g is
+// planes(g)[q * kStep + at(g)].
+// In shared memory, plane-major: this block's planes, or in a cluster the
+// owner block's, through distributed shared memory.
+template <bool kCluster>
+struct SharedLanes {
+  static constexpr int kStep = kStride;
+  float* own;       // this block's planes
+  int log2_lanes;
+  int rank;
+
+  __device__ __forceinline__ float* planes(int g) const {
+    if constexpr (kCluster) {
+      const int owner = g >> log2_lanes;
+      if (owner != rank) return cg::this_cluster().map_shared_rank(own, owner);
+    }
+    return own;
+  }
+  __device__ __forceinline__ int at(int g) const {
+    return slot(g & ((1 << log2_lanes) - 1));
+  }
+};
+
+// In device memory (the top levels of m > kMaxSharedLanes), lane-major.
+struct DeviceLanes {
+  static constexpr int kStep = 1;
+  float* own;       // the whole state, kPlanes floats a lane
+
+  __device__ __forceinline__ float* planes(int) const { return own; }
+  __device__ __forceinline__ int at(int g) const { return g * kPlanes; }
+};
+
+template <int K, class Ln>
+__device__ __forceinline__ void ld(const Ln&, const float* p, int plane,
+                                   int s, float* o) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) o[k] = ws[(plane + k) * m + lane];
+  for (int k = 0; k < K; ++k) o[k] = p[(plane + k) * Ln::kStep + s];
 }
 
-template <int K>
-__device__ __forceinline__ void store(float* ws, int plane, int m, int lane,
-                                      const float* v) {
+template <int K, class Ln>
+__device__ __forceinline__ void st(const Ln&, float* p, int plane, int s,
+                                   const float* v) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) ws[(plane + k) * m + lane] = v[k];
+  for (int k = 0; k < K; ++k) p[(plane + k) * Ln::kStep + s] = v[k];
 }
 
 template <int K>
 __device__ __forceinline__ void zero(float* o) {
 #pragma unroll
   for (int k = 0; k < K; ++k) o[k] = 0.0f;
+}
+
+template <int K>
+__device__ __forceinline__ void negate(float* o) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) o[k] = -o[k];
 }
 
 // adjugate inverse, row-major [a00 a01 a02 a10 ... a22]
@@ -108,32 +179,181 @@ __device__ __forceinline__ void mv3(const float* x, const float* v,
     o[i] = x[3 * i] * v[0] + x[3 * i + 1] * v[1] + x[3 * i + 2] * v[2];
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+// The lanes g of [base, base + lanes) with g % 2^k == r (base a multiple
+// of lanes) are first + j * 2^k for j < count.
+struct Range {
+  int first, count;
+};
+
+__device__ __forceinline__ Range lanes_of(int base, int lanes, int k, int r) {
+  Range out;
+  out.first = base + ((r - base) & ((1 << k) - 1));
+  out.count = out.first < base + lanes
+                  ? ((base + lanes - out.first - 1) >> k) + 1
+                  : 0;
+  return out;
+}
+
+template <bool kCluster>
+__device__ __forceinline__ void sync_cluster() {
+  if constexpr (kCluster)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// Lane g of the padded system from D, U, b (L[g] = U[g-1]^T; identity D and
+// zero L, U, b past n), stored at slot s of p.
+template <class Ln>
+__device__ __forceinline__ void load_lane(
+    const Ln& ln, const float* __restrict__ Din,
+    const float* __restrict__ Uin, const float* __restrict__ bin, float* p,
+    int s, int g, int n) {
+  float d[9], u[9], l[9], v[3];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    d[k] = g < n ? Din[g * 9 + k] : (k % 4 == 0 ? 1.0f : 0.0f);
+    u[k] = g < n - 1 ? Uin[g * 9 + k] : 0.0f;
+    l[k] = g >= 1 && g < n ? Uin[(g - 1) * 9 + 3 * (k % 3) + k / 3] : 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) v[k] = g < n ? bin[g * 3 + k] : 0.0f;
+  st<9>(ln, p, kD, s, d);
+  st<9>(ln, p, kU, s, u);
+  st<9>(ln, p, kL, s, l);
+  st<3>(ln, p, kB, s, v);
+}
+
+// Odd lane o of a level: Dinv (over D), Dinv L, Dinv U, Dinv b.
+template <class Ln>
+__device__ __forceinline__ void eliminate_odd(const Ln& ln, int o) {
+  float* p = ln.own;
+  const int so = ln.at(o);
+  float Dm[9], Lm[9], Um[9], bm[3], Di[9], T[9], w[3];
+  ld<9>(ln, p, kD, so, Dm);
+  ld<9>(ln, p, kL, so, Lm);
+  ld<9>(ln, p, kU, so, Um);
+  ld<3>(ln, p, kB, so, bm);
+  inv3(Dm, Di);
+  st<9>(ln, p, kD, so, Di);
+  mm3(Di, Lm, T);
+  st<9>(ln, p, kDinvL, so, T);
+  mm3(Di, Um, T);
+  st<9>(ln, p, kDinvU, so, T);
+  mv3(Di, bm, w);
+  st<3>(ln, p, kDinvB, so, w);
+}
+
+// Even lane e absorbs its odd neighbours l = e - h (none for e == 0) and
+// r = e + h:
+//   D_e <- D_e - L_e DinvU_l - U_e DinvL_r
+//   b_e <- b_e - L_e Dinvb_l - U_e Dinvb_r
+//   L_e <- -L_e DinvL_l ;  U_e <- -U_e DinvU_r
+template <class Ln>
+__device__ __forceinline__ void absorb_even(const Ln& ln, int e, int h) {
+  float* p = ln.own;
+  const int se = ln.at(e);
+  float Le[9], Ue[9], De[9], be[3];
+  float DLl[9], DUl[9], Dbl[3], DLr[9], DUr[9], Dbr[3];
+  ld<9>(ln, p, kL, se, Le);
+  ld<9>(ln, p, kU, se, Ue);
+  ld<9>(ln, p, kD, se, De);
+  ld<3>(ln, p, kB, se, be);
+  if (e > 0) {
+    const float* q = ln.planes(e - h);
+    const int s = ln.at(e - h);
+    ld<9>(ln, q, kDinvL, s, DLl);
+    ld<9>(ln, q, kDinvU, s, DUl);
+    ld<3>(ln, q, kDinvB, s, Dbl);
+  } else {
+    zero<9>(DLl);
+    zero<9>(DUl);
+    zero<3>(Dbl);
+  }
+  {
+    const float* q = ln.planes(e + h);
+    const int s = ln.at(e + h);
+    ld<9>(ln, q, kDinvL, s, DLr);
+    ld<9>(ln, q, kDinvU, s, DUr);
+    ld<3>(ln, q, kDinvB, s, Dbr);
+  }
+  float T[9], W[9], t3[3], w3[3];
+  mm3(Le, DUl, T);
+  mm3(Ue, DLr, W);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) De[k] = De[k] - T[k] - W[k];
+  st<9>(ln, p, kD, se, De);
+  mv3(Le, Dbl, t3);
+  mv3(Ue, Dbr, w3);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) be[k] = be[k] - t3[k] - w3[k];
+  st<3>(ln, p, kB, se, be);
+  mm3(Le, DLl, T);
+  negate<9>(T);
+  st<9>(ln, p, kL, se, T);
+  mm3(Ue, DUr, T);
+  negate<9>(T);
+  st<9>(ln, p, kU, se, T);
+}
+
+// Odd lane o of level h: x_o = Dinv_o (b_o - L_o x_{o-h} - U_o x_{o+h}),
+// into its b plane.
+template <class Ln>
+__device__ __forceinline__ void back_substitute(const Ln& ln, int o, int h,
+                                                int m) {
+  float* p = ln.own;
+  const int so = ln.at(o);
+  float Lm[9], Um[9], Di[9], b[3], xl[3], xr[3], t3[3], w3[3];
+  ld<3>(ln, ln.planes(o - h), kB, ln.at(o - h), xl);
+  if (o + h < m)
+    ld<3>(ln, ln.planes(o + h), kB, ln.at(o + h), xr);
+  else
+    zero<3>(xr);
+  ld<9>(ln, p, kL, so, Lm);
+  ld<9>(ln, p, kU, so, Um);
+  ld<9>(ln, p, kD, so, Di);
+  ld<3>(ln, p, kB, so, b);
+  mv3(Lm, xl, t3);
+  mv3(Um, xr, w3);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) b[k] = b[k] - t3[k] - w3[k];
+  mv3(Di, b, t3);
+  st<3>(ln, p, kB, so, t3);
+}
+
+// The solve of m lanes in shared memory: one block (kCluster = false) or
+// one block of a cluster of m / lanes blocks; block `rank` owns lanes
+// [rank * lanes, (rank + 1) * lanes). Its lane g is lane g << top of the
+// padded system: with top = 0 it reads D, U, b; with top > 0 the top levels
+// have already run in `state` (device memory), which it reads the lanes
+// from and writes their x back to, for the top levels' back-substitution.
+template <bool kCluster>
+__global__ void __launch_bounds__(kMaxThreads, 1)
 bcr_kernel(const float* __restrict__ Din, const float* __restrict__ Uin,
            const float* __restrict__ bin, float* __restrict__ xout,
-           float* ws, int n, int m) {
+           float* __restrict__ state, int n, int m, int log2_lanes,
+           int top) {
+  extern __shared__ float sm[];
+  const int lanes = 1 << log2_lanes;
+  int rank = 0;
+  if constexpr (kCluster) rank = static_cast<int>(cg::this_cluster().block_rank());
+  const SharedLanes<kCluster> ln{sm, log2_lanes, rank};
+  const int base = rank * lanes;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
 
-  // ---- lay out the padded planes ----
-  for (int i = tid; i < m; i += nt) {
+  if (top == 0) {
+#pragma unroll 2
+    for (int i = tid; i < lanes; i += nt)
+      load_lane(ln, Din, Uin, bin, sm, slot(i), base + i, n);
+  } else {
+    for (int i = tid; i < lanes; i += nt) {
+      const float* src = state + ((base + i) << top) * kPlanes;
 #pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      ws[(kD + k) * m + i] =
-          i < n ? Din[i * 9 + k] : ((k % 4 == 0) ? 1.0f : 0.0f);
-      ws[(kU + k) * m + i] = i < n - 1 ? Uin[i * 9 + k] : 0.0f;
+      for (int q = 0; q < kB + 3; ++q) sm[q * kStride + slot(i)] = src[q];
     }
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-#pragma unroll
-      for (int c = 0; c < 3; ++c)  // L[i] = U[i-1]^T
-        ws[(kL + 3 * r + c) * m + i] =
-            (i >= 1 && i < n) ? Uin[(i - 1) * 9 + 3 * c + r] : 0.0f;
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      ws[(kB + k) * m + i] = i < n ? bin[i * 3 + k] : 0.0f;
   }
-  __syncthreads();
+  sync_cluster<kCluster>();
 
   int levels = 0;
   while ((1 << levels) < m) ++levels;
@@ -142,121 +362,178 @@ bcr_kernel(const float* __restrict__ Din, const float* __restrict__ Uin,
   for (int k = 1; k <= levels; ++k) {
     const int h = 1 << (k - 1);
     const int s = 1 << k;
-    const int cnt = m >> k;
-    for (int j = tid; j < cnt; j += nt) {  // odd lanes: Dinv products
-      const int o = j * s + h;
-      float Dm[9], Di[9], X[9], T[9], b[3], tb[3];
-      load<9>(ws, kD, m, o, Dm);
-      inv3(Dm, Di);
-      store<9>(ws, kDinv, m, o, Di);
-      load<9>(ws, kL, m, o, X);
-      mm3(Di, X, T);
-      store<9>(ws, kDinvL, m, o, T);
-      load<9>(ws, kU, m, o, X);
-      mm3(Di, X, T);
-      store<9>(ws, kDinvU, m, o, T);
-      load<3>(ws, kB, m, o, b);
-      mv3(Di, b, tb);
-      store<3>(ws, kDinvB, m, o, tb);
-    }
-    __syncthreads();
-    for (int j = tid; j < cnt; j += nt) {  // even lanes absorb neighbours
-      const int e = j * s;
-      const int l = e - h;  // left odd neighbour (none for e == 0)
-      const int r = e + h;  // right odd neighbour (always < m)
-      float Le[9], Ue[9], Nl[9], Nr[9], T[9], W[9], v[3], t3[3], w3[3];
-      load<9>(ws, kL, m, e, Le);
-      load<9>(ws, kU, m, e, Ue);
-      // D_e <- D_e - L_e DinvU_l - U_e DinvL_r
-      if (e > 0) load<9>(ws, kDinvU, m, l, Nl);
-      else zero<9>(Nl);
-      load<9>(ws, kDinvL, m, r, Nr);
-      mm3(Le, Nl, T);
-      mm3(Ue, Nr, W);
-      load<9>(ws, kD, m, e, Nr);
-#pragma unroll
-      for (int q = 0; q < 9; ++q) Nr[q] = Nr[q] - T[q] - W[q];
-      store<9>(ws, kD, m, e, Nr);
-      // b_e <- b_e - L_e Dinvb_l - U_e Dinvb_r
-      if (e > 0) load<3>(ws, kDinvB, m, l, v);
-      else zero<3>(v);
-      mv3(Le, v, t3);
-      load<3>(ws, kDinvB, m, r, v);
-      mv3(Ue, v, w3);
-      load<3>(ws, kB, m, e, v);
-#pragma unroll
-      for (int q = 0; q < 3; ++q) v[q] = v[q] - t3[q] - w3[q];
-      store<3>(ws, kB, m, e, v);
-      // L_e <- -L_e DinvL_l ;  U_e <- -U_e DinvU_r
-      if (e > 0) load<9>(ws, kDinvL, m, l, Nl);
-      else zero<9>(Nl);
-      mm3(Le, Nl, T);
-#pragma unroll
-      for (int q = 0; q < 9; ++q) T[q] = -T[q];
-      store<9>(ws, kL, m, e, T);
-      load<9>(ws, kDinvU, m, r, Nr);
-      mm3(Ue, Nr, T);
-#pragma unroll
-      for (int q = 0; q < 9; ++q) T[q] = -T[q];
-      store<9>(ws, kU, m, e, T);
-    }
+    const Range odd = lanes_of(base, lanes, k, h);
+    for (int j = tid; j < odd.count; j += nt)
+      eliminate_odd(ln, odd.first + j * s);
+    sync_cluster<kCluster>();
+    const Range even = lanes_of(base, lanes, k, 0);
+    for (int j = tid; j < even.count; j += nt)
+      absorb_even(ln, even.first + j * s, h);
+    // the next level's odd step reads only its own block's lanes
     __syncthreads();
   }
 
-  // ---- root ----
-  if (tid == 0) {
-    float Dm[9], Di[9], b[3], x[3];
-    load<9>(ws, kD, m, 0, Dm);
-    inv3(Dm, Di);
-    store<9>(ws, kDinv, m, 0, Di);
-    load<3>(ws, kB, m, 0, b);
+  // ---- root: lane 0 ----
+  if (rank == 0 && tid == 0) {
+    float X[9], Di[9], b[3], x[3];
+    ld<9>(ln, sm, kD, 0, X);
+    inv3(X, Di);
+    ld<3>(ln, sm, kB, 0, b);
     mv3(Di, b, x);
-    store<3>(ws, kX, m, 0, x);
+    st<3>(ln, sm, kB, 0, x);
   }
-  __syncthreads();
+  sync_cluster<kCluster>();
 
   // ---- upward back-substitution ----
   for (int k = levels; k >= 1; --k) {
     const int h = 1 << (k - 1);
-    const int s = 1 << k;
-    const int cnt = m >> k;
-    for (int j = tid; j < cnt; j += nt) {
-      const int o = j * s + h;
-      float X[9], xl[3], xr[3], b[3], t3[3], w3[3];
-      load<3>(ws, kX, m, o - h, xl);
-      if (o + h < m) load<3>(ws, kX, m, o + h, xr);
-      else zero<3>(xr);
-      load<9>(ws, kL, m, o, X);
-      mv3(X, xl, t3);
-      load<9>(ws, kU, m, o, X);
-      mv3(X, xr, w3);
-      load<3>(ws, kB, m, o, b);
-#pragma unroll
-      for (int q = 0; q < 3; ++q) b[q] = b[q] - t3[q] - w3[q];
-      load<9>(ws, kDinv, m, o, X);
-      mv3(X, b, t3);
-      store<3>(ws, kX, m, o, t3);
-    }
-    __syncthreads();
+    const Range odd = lanes_of(base, lanes, k, h);
+    for (int j = tid; j < odd.count; j += nt)
+      back_substitute(ln, odd.first + j * (1 << k), h, m);
+    sync_cluster<kCluster>();
   }
 
-  for (int i = tid; i < n; i += nt)
+  for (int f = tid; f < 3 * lanes; f += nt) {
+    const int i = f / 3;
+    const int c = f - 3 * i;
+    const int g = (base + i) << top;
+    const float v = sm[(kB + c) * kStride + slot(i)];
+    if (top > 0) state[g * kPlanes + kB + c] = v;
+    if (g < n) xout[g * 3 + c] = v;
+  }
+}
+
+enum LevelStep { kGather, kEliminate, kAbsorb, kBack };
+
+// One step of a top level of an m-lane system in device memory, one thread
+// a lane: gather (every lane, from D, U, b), eliminate the odd lanes of
+// level k, absorb them into the even lanes, or back-substitute the odd
+// lanes (and write their x).
+__global__ void __launch_bounds__(kLevelThreads)
+bcr_level(const float* __restrict__ Din, const float* __restrict__ Uin,
+          const float* __restrict__ bin, float* __restrict__ xout,
+          float* __restrict__ state, int n, int m, int k, int step) {
+  const DeviceLanes ln{state};
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int h = 1 << (k - 1);
+  if (step == kGather) {
+    if (j < m) load_lane(ln, Din, Uin, bin, state, ln.at(j), j, n);
+    return;
+  }
+  if (j >= (m >> k)) return;
+  if (step == kEliminate) {
+    eliminate_odd(ln, h + (j << k));
+  } else if (step == kAbsorb) {
+    absorb_even(ln, j << k, h);
+  } else {
+    const int o = h + (j << k);
+    back_substitute(ln, o, h, m);
+    if (o < n)
 #pragma unroll
-    for (int k = 0; k < 3; ++k) xout[i * 3 + k] = ws[(kX + k) * m + i];
+      for (int c = 0; c < 3; ++c) xout[o * 3 + c] = state[ln.at(o) + kB + c];
+  }
+}
+
+struct Args {
+  const float *D, *U, *b;
+  float *x, *state;
+  int n, m, log2_lanes, top, threads, smem;
+  cudaStream_t stream;
+};
+
+// The shared-memory solve of the m >> top lanes left after the top levels.
+template <bool kCluster>
+cudaError_t launch_shared(const Args& a) {
+  auto kernel = bcr_kernel<kCluster>;
+  // the attributes are set at the first launch of each device (smem is the
+  // same for every launch)
+  static int configured = -1;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (configured != device) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+    if (err == cudaSuccess && kCluster)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    configured = device;
+  }
+  const int tail = a.m >> a.top;
+  if constexpr (!kCluster) {
+    kernel<<<1, a.threads, a.smem, a.stream>>>(a.D, a.U, a.b, a.x, a.state,
+                                               a.n, tail, a.log2_lanes, a.top);
+    return cudaGetLastError();
+  } else {
+    const int blocks = tail >> a.log2_lanes;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks, 1, 1);
+    cfg.blockDim = dim3(a.threads, 1, 1);
+    cfg.dynamicSmemBytes = a.smem;
+    cfg.stream = a.stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = blocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, a.D, a.U, a.b, a.x, a.state, a.n,
+                             tail, a.log2_lanes, a.top);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  }
+}
+
+cudaError_t launch_level(const Args& a, int k, int step) {
+  const int count = step == kGather ? a.m : a.m >> k;
+  const int blocks = (count + kLevelThreads - 1) / kLevelThreads;
+  bcr_level<<<blocks, kLevelThreads, 0, a.stream>>>(a.D, a.U, a.b, a.x,
+                                                    a.state, a.n, a.m, k, step);
+  return cudaGetLastError();
+}
+
+cudaError_t solve(const Args& a) {
+  if (a.top == 0)
+    return a.m == 1 << a.log2_lanes ? launch_shared<false>(a)
+                                    : launch_shared<true>(a);
+  cudaError_t err = launch_level(a, 1, kGather);
+  for (int k = 1; k <= a.top && err == cudaSuccess; ++k) {
+    err = launch_level(a, k, kEliminate);
+    if (err == cudaSuccess) err = launch_level(a, k, kAbsorb);
+  }
+  if (err == cudaSuccess) err = launch_shared<true>(a);
+  for (int k = a.top; k >= 1 && err == cudaSuccess; --k)
+    err = launch_level(a, k, kBack);
+  return err;
 }
 
 }  // namespace
 
+// Solve with the launch plan the wrapper computed (solver/bcr_kernel.py::
+// launch_plan): m = next_pow2(n) lanes, of which the top `top` levels run
+// in `state` (kPlanes floats a lane of device memory; null when top = 0);
+// the m >> top lanes left are solved in shared memory, 2^log2_lanes of them
+// per block, in (m >> top) / 2^log2_lanes blocks (a cluster when more than
+// one), `threads` threads and `smem` bytes of dynamic shared memory per
+// block. Returns a CUDA error code; a plan outside the routes is refused
+// with cudaErrorInvalidValue.
 extern "C" int hitl_bcr_solve(const void* D, const void* U, const void* b,
-                              void* x, void* ws, int n, int m,
+                              void* x, void* state, int n, int m,
+                              int log2_lanes, int top, int threads, int smem,
                               void* stream) {
-  if (n <= 0) return 0;
-  int threads = ((m / 2 + 31) / 32) * 32;
-  if (threads < 32) threads = 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  bcr_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(D), static_cast<const float*>(U),
-      static_cast<const float*>(b), static_cast<float*>(x),
-      static_cast<float*>(ws), n, m);
-  return static_cast<int>(cudaGetLastError());
+  const int lanes = log2_lanes >= 0 && log2_lanes < 31 ? 1 << log2_lanes : 0;
+  const int tail = top >= 0 && top < 31 ? m >> top : 0;
+  if (n < 1 || m < n || m > kMaxLanes || (m & (m - 1)) != 0 || tail < 1 ||
+      lanes < 1 || lanes > kMaxLanesPerBlock || tail % lanes != 0 ||
+      tail / lanes > kMaxCluster ||
+      (top > 0 && (tail != kMaxSharedLanes || state == nullptr)) ||
+      threads < 1 || threads > kMaxThreads || smem != kPlanes * kStride * 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{static_cast<const float*>(D), static_cast<const float*>(U),
+               static_cast<const float*>(b), static_cast<float*>(x),
+               static_cast<float*>(state), n, m, log2_lanes, top, threads,
+               smem, static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(solve(a));
 }

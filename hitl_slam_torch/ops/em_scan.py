@@ -17,6 +17,10 @@ kernel's counts are exact and its minima bit-equal to it.
 
 from __future__ import annotations
 
+import struct
+from dataclasses import dataclass
+from functools import lru_cache
+
 import torch
 
 from ..utils import cuda_build
@@ -24,15 +28,17 @@ from ..utils import cuda_build
 Tensor = torch.Tensor
 
 BIG = 1e30
+THREADS = 256         # em_scan.cu kThreads: 8 warps a block
+WARP = 32
+CHUNK = 4             # points a lane reads at once: two float4 + one mask word
 
 launches = cuda_build.LaunchCounter("em_scan")
 
 
-def _threshold2(inlier_threshold: float, device) -> Tensor:
-    # the squared threshold is formed in double precision, then rounded to
-    # f32 once, as the reference does with its Python-float threshold
-    return torch.tensor(inlier_threshold ** 2, dtype=torch.float32,
-                        device=device)
+def threshold2(inlier_threshold: float) -> float:
+    """The squared threshold, formed in double precision and rounded to f32
+    once, as the reference does with its Python-float threshold."""
+    return struct.unpack("f", struct.pack("f", inlier_threshold ** 2))[0]
 
 
 def _seg_dist2(x: Tensor, y: Tensor, x1: Tensor, y1: Tensor, x2: Tensor,
@@ -56,7 +62,8 @@ def em_scan_reference(world: Tensor, mask: Tensor, sel: Tensor,
     x = world[..., 0]
     y = world[..., 1]
     m = mask.bool()
-    t2 = _threshold2(inlier_threshold, world.device)
+    t2 = torch.tensor(threshold2(inlier_threshold), dtype=torch.float32,
+                      device=world.device)
     d2a = _seg_dist2(x, y, sel[0, 0], sel[0, 1], sel[1, 0], sel[1, 1])
     d2b = _seg_dist2(x, y, sel[2, 0], sel[2, 1], sel[3, 0], sel[3, 1])
     ca = ((d2a < t2) & m).sum(dim=1, dtype=torch.int32)
@@ -72,10 +79,68 @@ def em_scan_reference(world: Tensor, mask: Tensor, sel: Tensor,
     return counts, torch.stack(mins)
 
 
+# ------------------------------------------------------------ launch plan
+
+def row_chunks(p: int, N: int) -> range:
+    """The 4-point chunks that row p of a [P, N] map spans. Chunks sit on
+    multiples of 4 of the flat point index p*N + j (em_scan.cu), so a chunk
+    is two aligned float4 loads and one mask word; a chunk that a row only
+    partly covers is read point by point."""
+    q0 = p * N
+    return range(q0 // CHUNK, (q0 + N + CHUNK - 1) // CHUNK)
+
+
+@dataclass(frozen=True)
+class EmScanPlan:
+    P: int
+    N: int
+    lanes_per_pose: int    # a power of two <= 32
+    poses_per_block: int
+    blocks: int
+
+    def poses(self, block: int) -> range:
+        first = block * self.poses_per_block
+        return range(first, min(first + self.poses_per_block, self.P))
+
+
+@lru_cache(maxsize=64)
+def launch_plan(P: int, N: int) -> EmScanPlan:
+    """Lanes per pose: enough for one chunk each (up to a warp); a block of
+    8 warps holds 8 * 32 / lanes poses; at least one block, which writes
+    the minima (1e30) even when P = 0."""
+    if P < 0 or N < 0:
+        raise ValueError(f"em_scan: bad map shape [{P}, {N}]")
+    # p*N mod 4 repeats with period 4 in p: rows 0..3 cover every offset
+    most = max((len(row_chunks(p, N)) for p in range(min(P, CHUNK))),
+               default=0)
+    lanes = 1
+    while lanes < min(most, WARP):
+        lanes *= 2
+    per_block = (THREADS // WARP) * (WARP // lanes)
+    return EmScanPlan(P, N, lanes, per_block, max(1, -(-P // per_block)))
+
+
+# ------------------------------------------------------------ the kernel
+
+# one ticket counter for each (device index, stream): the kernel's blocks
+# draw tickets from it and the last one sets it back to 0, so it is zeroed
+# once, when the stream first calls; launches on one stream run in turn
+_tickets: dict = {}
+
+
+def _ticket(dev: torch.device, stream: int) -> Tensor:
+    key = (dev.index, stream)
+    t = _tickets.get(key)
+    if t is None:
+        t = _tickets[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return t
+
+
 def em_scan_cuda(world: Tensor, mask: Tensor, sel: Tensor,
                  inlier_threshold: float = 0.03) -> tuple[Tensor, Tensor]:
     """Launch the kernel on CUDA tensors: world [P,N,2] f32, mask [P,N]
-    bool, sel [4,2] f32, all contiguous on one device."""
+    bool, sel [4,2] f32, all contiguous on one device; world 16-byte and
+    mask 4-byte aligned."""
     dev = world.device
     if dev.type != "cuda":
         raise ValueError(f"em_scan_cuda needs CUDA tensors, got {dev}")
@@ -85,16 +150,22 @@ def em_scan_cuda(world: Tensor, mask: Tensor, sel: Tensor,
     cuda_build.require("em_scan", "world", world, (P, N, 2), torch.float32, dev)
     cuda_build.require("em_scan", "mask", mask, (P, N), torch.bool, dev)
     cuda_build.require("em_scan", "sel", sel, (4, 2), torch.float32, dev)
-    if world.data_ptr() % 8:
-        raise ValueError("em_scan: world must be 8-byte aligned (float2 loads)")
-    lib = cuda_build.library()
-    counts = torch.empty((P, 2), dtype=torch.int32, device=dev)
-    min_d2 = torch.full((4,), BIG, dtype=torch.float32, device=dev)
-    t2 = float(_threshold2(inlier_threshold, "cpu"))
+    if world.numel() and (world.data_ptr() % 16 or mask.data_ptr() % 4):
+        raise ValueError("em_scan: world must be 16-byte and mask 4-byte "
+                         "aligned (float4 and mask-word loads)")
+    plan = launch_plan(P, N)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.hitl_em_scan(world.data_ptr(), mask.data_ptr(), sel.data_ptr(),
-                            t2, P, N, counts.data_ptr(), min_d2.data_ptr(),
-                            stream)
+    # one buffer, 16-byte aligned: each block's 4 minima, min_d2 [4],
+    # counts [P, 2]
+    rows = 4 * plan.blocks
+    out = torch.empty((rows + 4 + 2 * P,), dtype=torch.int32, device=dev)
+    min_d2 = out[rows:rows + 4].view(torch.float32)
+    counts = out[rows + 4:].view(P, 2)
+    code = cuda_build.library().hitl_em_scan(
+        world.data_ptr(), mask.data_ptr(), sel.data_ptr(),
+        threshold2(inlier_threshold), P, N, plan.lanes_per_pose, plan.blocks,
+        counts.data_ptr(), min_d2.data_ptr(), out.data_ptr(),
+        _ticket(dev, stream).data_ptr(), stream)
     cuda_build.check(code, "em_scan")
     launches.count += 1
     return counts, min_d2

@@ -1,12 +1,23 @@
 """Wrapper of the CUDA block-cyclic-reduction kernel (csrc/bcr.cu).
 
 The kernel replaces hitl_slam_tpu/solver/pallas_bcr.py::bcr_solve_pallas:
-one launch solves the whole symmetric block-tridiagonal LM system. Its
-plain version is solver/tridiag.py::bcr_solve, which this wrapper runs for
-CPU tensors only; a CUDA tensor launches the kernel or raises.
+it solves the whole symmetric block-tridiagonal LM system, with its state
+in shared memory. Its plain version is solver/tridiag.py::bcr_solve, which
+this wrapper runs for CPU tensors only; a CUDA tensor launches the kernel or
+raises.
+
+The route follows from n alone (`launch_plan`), over m = next_pow2(n) lanes
+of 51 floats in shared memory: up to 1024 lanes in one block, m = 2048 ..
+16384 as a thread-block cluster of m / 1024 blocks, both one launch. Above
+16384 lanes the top log2(m / 16384) levels run first over device memory (a
+few many-block launches), then the cluster of 16 solves the rest. Above
+2^25 lanes there is no route, and the wrapper raises.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
 
 import torch
 
@@ -15,33 +26,99 @@ from . import tridiag
 
 Tensor = torch.Tensor
 
-SCRATCH_PLANES = 63   # floats per lane of the kernel's scratch (bcr.cu Plane)
+# bcr.cu: kMaxLanesPerBlock, kMaxCluster, kMaxLanes, kMaxThreads, kPlanes
+MAX_LANES_PER_BLOCK = 1024
+MAX_CLUSTER = 16
+MAX_SHARED_LANES = MAX_LANES_PER_BLOCK * MAX_CLUSTER
+MAX_LANES = 1 << 25
+MAX_THREADS = 512
+# floats a lane keeps: D (then Dinv), L, U, b (then x), and an eliminated
+# lane's Dinv L, Dinv U, Dinv b
+LANE_FLOATS = 51
+# bcr.cu kStride: floats a shared-memory plane holds; lane i at i + i // 32
+PLANE_STRIDE = MAX_LANES_PER_BLOCK + MAX_LANES_PER_BLOCK // 32
 
 launches = cuda_build.LaunchCounter("bcr_solve")
 
 
-def bcr_solve_cuda(D: Tensor, U: Tensor, b: Tensor) -> Tensor:
-    """Launch the kernel: D [n,3,3], U [n-1,3,3], b [n,3] f32 CUDA -> x."""
+@dataclass(frozen=True)
+class LaunchPlan:
+    n: int
+    m: int                 # lanes: next_pow2(n)
+    top: int               # levels run in device memory before shared memory
+    lanes_per_block: int   # a power of two
+    blocks: int            # (m >> top) // lanes_per_block; > 1: a cluster
+    threads: int
+    smem_bytes: int        # dynamic shared memory per block
+
+    @property
+    def route(self) -> str:
+        if self.top:
+            return "levels+cluster"
+        return "cluster" if self.blocks > 1 else "block"
+
+    @property
+    def state_floats(self) -> int:
+        """Device memory the top levels work in (0 without top levels)."""
+        return self.m * LANE_FLOATS if self.top else 0
+
+    def lanes(self, block: int) -> range:
+        """The lanes of m that block `block` holds in its shared memory:
+        every 2^top-th one; the others are eliminated in device memory, lane
+        g at level (number of trailing zeros of g) + 1 <= top."""
+        step = 1 << self.top
+        return range(block * self.lanes_per_block * step,
+                     (block + 1) * self.lanes_per_block * step, step)
+
+
+@lru_cache(maxsize=64)
+def launch_plan(n: int) -> LaunchPlan:
+    """The kernel's route for an n-pose system; raises where none exists."""
+    if n < 1:
+        raise ValueError("bcr_solve: empty system")
+    m = tridiag.next_pow2(n)
+    if m > MAX_LANES:
+        raise ValueError(f"bcr_solve: n = {n} needs {m} lanes; the kernel "
+                         f"indexes at most {MAX_LANES} with int32 offsets")
+    top = max(0, (m // MAX_SHARED_LANES).bit_length() - 1)
+    tail = m >> top
+    lanes = min(tail, MAX_LANES_PER_BLOCK)
+    threads = max(32, min(MAX_THREADS, lanes // 2))
+    return LaunchPlan(n, m, top, lanes, tail // lanes, threads,
+                      LANE_FLOATS * PLANE_STRIDE * 4)
+
+
+def launch(D: Tensor, U: Tensor, b: Tensor, plan: LaunchPlan) -> Tensor:
+    """One solve with `plan` on validated CUDA tensors."""
+    x = torch.empty((plan.n, 3), dtype=torch.float32, device=D.device)
+    state = (torch.empty((plan.state_floats,), dtype=torch.float32,
+                         device=D.device) if plan.top else None)
+    code = cuda_build.library().hitl_bcr_solve(
+        D.data_ptr(), U.data_ptr(), b.data_ptr(), x.data_ptr(),
+        None if state is None else state.data_ptr(), plan.n, plan.m,
+        plan.lanes_per_block.bit_length() - 1, plan.top, plan.threads,
+        plan.smem_bytes, torch.cuda.current_stream(D.device).cuda_stream)
+    cuda_build.check(code, "bcr_solve")
+    launches.count += 1
+    return x
+
+
+def check_inputs(D: Tensor, U: Tensor, b: Tensor) -> int:
+    """Validate the kernel's inputs; return n."""
     n = D.shape[0]
     dev = D.device
     if dev.type != "cuda":
         raise ValueError(f"bcr_solve_cuda needs CUDA tensors, got {dev}")
-    if n < 1:
-        raise ValueError("bcr_solve: empty system")
     f32 = torch.float32
     cuda_build.require("bcr_solve", "D", D, (n, 3, 3), f32, dev)
-    cuda_build.require("bcr_solve", "U", U, (n - 1, 3, 3), f32, dev)
+    cuda_build.require("bcr_solve", "U", U, (max(n - 1, 0), 3, 3), f32, dev)
     cuda_build.require("bcr_solve", "b", b, (n, 3), f32, dev)
-    m = tridiag.next_pow2(n)
-    lib = cuda_build.library()
-    x = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    ws = torch.empty((SCRATCH_PLANES * m,), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.hitl_bcr_solve(D.data_ptr(), U.data_ptr(), b.data_ptr(),
-                              x.data_ptr(), ws.data_ptr(), n, m, stream)
-    cuda_build.check(code, "bcr_solve")
-    launches.count += 1
-    return x
+    return n
+
+
+def bcr_solve_cuda(D: Tensor, U: Tensor, b: Tensor) -> Tensor:
+    """Launch the kernel: D [n,3,3], U [n-1,3,3], b [n,3] f32 CUDA -> x."""
+    return launch(D, U, b, launch_plan(check_inputs(D, U, b)))
 
 
 def bcr_solve(D: Tensor, U: Tensor, b: Tensor) -> Tensor:

@@ -142,9 +142,11 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.hitl_em_scan.argtypes = [vp, vp, vp, f, i, i, vp, vp, vp]
+        lib.hitl_em_scan.argtypes = [vp, vp, vp, f, i, i, i, i, vp, vp, vp,
+                                     vp, vp]
         lib.hitl_em_scan.restype = i
-        lib.hitl_bcr_solve.argtypes = [vp, vp, vp, vp, vp, i, i, vp]
+        lib.hitl_bcr_solve.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i,
+                                       vp]
         lib.hitl_bcr_solve.restype = i
         lib.hitl_cuda_error_string.argtypes = [i]
         lib.hitl_cuda_error_string.restype = ctypes.c_char_p
