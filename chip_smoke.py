@@ -17,13 +17,23 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      run_queue of the 1024-pose golden session; each run's kernel launch
      counts are zeroed just before it and checked just after
      (em_scan = 2 x cycles, bcr = LM iterations);
-  5. times at the main path's shapes: each kernel by CUDA events (host
+  5. the post-human STF refine on the repaired 1024-pose map:
+     post_optimize(matcher="auto") (accepted, cost not increased, finite,
+     pose 0 unmoved, matches found, a second run bit-equal, undo() back to
+     the pre-refine poses with the input history untouched), the same
+     refine by the matrix-free PCG solver (same matches, poses within 2e-3
+     of the dense result) and by the pair matcher; wall ms of each (match
+     and solve apart), LM and CG iterations, drop counters, peak memory;
+  6. one speculative correction: two clicks with the first logged
+     selection, then run(): one speculative hit, poses bit-equal to
+     replay_log of the same entry, launch counts as for one cycle;
+  7. times at the main path's shapes: each kernel by CUDA events (host
      overhead included) and by torch.profiler (its own device time), its
      plain version, its bound from the shapes, and for BCR
      torch.linalg.solve on the dense system; BCR also at n = 64, 16384
      and 32768;
-  6. a `{"kernels": [...]}` line with launches, agreement, times and bounds;
-  7. the last line: {"ok": true, "device": {...}}.
+  8. a `{"kernels": [...]}` line with launches, agreement, times and bounds;
+  9. the last line: {"ok": true, "device": {...}}.
 
 scripts/compare_checkouts.py times two checkouts' kernels and replays
 against each other on one card with the helpers here.
@@ -445,6 +455,169 @@ def phase_main(torch, small, small_log, large, large_log):
 
 # ---------------------------------------------------------------- phase 5
 
+# tests/test_stf.py::test_pcg_refine_matches_dense: PCG against dense poses
+PCG_ATOL = 2e-3
+
+
+def _sync():
+    import torch
+
+    if DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def _peak_memory_mb(torch):
+    if DEVICE == "cpu":
+        return float("nan")
+    return torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def phase_refine(torch, data, entries, capacity):
+    """The post-human STF refine at the map's full width, on the state the
+    replayed session leaves. Launches no hand-written kernel: the reference
+    refine reaches none (its PCG preconditioner is the plain block cyclic
+    reduction)."""
+    import numpy as np
+
+    from hitl_slam_torch.bench import refine_split
+    from hitl_slam_torch.models.hitl import refine as R
+
+    eng = _engine(data, capacity)
+    for e in entries:
+        rep = eng.replay_log(e, record=True)
+        check(rep.accepted, f"refine: replay rejected: {rep.reason}")
+    repaired = eng.state
+    history = [(h.correction_type, h.undone) for h in eng.get_input_history()]
+    P = repaired.num_poses
+    log(f"[refine] map: {P} poses x {repaired.max_points} padded points, "
+        f"{int(repaired.point_mask.sum())} real")
+    smi = nvidia_smi_line() if DEVICE != "cpu" else "cpu"
+
+    # ---- post_optimize through the engine ----
+    _sync()
+    _reset_counts()
+    if DEVICE != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rep = eng.post_optimize(matcher="auto")
+    _sync()
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = _peak_memory_mb(torch)
+    check(_read_counts() == (0, 0),
+          f"refine: kernel launches {_read_counts()} on a path with none")
+    refined = eng.state.poses
+    check(rep.accepted, f"post_optimize not accepted: {rep.reason}")
+    check(rep.final_cost <= rep.initial_cost,
+          f"post_optimize cost rose: {rep.initial_cost} -> {rep.final_cost}")
+    check(bool(torch.isfinite(refined).all()), "post_optimize: poses not finite")
+    d0 = float((refined[0] - repaired.poses[0]).abs().max())
+    check(d0 <= 1e-6, f"post_optimize moved pose 0 by {d0}")
+    moved = pose_errors(refined.cpu().numpy(), repaired.poses.cpu().numpy())
+    log(f"[refine] post_optimize(auto): {rep.reason}; wall {wall:.1f} ms, "
+        f"LM iterations {rep.lm_iterations}, cost {rep.initial_cost:.6g} -> "
+        f"{rep.final_cost:.6g}, dropped_rows {rep.dropped_rows}, poses moved "
+        f"{moved[0]:.3e} m / {moved[1]:.3e} rad, peak memory {peak:.0f} MiB "
+        f"({smi})")
+    matcher = "pair" if "pair matcher" in rep.reason else "global"
+
+    # ---- a second run from the same state: bit-equal, and the split ----
+    results = {}
+    for name, m, solver in (("dense", matcher, "auto"),
+                            ("pcg", matcher, "pcg"),
+                            ("pair", "pair", "auto")):
+        if DEVICE != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        r = refine_split(_sync, repaired, m, 30, solver=solver)
+        r["peak_mib"] = _peak_memory_mb(torch)
+        results[name] = r
+        poses = r["poses"]
+        check(bool(torch.isfinite(poses).all()), f"refine {name}: not finite")
+        check(r["final_cost"] <= r["initial_cost"],
+              f"refine {name}: cost rose {r['initial_cost']} -> "
+              f"{r['final_cost']}")
+        check(r["num_matches"] > 0, f"refine {name}: no matches")
+        log(f"[refine] {name} (matcher {m}, solver {solver}): match "
+            f"{r['match_ms']:.1f} ms, solve {r['solve_ms']:.1f} ms, LM "
+            f"iterations {r['lm_iterations']}, CG iterations "
+            f"{r['cg_iterations']}, matches {r['num_matches']}, cost "
+            f"{r['initial_cost']:.6g} -> {r['final_cost']:.6g}, dropped: "
+            f"match {r['match_dropped']} pairs {r['pairs_dropped']} vote "
+            f"{r['vote_dropped']} elect {r['elect_dropped']}, peak memory "
+            f"{r['peak_mib']:.0f} MiB ({smi})")
+    dense, pcg = results["dense"], results["pcg"]
+    check(torch.equal(dense["poses"], refined),
+          "two refines from the same state are not bit-equal: max diff "
+          f"{float((dense['poses'] - refined).abs().max()):.3e}")
+    check(dense["lm_iterations"] == rep.lm_iterations
+          and dense["match_dropped"] == rep.dropped_rows,
+          "the second refine's report differs from the first's")
+    check(pcg["num_matches"] == dense["num_matches"],
+          f"pcg matches {pcg['num_matches']} != dense {dense['num_matches']}")
+    dpcg = float((pcg["poses"] - dense["poses"]).abs().max())
+    check(dpcg <= PCG_ATOL, f"pcg poses {dpcg:.3e} from dense > {PCG_ATOL}")
+    # the pair matcher's table: distinct pose pairs among its rows
+    stf, *_ = R.match_factors(repaired.points, repaired.normals,
+                              repaired.point_mask, repaired.poses, "pair",
+                              65536, 8192, 64, None)
+    keys = (stf.pose0.long() * P + stf.pose1.long())[stf.valid]
+    n_pairs = int(torch.unique(keys).numel())
+    check(n_pairs > 0, "pair matcher: no pose pair")
+    log(f"[refine] second run bit-equal to the first; pcg within "
+        f"{dpcg:.3e} of dense (<= {PCG_ATOL}); pair matcher: {n_pairs} "
+        f"pose pairs in {int(stf.valid.sum())} rows")
+
+    # ---- undo reverts the refine alone ----
+    check(eng.undo(), "undo after post_optimize returned False")
+    check(torch.equal(eng.state.poses, repaired.poses),
+          "undo did not restore the pre-refine poses bit for bit")
+    check([(h.correction_type, h.undone) for h in eng.get_input_history()]
+          == history, "undo of the refine touched the input history")
+    log("[refine] undo: pre-refine poses restored bit for bit, input "
+        "history untouched")
+    return results
+
+
+# ---------------------------------------------------------------- phase 6
+
+def phase_speculative(torch, data, entry, capacity):
+    """One correction through the two-click path with speculative dispatch,
+    against replay_log of the same entry from the same state."""
+    want = _engine(data, capacity)
+    rep_w = want.replay_log(entry)
+    check(rep_w.accepted, f"speculative: replay rejected: {rep_w.reason}")
+
+    eng = _engine(data, capacity)
+    _sync()
+    _reset_counts()
+    ct = int(entry.correction_type)
+    p = entry.points
+    eng.add_correction_points(ct, p[0], p[1])
+    eng.add_correction_points(ct, p[2], p[3])
+    rep = eng.run()
+    _sync()
+    n_em, n_bcr = _read_counts()
+    check(rep.accepted, f"speculative run rejected: {rep.reason}")
+    check(eng.speculative_hits == 1,
+          f"speculative hits {eng.speculative_hits} != 1")
+    check(torch.equal(eng.state.poses, want.state.poses),
+          "speculative run's poses differ from replay_log's: max "
+          f"{float((eng.state.poses - want.state.poses).abs().max()):.3e}")
+    check(torch.equal(eng.state.covariances, want.state.covariances)
+          and torch.equal(eng.state.constraints.active,
+                          want.state.constraints.active),
+          "speculative run's covariances or constraint rows differ")
+    check(rep.lm_iterations == rep_w.lm_iterations,
+          "speculative run's LM iterations differ from replay_log's")
+    check(n_em == 2 and n_bcr == rep.lm_iterations,
+          f"speculative cycle launches em_scan={n_em} bcr={n_bcr}, expected "
+          f"2 and {rep.lm_iterations}")
+    log(f"[speculative] 1 hit, poses bit-equal to replay_log, LM iterations "
+        f"{rep.lm_iterations}, launches em_scan={n_em} bcr={n_bcr}")
+    return n_em, n_bcr
+
+
+# ---------------------------------------------------------------- phase 7
+
 def phase_times(torch, state, log_entries):
     """Each kernel at the main path's shapes (em_scan on the golden_large
     map, BCR at its 1024 poses), beside its plain version, its bound and
@@ -550,9 +723,14 @@ def main() -> int:
     # ---- 4. the main path ----
     n_em, n_bcr = phase_main(torch, small, small_log, large, large_log)
     check(n_em > 0 and n_bcr > 0, "a kernel was not launched on the main path")
-    # ---- 5. times ----
+    # ---- 5. the refine ----
+    phase_refine(torch, large, large_log, 16384)
+    # ---- 6. one speculative correction ----
+    s_em, s_bcr = phase_speculative(torch, large, large_log[0], 16384)
+    n_em, n_bcr = n_em + s_em, n_bcr + s_bcr
+    # ---- 7. times ----
     times = phase_times(torch, state, large_log)
-    # ---- 6. kernels line ----
+    # ---- 8. kernels line ----
     kernels = [
         {"name": "em_scan", "route": "cuda",
          "source": "hitl_slam_torch/csrc/em_scan.cu",
@@ -565,7 +743,7 @@ def main() -> int:
     ]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    # ---- 7. contract line ----
+    # ---- 9. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

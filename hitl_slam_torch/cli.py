@@ -8,6 +8,11 @@ Port of the headless flags of hitl_slam_tpu/cli.py:
   --replay-all        replay every log entry in turn, save results, exit
   --replay-fused      same, but the whole log runs as one device-carried
                       chain (engine.run_queue)
+  --post-optimize     run the STF correspondence refinement after the
+                      replay (or on the loaded map when no replay mode is
+                      given)
+  --refine-matcher    auto | global | pair: the refinement's correspondence
+                      search
   --device            torch device to run on (default cuda)
 
 Run as `python -m hitl_slam_torch.cli -P map.stfs.covars -L session.log
@@ -31,6 +36,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--replay-fused", action="store_true",
                    help="replay the log as one device-carried chain "
                         "(engine.run_queue)")
+    p.add_argument("--post-optimize", action="store_true",
+                   help="run the STF correspondence refinement after the "
+                        "replay (dense solve up to 2048 poses, matrix-free "
+                        "PCG above)")
+    p.add_argument("--refine-matcher", default="auto",
+                   choices=("auto", "global", "pair"),
+                   help="correspondence search for --post-optimize: "
+                        "'global' 1-NN grid, 'pair' per-pose-pair dense "
+                        "tiles (needed on heavily re-traversed maps), "
+                        "'auto' falls back from global to pair when the "
+                        "global matcher yields zero gated bundles")
     p.add_argument("--device", default="cuda",
                    help="torch device, e.g. cuda, cuda:1 or cpu")
     return p
@@ -41,6 +57,16 @@ def _sync(device) -> None:
         import torch
 
         torch.cuda.synchronize(device)
+
+
+def _post_optimize(engine, matcher: str, device, timed: bool) -> None:
+    t0 = time.perf_counter()
+    rep = engine.post_optimize(matcher=matcher)
+    _sync(device)
+    dt = (time.perf_counter() - t0) * 1e3
+    print(f"post-optimize (STF refine): lm_iters={rep.lm_iterations} "
+          f"cost {rep.initial_cost:.4g} -> {rep.final_cost:.4g}"
+          + (f" ({dt:.1f} ms)" if timed else ""))
 
 
 def main(argv=None) -> int:
@@ -96,6 +122,8 @@ def main(argv=None) -> int:
         n_ok = sum(r.accepted for r in reports)
         print(f"fused-replayed {len(live)} corrections ({n_ok} accepted) in "
               f"{total:.2f} s ({total * 1e3 / max(len(live), 1):.1f} ms/cycle)")
+        if args.post_optimize:
+            _post_optimize(engine, args.refine_matcher, device, timed=False)
     elif args.replay_all:
         t_start = time.perf_counter()
         for i, entry in enumerate(input_log):
@@ -112,6 +140,10 @@ def main(argv=None) -> int:
                   f"cost {rep.initial_cost:.4g} -> {rep.final_cost:.4g})")
         total = time.perf_counter() - t_start
         print(f"replayed {len(input_log)} corrections in {total:.2f} s")
+        if args.post_optimize:
+            _post_optimize(engine, args.refine_matcher, device, timed=True)
+    elif args.post_optimize:
+        _post_optimize(engine, args.refine_matcher, device, timed=True)
 
     stfs.save_results_poses(args.save, engine.get_poses())
     print(f"saved {len(data.poses)} poses to {args.save}")

@@ -63,6 +63,7 @@ def cycle_step(
     write_offset,          # int or scalar int tensor
     lm_config: LMConfig = LMConfig(),
     mu0: Tensor | None = None,             # warm-start damping
+    odom_inv_sigma: Tensor | None = None,  # [P-1,3] loop-closure weighting
 ) -> CycleOutput:
     ctype = int(ctype)
     world = pose_to_world(poses[:, None, :], points)
@@ -111,7 +112,7 @@ def cycle_step(
     poses2 = _wrap_theta(poses2)
 
     # --- joint LM solve over odometry + all human factors ---
-    problem = build_problem(poses2, table)
+    problem = build_problem(poses2, table, odom_inv_sigma=odom_inv_sigma)
     lm = lm_solve(problem, poses2, lm_config, mu0=mu0)
     poses3 = _wrap_theta(lm.poses)
 
@@ -152,6 +153,7 @@ def queue_chain(
     n0,                    # int or scalar int tensor: table write cursor
     lm_config: LMConfig = LMConfig(),
     warm_start_mu: bool = False,
+    odom_inv_sigma: Tensor | None = None,
 ):
     """K correction cycles in sequence, carried on the device.
 
@@ -172,7 +174,8 @@ def queue_chain(
     for k, ctype in enumerate(ctypes):
         out = cycle_step(points, point_mask, poses, covariances, constraints,
                          int(ctype), sels[k], n, lm_config=lm_config,
-                         mu0=mu if warm_start_mu else None)
+                         mu0=mu if warm_start_mu else None,
+                         odom_inv_sigma=odom_inv_sigma)
         ok = (out.verified & out.order_valid
               & torch.isfinite(out.lm_final_cost))
         poses = torch.where(ok, out.poses, poses)

@@ -2,19 +2,28 @@
 
 Port of hitl_slam_tpu/models/hitl/engine.py::HitLSLAM: init / run /
 replay_log / run_queue / add_correction_points / undo / getters /
-get_cost_breakdown, with the same single-depth undo snapshot and the
-two-click pending-correction state machine. The numeric cycle runs on the
-engine's device (models/hitl/cycle.py); this class holds the state,
-records history and undo snapshots, and keeps the constraint-table write
-cursor. It reads back six scalars per correction.
+get_cost_breakdown / post_optimize and speculative dispatch, with the same
+single-depth undo snapshot and the two-click pending-correction state
+machine. The numeric cycle runs on the engine's device
+(models/hitl/cycle.py); this class holds the state, records history and
+undo snapshots, and keeps the constraint-table write cursor. It reads back
+six scalars per correction.
 
-Not ported yet: speculative dispatch, post_optimize and
-propose_corrections.
+Speculative dispatch: when the second drag completes a selection, the whole
+cycle for it starts on a worker thread (on a CUDA stream of its own when the
+device is a card), so that it computes during the pause before run() is
+called. run() takes the result only if the correction type, the selection
+bytes, the identity of `state.poses` and the constraint count are those of
+the dispatch; anything else waits for the worker, drops its result and runs
+the cycle afresh.
+
+Not ported yet: propose_corrections.
 """
 
 from __future__ import annotations
 
 import sys
+import threading
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -29,7 +38,7 @@ from ...core.state import (
 )
 from ...solver.lm import LMConfig
 from ...utils.timing import FunctionTimer
-from .cycle import cycle_step, queue_chain
+from .cycle import CycleOutput, cycle_step, queue_chain
 
 
 @dataclass
@@ -52,6 +61,25 @@ def _read_scalars(*ts) -> list[float]:
     return torch.stack([t.to(torch.float64) for t in ts]).cpu().tolist()
 
 
+def _report_scalars(out: CycleOutput) -> list[float]:
+    return _read_scalars(
+        out.verified, out.order_valid, out.num_new_constraints,
+        out.lm_iterations, out.lm_initial_cost, out.lm_final_cost)
+
+
+@dataclass
+class _Speculation:
+    """One cycle dispatched ahead of run(): what it was dispatched for, the
+    worker, and the box the worker leaves its result or its exception in."""
+
+    ctype: int
+    sel_bytes: bytes
+    poses: torch.Tensor      # the state's pose tensor at dispatch (identity)
+    num_constraints: int
+    thread: threading.Thread
+    box: dict
+
+
 class HitLSLAM:
     """One interactive map-repair session on `device`."""
 
@@ -62,12 +90,27 @@ class HitLSLAM:
         self.prev_poses = None
         self.prev_covariances = None
         self.prev_num_constraints = 0
+        # True iff the snapshot in prev_* belongs to a post_optimize solve
+        # (undo then reverts the refine without touching input_history)
+        self._undo_is_refine = False
         self.num_constraints = 0
         self.input_history: list[SingleInput] = []
         self.num_completed_cycles = 0
         self.selected_points: list[np.ndarray] = []
         self.pending_type = CorrectionType.UNKNOWN
         self.correction_type = CorrectionType.UNKNOWN
+        # speculative dispatch: the cycle starts when the selection is
+        # complete, so the device computes during the pause before run()
+        self.speculate = True
+        self.speculative_hits = 0
+        self._speculative: _Speculation | None = None
+        self._spec_stream = None     # the worker's CUDA stream, made once
+        # the poses the last accepted cycle handed to its LM solve
+        self.last_pre_solve_poses = None
+        # optional [P-1, 3] per-factor odometry inverse standard deviations
+        # (the EnML loop-closure mode weights chain factors by the pose
+        # covariance ellipses, not by the fixed noise model)
+        self.odom_inv_sigma = None
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -134,6 +177,7 @@ class HitLSLAM:
                 self.selected_points.append(mouse_up)
             self.correction_type = ctype
             self.pending_type = CorrectionType.UNKNOWN
+            self._dispatch_speculative()
 
     def _prepare_sel(self, ctype: CorrectionType,
                      sel: np.ndarray) -> np.ndarray | None:
@@ -141,6 +185,90 @@ class HitLSLAM:
             # a point pair enters the cycle as two degenerate segments
             sel = np.stack([sel[0], sel[0], sel[1], sel[1]])
         return sel if sel.shape[0] == 4 else None
+
+    def _run_cycle(self, st: MapState, ctype: int, sel: np.ndarray,
+                   num_constraints: int) -> CycleOutput:
+        return cycle_step(
+            st.points, st.point_mask, st.poses, st.covariances,
+            st.constraints, ctype,
+            torch.as_tensor(sel, dtype=torch.float32, device=self.device),
+            num_constraints,
+            lm_config=self.lm_config,
+            odom_inv_sigma=self.odom_inv_sigma,
+        )
+
+    def _dispatch_speculative(self):
+        """Start the cycle for the just-completed selection on a worker
+        thread, without waiting for it. On a CUDA device the worker runs on
+        a stream of its own, which first waits for the work already queued
+        on the caller's stream (the state's tensors may still be in the
+        making there)."""
+        if not self.speculate or self.state is None:
+            return
+        sel = self._prepare_sel(self.correction_type,
+                                np.stack(self.selected_points).astype(
+                                    np.float32))
+        if sel is None:
+            return
+        # retire a superseded dispatch before starting the new one
+        self._discard_speculative()
+        st = self.state
+        ctype = int(self.correction_type)
+        n = self.num_constraints
+        stream = None
+        if self.device.type == "cuda":
+            if self._spec_stream is None:
+                self._spec_stream = torch.cuda.Stream(self.device)
+            stream = self._spec_stream
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+        box: dict = {}
+
+        def work():
+            try:
+                if stream is None:
+                    out = self._run_cycle(st, ctype, sel, n)
+                    vals = _report_scalars(out)
+                else:
+                    with torch.cuda.stream(stream):
+                        out = self._run_cycle(st, ctype, sel, n)
+                        vals = _report_scalars(out)
+                box["out"], box["vals"] = out, vals
+            except Exception as e:   # handed to the run() that uses it
+                box["error"] = e
+
+        th = threading.Thread(target=work, daemon=True,
+                              name="hitl-speculative-cycle")
+        th.start()
+        self._speculative = _Speculation(ctype, sel.tobytes(), st.poses, n,
+                                         th, box)
+
+    def _discard_speculative(self) -> _Speculation | None:
+        """Take the pending speculative dispatch, if any, after its worker
+        has finished and its stream has drained: from here on nothing of it
+        is in flight, so the tensors it read may be released."""
+        spec, self._speculative = self._speculative, None
+        if spec is not None:
+            spec.thread.join()
+            if self._spec_stream is not None:
+                self._spec_stream.synchronize()
+        return spec
+
+    def _adopt_speculative(self, spec: _Speculation):
+        """(out, vals) of a dispatch that matched; its exception, if it
+        raised, is raised here. The result's tensors were allocated on the
+        worker's stream and are used on the caller's from now on: the
+        allocator is told, so that it does not hand their memory to a later
+        dispatch while the caller's stream still reads it."""
+        if "error" in spec.box:
+            raise spec.box["error"]
+        out, vals = spec.box["out"], spec.box["vals"]
+        if self._spec_stream is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_stream(self._spec_stream)
+            for t in (out.poses, out.covariances, out.pre_solve_poses,
+                      out.refit_sel, *vars(out.constraints).values()):
+                t.record_stream(cur)
+        return out, vals
 
     def reset_correction_inputs(self):
         self.selected_points = []
@@ -151,7 +279,16 @@ class HitLSLAM:
 
     def undo(self) -> bool:
         """Single-depth undo: restore the pose/covariance snapshot and
-        deactivate the last correction's constraint rows."""
+        deactivate the last correction's constraint rows.
+
+        When the most recent solve was post_optimize (which has no entry in
+        the input history), undo reverts that and leaves the history alone:
+        the last human correction stays undoable afterwards."""
+        if self._undo_is_refine:
+            self.state = self.state.replace(
+                poses=self.prev_poses, covariances=self.prev_covariances)
+            self._undo_is_refine = False
+            return True
         if not self.input_history:
             return False
         if self.input_history[-1].undone:
@@ -184,7 +321,8 @@ class HitLSLAM:
         from ...solver.joint import build_problem
 
         st = self.state
-        prob = build_problem(st.poses, st.constraints)
+        prob = build_problem(st.poses, st.constraints,
+                             odom_inv_sigma=self.odom_inv_sigma)
         r_o = R.odometry_residuals(prob.odom, st.poses)
         r_h = R.human_residuals(prob.human, st.poses)
         odo, hum, n_act = _read_scalars(
@@ -195,6 +333,57 @@ class HitLSLAM:
             "human_cost": hum,
             "num_active_constraints": int(n_act),
         }
+
+    # -- post-human STF refinement -----------------------------------------
+
+    def post_optimize(self, max_iterations: int = 30,
+                      matcher: str = "auto") -> CycleReport:
+        """Run the STF correspondence search and refinement solve on the
+        current map.
+
+        matcher="auto": try the global 1-NN grid first; if every bundle dies
+        at the >= 10-per-pair gate (the fragmentation mode of heavily
+        re-traversed maps), run again with the per-pair matcher.
+        "global"/"pair" force one path."""
+        from .refine import post_human_refine
+
+        self._discard_speculative()
+        st = self.state
+        self.prev_poses = st.poses
+        self.prev_covariances = st.covariances
+        self.prev_num_constraints = self.num_constraints
+        cfg = LMConfig(max_iterations=max_iterations)
+        used = "pair" if matcher == "pair" else "global"
+        out = post_human_refine(
+            st.points, st.normals, st.point_mask, st.poses, st.constraints,
+            config=cfg, matcher=used,
+        )
+        if matcher == "auto" and int(out.num_matches) == 0:
+            used = "pair"
+            out = post_human_refine(
+                st.points, st.normals, st.point_mask, st.poses,
+                st.constraints, config=cfg, matcher=used,
+            )
+        self.state = st.replace(poses=out.poses)
+        # the prev_* snapshot now belongs to this refine: undo reverts it
+        # without marking the last human input undone
+        self._undo_is_refine = True
+        labels = [("pairs_dropped", out.pairs_dropped),
+                  ("vote_dropped", out.vote_dropped),
+                  ("elect_dropped", out.elect_dropped)]
+        labels = [(k, v) for k, v in labels if v is not None]
+        lm_it, c0, c1, match_dropped, *drops = _read_scalars(
+            out.iterations, out.initial_cost, out.final_cost,
+            out.match_dropped, *[v for _, v in labels])
+        # capacity violations beyond lost rows surface in the reason text
+        extra = "".join(f", {k}={int(v)}"
+                        for (k, _), v in zip(labels, drops) if int(v) > 0)
+        return CycleReport(
+            True, reason=f"post-human STF refinement ({used} matcher{extra})",
+            lm_iterations=int(lm_it), initial_cost=c0, final_cost=c1,
+            # factor rows lost to matcher-table capacity
+            dropped_rows=int(match_dropped),
+        )
 
     # -- the correction cycle ----------------------------------------------
 
@@ -231,10 +420,12 @@ class HitLSLAM:
         restores the state before the whole queue."""
         if not inputs:
             return []
+        self._discard_speculative()
         st = self.state
         self.prev_poses = st.poses
         self.prev_covariances = st.covariances
         self.prev_num_constraints = self.num_constraints
+        self._undo_is_refine = False
         live = [self._prepare_sel(s.correction_type,
                                   np.asarray(s.points, np.float32))
                 for s in inputs]
@@ -247,7 +438,8 @@ class HitLSLAM:
             poses, covs, table, _, per = queue_chain(
                 st.points, st.point_mask, st.poses, st.covariances,
                 st.constraints, [int(s.correction_type) for s, _ in runs],
-                sels, self.num_constraints, lm_config=self.lm_config)
+                sels, self.num_constraints, lm_config=self.lm_config,
+                odom_inv_sigma=self.odom_inv_sigma)
             flags = torch.stack([c.to(torch.float64) for c in per],
                                 dim=1).cpu().tolist()
             timer.lap("queue_chain")
@@ -314,16 +506,21 @@ class HitLSLAM:
         prev_covariances = st.covariances
         prev_n = self.num_constraints
 
-        out = cycle_step(
-            st.points, st.point_mask, st.poses, st.covariances,
-            st.constraints, int(ctype),
-            torch.as_tensor(sel, dtype=torch.float32, device=self.device),
-            self.num_constraints,
-            lm_config=self.lm_config,
-        )
-        verified, order_valid, n_new, lm_it, c0, c1 = _read_scalars(
-            out.verified, out.order_valid, out.num_new_constraints,
-            out.lm_iterations, out.lm_initial_cost, out.lm_final_cost)
+        # take the speculative dispatch when it was made for this exact
+        # cycle (type, selection bytes, pose tensor identity, constraint
+        # count); anything else has been waited for and is dropped here
+        out = vals = None
+        spec = self._discard_speculative()
+        if (spec is not None and spec.ctype == int(ctype)
+                and spec.sel_bytes == sel.astype(np.float32).tobytes()
+                and spec.poses is st.poses
+                and spec.num_constraints == self.num_constraints):
+            out, vals = self._adopt_speculative(spec)
+            self.speculative_hits += 1
+        if out is None:
+            out = self._run_cycle(st, int(ctype), sel, self.num_constraints)
+            vals = _report_scalars(out)
+        verified, order_valid, n_new, lm_it, c0, c1 = vals
         timer.lap("cycle_step")
         self.num_completed_cycles += 1
 
@@ -344,6 +541,7 @@ class HitLSLAM:
             self.prev_poses = prev_poses
             self.prev_covariances = prev_covariances
             self.prev_num_constraints = prev_n
+            self._undo_is_refine = False
 
         if not bool(order_valid):
             return CycleReport(False, "selection overlap / no backprop window",
@@ -352,8 +550,10 @@ class HitLSLAM:
         self.prev_poses = prev_poses
         self.prev_covariances = prev_covariances
         self.prev_num_constraints = prev_n
+        self._undo_is_refine = False
         self.num_constraints += int(n_new)
         dropped = self._clip_cursor()
+        self.last_pre_solve_poses = out.pre_solve_poses
         self.state = st.replace(poses=out.poses, covariances=out.covariances,
                                 constraints=out.constraints)
         return CycleReport(

@@ -50,8 +50,14 @@ class HumanFactors:
     active: Tensor    # [C] bool
 
 
-def build_odometry_factors(poses: Tensor) -> OdometryFactors:
-    """Factor constants from the current poses, vectorized over the chain."""
+def build_odometry_factors(poses: Tensor,
+                           inv_sigma: Tensor | None = None
+                           ) -> OdometryFactors:
+    """Factor constants from the current poses, vectorized over the chain.
+
+    `inv_sigma` replaces the fixed noise model by per-factor [F, 3] inverse
+    standard deviations (the EnML loop-closure mode weights each chain
+    factor by its pose covariance ellipse)."""
     p0, p1 = poses[:-1], poses[1:]
     trans = p1[:, :2] - p0[:, :2]
     norm = norm2(trans)
@@ -66,10 +72,14 @@ def build_odometry_factors(poses: Tensor) -> OdometryFactors:
     axis = torch.stack([radial_dir, tangential_dir], dim=-2)  # rows
     radial = torch.where(degenerate, torch.zeros_like(norm), norm)
     rotation = angle_mod(p1[:, 2] - p0[:, 2])
-    inv_sigma = torch.tensor(
-        [1.0 / ODOM_RADIAL_STD, 1.0 / ODOM_TANGENTIAL_STD,
-         1.0 / ODOM_ANGULAR_STD], dtype=poses.dtype,
-        device=poses.device).expand(axis.shape[0], 3)
+    if inv_sigma is None:
+        inv_sigma = torch.tensor(
+            [1.0 / ODOM_RADIAL_STD, 1.0 / ODOM_TANGENTIAL_STD,
+             1.0 / ODOM_ANGULAR_STD], dtype=poses.dtype,
+            device=poses.device).expand(axis.shape[0], 3)
+    else:
+        inv_sigma = torch.as_tensor(inv_sigma, dtype=poses.dtype,
+                                    device=poses.device)
     return OdometryFactors(axis=axis, radial=radial, rotation=rotation,
                            inv_sigma=inv_sigma)
 

@@ -30,7 +30,10 @@ class JointProblem:
     num_poses: int = 0
 
 
-def build_problem(poses: Tensor, table: ConstraintTable) -> JointProblem:
+def build_problem(poses: Tensor, table: ConstraintTable,
+                  odom_inv_sigma: Tensor | None = None) -> JointProblem:
+    """`odom_inv_sigma` [P-1, 3] replaces the fixed odometry noise by
+    per-factor inverse standard deviations."""
     P = poses.shape[0]
     human = res.build_human_factors(poses, table)
     C = human.pose_idx.shape[0]
@@ -43,7 +46,7 @@ def build_problem(poses: Tensor, table: ConstraintTable) -> JointProblem:
                   == torch.arange(P, device=poses.device)[None, :]
                   ).to(poses.dtype)
     return JointProblem(
-        odom=res.build_odometry_factors(poses),
+        odom=res.build_odometry_factors(poses, odom_inv_sigma),
         human=human,
         compact=res.compact_human_factors(human, poses, onehot),
         num_poses=P,

@@ -1,12 +1,15 @@
 """Block-tridiagonal solve of the Gauss-Newton normal equations, in torch.
 
-Port of hitl_slam_tpu/solver/tridiag.py (`inv3`, `bcr_solve`). The joint
-problem's Hessian is block-tridiagonal with 3x3 blocks; `bcr_solve` is
-block cyclic reduction: pad to a power of two with decoupled identity rows,
-then log2(n) levels of batched 3x3 algebra over halved arrays, then
-back-substitution. It is the plain version of the CUDA kernel in
-csrc/bcr.cu (same padding, elimination order and adjugate inverses), and
-the solver LM uses on CPU tensors.
+Port of hitl_slam_tpu/solver/tridiag.py (`inv3`, `bcr_solve`, `bcr_factor`,
+`bcr_apply`). The joint problem's Hessian is block-tridiagonal with 3x3
+blocks; `bcr_solve` is block cyclic reduction: pad to a power of two with
+decoupled identity rows, then log2(n) levels of batched 3x3 algebra over
+halved arrays, then back-substitution. It is the plain version of the CUDA
+kernel in csrc/bcr.cu (same padding, elimination order and adjugate
+inverses), and the solver LM uses on CPU tensors. `bcr_factor` keeps the
+matrix-dependent half of that elimination so that `bcr_apply` solves many
+right-hand sides with matrix-vector products only (the PCG preconditioner
+of solver/cg.py).
 """
 
 from __future__ import annotations
@@ -62,12 +65,8 @@ def bcr_solve(D: Tensor, U: Tensor, b: Tensor) -> Tensor:
     n = D.shape[0]
     m = next_pow2(n)
     dt, dev = D.dtype, D.device
-    eye = torch.eye(3, dtype=dt, device=dev).expand(m - n, 3, 3)
-    Df = torch.cat([D, eye], 0)
     # general (L, U) representation; start symmetric: L[i] = U[i-1]^T
-    Uf = torch.cat([U, torch.zeros((m - n + 1, 3, 3), dtype=dt, device=dev)], 0)
-    Lf = torch.cat([torch.zeros((1, 3, 3), dtype=dt, device=dev),
-                    Uf[:-1].transpose(-1, -2)], 0)
+    Df, Lf, Uf = _pad_system(D, U)
     bf = torch.cat([b, torch.zeros((m - n, 3), dtype=dt, device=dev)], 0)
     z3 = torch.zeros((1, 3, 3), dtype=dt, device=dev)
     z1 = torch.zeros((1, 3), dtype=dt, device=dev)
@@ -106,5 +105,80 @@ def bcr_solve(D: Tensor, U: Tensor, b: Tensor) -> Tensor:
         rhs = bo - _mv(Lo, x_even) - _mv(Uo, x_even_r)
         x_odd = _mv(Do_inv, rhs)
         x = torch.stack([x_even, x_odd], dim=1).reshape(2 * h, 3)
+
+    return x[:n]
+
+
+def _pad_system(D: Tensor, U: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """(Df, Lf, Uf), each [next_pow2(n), 3, 3]: D padded with identity
+    blocks, U with zeros, and L[i] = U[i-1]^T."""
+    n = D.shape[0]
+    m = next_pow2(n)
+    dt, dev = D.dtype, D.device
+    eye = torch.eye(3, dtype=dt, device=dev).expand(m - n, 3, 3)
+    Df = torch.cat([D, eye], 0)
+    Uf = torch.cat([U, torch.zeros((m - n + 1, 3, 3), dtype=dt, device=dev)], 0)
+    Lf = torch.cat([torch.zeros((1, 3, 3), dtype=dt, device=dev),
+                    Uf[:-1].transpose(-1, -2)], 0)
+    return Df, Lf, Uf
+
+
+def bcr_factor(D: Tensor, U: Tensor):
+    """The matrix-dependent half of `bcr_solve`, reusable across right-hand
+    sides: per level the elimination operators (Le, Ue, Lo, Uo, Do_inv), and
+    the root inverse. Returns (levels, root_inv, n)."""
+    n = D.shape[0]
+    Df, Lf, Uf = _pad_system(D, U)
+    z3 = torch.zeros((1, 3, 3), dtype=D.dtype, device=D.device)
+
+    levels = []
+    while Df.shape[0] > 1:
+        De, Do = Df[0::2], Df[1::2]
+        Le, Lo = Lf[0::2], Lf[1::2]
+        Ue, Uo = Uf[0::2], Uf[1::2]
+
+        Do_inv = inv3(Do)
+        DinvL = Do_inv @ Lo
+        DinvU = Do_inv @ Uo
+        DinvL_l = torch.cat([z3, DinvL[:-1]], 0)
+        DinvU_l = torch.cat([z3, DinvU[:-1]], 0)
+
+        D_new = De - Le @ DinvU_l - Ue @ DinvL
+        L_new = -(Le @ DinvL_l)
+        U_new = -(Ue @ DinvU)
+
+        levels.append((Le, Ue, Lo, Uo, Do_inv))
+        Df, Lf, Uf = D_new, L_new, U_new
+
+    return tuple(levels), inv3(Df[0]), n
+
+
+def bcr_apply(factor, b: Tensor) -> Tensor:
+    """Solve with a `bcr_factor` factorization: the right-hand side's
+    reduction and the back-substitution only. Same result as
+    `bcr_solve(D, U, b)` for the factored (D, U)."""
+    levels, root_inv, n = factor
+    m = next_pow2(n)
+    dt, dev = b.dtype, b.device
+    bf = torch.cat([b, torch.zeros((m - n, 3), dtype=dt, device=dev)], 0)
+    z1 = torch.zeros((1, 3), dtype=dt, device=dev)
+
+    rhs_stack = []
+    for Le, Ue, _, _, Do_inv in levels:
+        be, bo = bf[0::2], bf[1::2]
+        Dinvb = _mv(Do_inv, bo)
+        Dinvb_l = torch.cat([z1, Dinvb[:-1]], 0)
+        bf = be - _mv(Le, Dinvb_l) - _mv(Ue, Dinvb)
+        rhs_stack.append(bo)
+
+    x = _mv(root_inv, bf[0])[None]  # [1,3]
+
+    for (_, _, Lo, Uo, Do_inv), bo in zip(reversed(levels),
+                                          reversed(rhs_stack)):
+        x_even = x
+        x_even_r = torch.cat([x[1:], z1], 0)
+        rhs = bo - _mv(Lo, x_even) - _mv(Uo, x_even_r)
+        x_odd = _mv(Do_inv, rhs)
+        x = torch.stack([x_even, x_odd], dim=1).reshape(-1, 3)
 
     return x[:n]

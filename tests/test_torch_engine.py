@@ -132,3 +132,546 @@ def test_engine_run_undo_breakdown_match_jax():
         np.testing.assert_array_equal(eng.get_poses(), data.poses)
         assert eng.get_cost_breakdown()["num_active_constraints"] == 0
         assert eng.get_input_history()[-1].undone == 1
+
+
+# --------------------------------------------------- the rest of the engine
+
+def _engines(data, capacity=256, odometry=None):
+    """The port's engine and the JAX engine on the same map (the JAX one
+    without speculative dispatch: it is the plain reference)."""
+    from hitl_slam_torch.models.hitl.engine import HitLSLAM
+    from hitl_slam_tpu.models.hitl.engine import HitLSLAM as JHitLSLAM
+
+    engines = [HitLSLAM(device="cpu"), JHitLSLAM()]
+    engines[1].speculate = False
+    for eng in engines:
+        eng.init(data.poses, data.covariances, data.point_clouds,
+                 data.normal_clouds, odometry=odometry,
+                 constraint_capacity=capacity)
+    return engines
+
+
+def _golden():
+    from hitl_slam_torch.io import logs, stfs
+
+    return (stfs.load_stfs_covars(os.path.join(DATA, "golden.stfs.covars")),
+            logs.load_log(os.path.join(DATA, "golden.log")))
+
+
+def test_engine_public_names_cover_the_reference():
+    """Every public method and attribute of the reference's HitLSLAM but
+    propose_corrections exists on the port's, on the class and on a fresh
+    instance."""
+    from hitl_slam_torch.models.hitl.engine import HitLSLAM
+    from hitl_slam_tpu.models.hitl.engine import HitLSLAM as JHitLSLAM
+
+    def public(obj):
+        return {k for k in dir(obj) if not k.startswith("_")}
+
+    missing = public(JHitLSLAM) - public(HitLSLAM)
+    assert missing == {"propose_corrections"}, missing
+    # last_pre_solve_poses appears on the reference only after a cycle
+    want = public(JHitLSLAM()) | {"last_pre_solve_poses"}
+    missing = want - public(HitLSLAM(device="cpu"))
+    assert missing == {"propose_corrections"}, missing
+
+
+def test_cycle_sets_last_pre_solve_poses():
+    """_cycle records the poses it handed to the LM solve, as the
+    reference's engine does (the port left the attribute unset)."""
+    data, entries = _golden()
+    te, je = _engines(data)
+    assert te.last_pre_solve_poses is None
+    for eng in (te, je):
+        assert eng.replay_log(entries[0]).accepted
+    got = te.last_pre_solve_poses.numpy()
+    np.testing.assert_allclose(got, np.asarray(je.last_pre_solve_poses),
+                               atol=1e-4)
+    # backprop moved the poses before the solve polished them
+    assert np.abs(got - data.poses).max() > 1e-3
+
+
+def test_odom_inv_sigma_cycle_and_breakdown():
+    """cycle_step (on the inputs of __graft_entry__.entry()), the engine's
+    cycle and get_cost_breakdown with a random positive [P-1, 3] odometry
+    weighting, against the reference. Costs near the optimum are ~1e-9, so
+    they are held to an absolute 1e-6."""
+    import jax.numpy as jnp
+
+    import __graft_entry__ as G
+    from hitl_slam_torch.core.state import table_from_numpy
+    from hitl_slam_torch.models.hitl.cycle import cycle_step
+    from hitl_slam_torch.solver.lm import LMConfig as TCfg
+    from hitl_slam_tpu.models.hitl.cycle import cycle_step as jcycle
+    from hitl_slam_tpu.solver.lm import LMConfig as JCfg
+    from torch_port_helpers import n, np_fields, t
+
+    rng = np.random.default_rng(11)
+    jin = G._tiny_cycle_inputs()
+    points, mask, poses, covs, table, ctype, sel, off = jin
+    w = rng.uniform(5.0, 120.0, (poses.shape[0] - 1, 3)).astype(np.float32)
+    ref = jcycle(*jin, lm_config=JCfg(max_iterations=20),
+                 odom_inv_sigma=jnp.asarray(w))
+    args = (t(points), t(mask), t(poses), t(covs),
+            table_from_numpy(np_fields(table), "cpu"), int(ctype), t(sel),
+            int(off))
+    got = cycle_step(*args, lm_config=TCfg(max_iterations=20),
+                     odom_inv_sigma=t(w))
+    plain = cycle_step(*args, lm_config=TCfg(max_iterations=20))
+    assert bool(got.verified) and bool(got.order_valid)
+    assert int(got.num_new_constraints) == int(ref.num_new_constraints)
+    np.testing.assert_allclose(n(got.poses), np.asarray(ref.poses), atol=1e-4)
+    for k in ("lm_initial_cost", "lm_final_cost"):
+        np.testing.assert_allclose(float(getattr(got, k)),
+                                   float(getattr(ref, k)), rtol=1e-3,
+                                   atol=1e-6, err_msg=k)
+    # the solve has nothing left to do after backprop here, whatever the
+    # weighting (test_lm_with_odom_inv_sigma_matches_jax shows its effect)
+    np.testing.assert_allclose(n(got.poses), n(plain.poses), atol=1e-4)
+
+    data, entries = _golden()
+    w = rng.uniform(5.0, 120.0, (len(data.poses) - 1, 3)).astype(np.float32)
+    te, je = _engines(data)
+    te.odom_inv_sigma = torch.as_tensor(w)
+    je.odom_inv_sigma = jnp.asarray(w)
+    tr, jr = (eng.replay_log(entries[0]) for eng in (te, je))
+    assert tr.accepted and jr.accepted
+    assert tr.num_new_constraints == jr.num_new_constraints
+    np.testing.assert_allclose(te.get_poses(), je.get_poses(), atol=1e-4)
+    tb, jb = te.get_cost_breakdown(), je.get_cost_breakdown()
+    assert tb["num_active_constraints"] == jb["num_active_constraints"] > 0
+    for k in ("odometry_cost", "human_cost"):
+        assert abs(tb[k] - jb[k]) <= 1e-3 * abs(jb[k]) + 1e-6, k
+
+
+def test_lm_with_odom_inv_sigma_matches_jax(rng):
+    """The LM solve of a 60-pose chain with three human constraints under a
+    random odometry weighting: the reference's optimum, and another one than
+    under the fixed noise model."""
+    import jax.numpy as jnp
+
+    from hitl_slam_torch.core.state import table_from_numpy
+    from hitl_slam_torch.solver import joint as TJ, lm as TL
+    from hitl_slam_tpu.core.state import ConstraintTable as JTable
+    from hitl_slam_tpu.solver import joint as JJ
+    from hitl_slam_tpu.solver.lm import LMConfig as JCfg, solve_jit
+    from torch_port_helpers import chain_poses
+
+    num = 60
+    poses = chain_poses(rng, num)
+    w = rng.uniform(5.0, 120.0, (num - 1, 3)).astype(np.float32)
+    tab = _three_constraints(8, [50, 52, 55])
+    ref = solve_jit(
+        JJ.build_problem(jnp.asarray(poses),
+                         JTable(**{k: jnp.asarray(v) for k, v in tab.items()}),
+                         odom_inv_sigma=jnp.asarray(w)),
+        jnp.asarray(poses), JCfg(max_iterations=100))
+    table = table_from_numpy(tab, "cpu")
+    x0 = torch.as_tensor(poses)
+    got = TL.solve(TJ.build_problem(x0, table,
+                                    odom_inv_sigma=torch.as_tensor(w)),
+                   x0, TL.LMConfig(max_iterations=100))
+    plain = TL.solve(TJ.build_problem(x0, table), x0,
+                     TL.LMConfig(max_iterations=100))
+    np.testing.assert_allclose(float(got.final_cost), float(ref.final_cost),
+                               rtol=1e-3)
+    np.testing.assert_allclose(got.poses.numpy(), np.asarray(ref.poses),
+                               atol=2e-3)
+    assert float((got.poses - plain.poses).abs().max()) > 1e-2
+
+
+def _three_constraints(capacity, constrained):
+    """The three human constraints of tests/test_cpu_baseline.py as the
+    arrays of a constraint table of `capacity` rows."""
+    tab = {
+        "ctype": np.zeros(capacity, np.int32),
+        "constrained": np.zeros(capacity, np.int32),
+        "anchor": np.zeros(capacity, np.int32),
+        "delta_parallel": np.zeros(capacity, np.float32),
+        "delta_perpendicular": np.zeros(capacity, np.float32),
+        "delta_angle": np.zeros(capacity, np.float32),
+        "penalty_dir": np.zeros(capacity, np.float32),
+        "active": np.zeros(capacity, bool),
+    }
+    tab["ctype"][:3] = [2, 4, 5]
+    tab["constrained"][:3] = constrained
+    tab["anchor"][:3] = [3, 4, 5]
+    tab["delta_parallel"][:3] = [0.5, 0.2, 0.0]
+    tab["delta_perpendicular"][:3] = [-0.2, 0.4, 0.0]
+    tab["delta_angle"][:3] = [0.1, -0.1, 0.2]
+    tab["penalty_dir"][:3] = [0.0, 0.7, 0.0]
+    tab["active"][:3] = True
+    return tab
+
+
+def test_build_odometry_factors_inv_sigma_parity(rng):
+    import jax.numpy as jnp
+
+    from hitl_slam_torch.ops import residuals as TRes
+    from hitl_slam_tpu.ops import residuals as JRes
+    from torch_port_helpers import chain_poses
+
+    poses = chain_poses(rng, 40)
+    inv_sigma = rng.uniform(5.0, 120.0, (39, 3)).astype(np.float32)
+    moved = poses + rng.normal(0, 0.02, poses.shape).astype(np.float32)
+    for w in (None, inv_sigma):
+        ft = TRes.build_odometry_factors(
+            torch.as_tensor(poses), None if w is None else torch.as_tensor(w))
+        fj = JRes.build_odometry_factors(
+            jnp.asarray(poses), None if w is None else jnp.asarray(w))
+        np.testing.assert_array_equal(ft.inv_sigma.numpy(),
+                                      np.asarray(fj.inv_sigma))
+        np.testing.assert_allclose(
+            TRes.odometry_residuals(ft, torch.as_tensor(moved)).numpy(),
+            np.asarray(JRes.odometry_residuals(fj, jnp.asarray(moved))),
+            rtol=1e-4, atol=1e-4)
+
+
+def test_lm_matches_f64_cpu_baseline_at_1024_poses():
+    """The port's f32 LM against hitl_slam_tpu/baselines/cpu_lm.py (f64,
+    banded Cholesky) on the problem of tests/test_cpu_baseline.py grown to
+    1024 poses: the final cost at that test's tolerance. The poses lie in a
+    flat valley at this length (three constraints on a 1024-pose chain): the
+    JAX f32 solver ends 0.39 m from the f64 poses at a cost equal to 2e-5,
+    so the poses are held to 0.5 m only."""
+    from hitl_slam_torch.core.state import table_from_numpy
+    from hitl_slam_torch.solver import joint, lm
+    from hitl_slam_tpu.baselines.cpu_lm import cpu_lm_solve
+
+    rng = np.random.default_rng(1234)
+    num = 1024
+    poses = np.zeros((num, 3), np.float32)
+    for i in range(1, num):
+        poses[i, 2] = poses[i - 1, 2] + rng.normal(0, 0.1)
+        poses[i, :2] = poses[i - 1, :2] + [0.4 * np.cos(poses[i - 1, 2]),
+                                           0.4 * np.sin(poses[i - 1, 2])]
+    tab = _three_constraints(8, [1000, 1010, 1020])
+    np_table = dict(
+        ctype=tab["ctype"][:3], constrained=tab["constrained"][:3],
+        anchor=tab["anchor"][:3], dpar=tab["delta_parallel"][:3],
+        dperp=tab["delta_perpendicular"][:3], dth=tab["delta_angle"][:3],
+        pen=tab["penalty_dir"][:3], active=tab["active"][:3])
+    cpu_poses, cpu_cost, cpu_iters = cpu_lm_solve(poses, np_table)
+    prob = joint.build_problem(torch.as_tensor(poses),
+                               table_from_numpy(tab, "cpu"))
+    dev = lm.solve(prob, torch.as_tensor(poses),
+                   lm.LMConfig(max_iterations=100))
+    assert cpu_iters > 1 and int(dev.iterations) > 1
+    dev_cost = float(dev.final_cost)
+    assert float(dev.initial_cost) > 100 * dev_cost
+    assert abs(dev_cost - cpu_cost) <= 0.02 * max(cpu_cost, 1e-6) + 1e-4, (
+        dev_cost, cpu_cost)
+    np.testing.assert_allclose(dev.poses.numpy(), cpu_poses, atol=0.5)
+
+
+@pytest.fixture(scope="module")
+def small_engines(small_map):
+    """post_optimize(max_iterations=10) run once on small_map by both
+    engines: (engines, reports)."""
+    engines = _engines(small_map)
+    return engines, [eng.post_optimize(max_iterations=10) for eng in engines]
+
+
+def test_post_optimize_matches_jax(small_map, small_engines):
+    """The report fields and the poses of post_optimize on small_map. The
+    LM iteration count is not compared: on this nearly consistent map it is
+    decided by f32 round-off (tests/test_torch_refine.py says why, and
+    compares the counts where they are determined)."""
+    (te, je), (tr, jr) = small_engines
+    assert tr.accepted and jr.accepted
+    assert tr.reason == jr.reason == "post-human STF refinement (global matcher)"
+    assert tr.dropped_rows == jr.dropped_rows == 0
+    assert 0 < tr.lm_iterations <= 10
+    np.testing.assert_allclose(tr.initial_cost, jr.initial_cost, rtol=1e-4)
+    np.testing.assert_allclose(tr.final_cost, jr.final_cost, rtol=1e-4)
+    assert tr.final_cost <= tr.initial_cost
+    np.testing.assert_allclose(te.get_poses(), je.get_poses(), atol=1e-4)
+    np.testing.assert_array_equal(te.get_poses()[0], small_map.poses[0])
+    assert te.get_input_history() == []
+
+
+def test_undo_after_refine_then_last_correction():
+    """undo() after post_optimize reverts the refine and leaves the input
+    history alone; a second undo() reverts the last human correction; a
+    third has nothing to revert. As in the reference, the refine's snapshot
+    (poses and constraint count) has replaced the correction's, so the
+    second undo() marks the correction undone but finds neither poses nor
+    constraint rows of its own to take back."""
+    data, entries = _golden()
+    for eng in _engines(data):
+        assert eng.replay_log(entries[0], record=True).accepted
+        repaired = eng.get_poses().copy()
+        n_rows = eng.num_constraints
+        assert eng.post_optimize(max_iterations=5).accepted
+        assert eng._undo_is_refine
+        assert np.abs(eng.get_poses() - repaired).max() > 0
+        assert eng.undo()
+        np.testing.assert_array_equal(eng.get_poses(), repaired)
+        assert not eng._undo_is_refine
+        assert eng.get_input_history()[-1].undone == 0
+        assert eng.num_constraints == n_rows
+        assert eng.get_cost_breakdown()["num_active_constraints"] == n_rows
+        assert eng.undo()
+        np.testing.assert_array_equal(eng.get_poses(), repaired)
+        assert eng.get_input_history()[-1].undone == 1
+        assert eng.num_constraints == n_rows
+        assert eng.get_cost_breakdown()["num_active_constraints"] == n_rows
+        assert not eng.undo()
+        # a queue after a refine takes the snapshot back
+        assert eng.post_optimize(max_iterations=2).accepted
+        eng.run_queue([entries[0]])
+        assert not eng._undo_is_refine
+
+
+def test_post_optimize_auto_falls_back_to_pair_matcher():
+    """On a heavily re-traversed map the global matcher's bundles all die at
+    the 10-per-pair gate; matcher="auto" then runs the pair matcher. Report
+    fields as the reference's."""
+    from hitl_slam_tpu.io.figure8 import generate_figure8
+
+    m = generate_figure8(num_poses=512, num_rays=40, seed=13,
+                         drift_theta_bias=2e-4, num_laps=8)
+    te, je = _engines(m, capacity=64, odometry=m.odometry)
+    tr, jr = (eng.post_optimize(max_iterations=3) for eng in (te, je))
+    assert tr.accepted
+    assert "pair matcher" in tr.reason and tr.reason == jr.reason
+    assert tr.dropped_rows == jr.dropped_rows
+    assert tr.lm_iterations == jr.lm_iterations == 3
+    assert "vote_dropped=" in tr.reason      # the drop counter is equal
+    np.testing.assert_allclose(tr.initial_cost, jr.initial_cost, rtol=1e-4)
+    # three LM steps of a dense 1536 x 1536 f32 solve, not converged: an
+    # f64 run of the same solve ends at cost 0.215370, the reference at
+    # 0.215339 and the port at 0.215504, the port's poses 4e-4 from f64's
+    np.testing.assert_allclose(tr.final_cost, jr.final_cost, rtol=2e-3)
+    assert tr.final_cost < 0.5 * tr.initial_cost
+    np.testing.assert_allclose(te.get_poses(), je.get_poses(), atol=1e-3)
+
+
+def _click(eng, entry):
+    ct = int(entry.correction_type)
+    p = entry.points
+    eng.add_correction_points(ct, p[0], p[1])
+    eng.add_correction_points(ct, p[2], p[3])
+
+
+def _plain_run(data, entries, capacity=256):
+    """The engine without speculative dispatch, run() on each entry."""
+    from hitl_slam_torch.models.hitl.engine import HitLSLAM
+
+    eng = HitLSLAM(device="cpu")
+    eng.speculate = False
+    eng.init(data.poses, data.covariances, data.point_clouds,
+             data.normal_clouds, constraint_capacity=capacity)
+    reps = []
+    for e in entries:
+        _click(eng, e)
+        assert eng._speculative is None
+        reps.append(eng.run())
+    return eng, reps
+
+
+def _same_report(a, b):
+    assert (a.accepted, a.reason, a.num_new_constraints, a.lm_iterations,
+            a.initial_cost, a.final_cost) == (
+        b.accepted, b.reason, b.num_new_constraints, b.lm_iterations,
+        b.initial_cost, b.final_cost)
+
+
+def test_speculative_hit_is_identical():
+    """Two clicks dispatch the cycle; run() takes its result: one hit,
+    poses, table and report bit-equal to the engine without speculation."""
+    from hitl_slam_torch.models.hitl.engine import HitLSLAM
+
+    data, entries = _golden()
+    want, want_reps = _plain_run(data, entries[:1])
+    eng = HitLSLAM(device="cpu")
+    eng.init(data.poses, data.covariances, data.point_clouds,
+             data.normal_clouds, constraint_capacity=256)
+    _click(eng, entries[0])
+    assert eng._speculative is not None
+    rep = eng.run()
+    assert eng.speculative_hits == 1 and eng._speculative is None
+    assert rep.accepted
+    _same_report(rep, want_reps[0])
+    np.testing.assert_array_equal(eng.get_poses(), want.get_poses())
+    np.testing.assert_array_equal(eng.get_covariances(),
+                                  want.get_covariances())
+    assert torch.equal(eng.state.constraints.active,
+                       want.state.constraints.active)
+    assert torch.equal(eng.last_pre_solve_poses, want.last_pre_solve_poses)
+    assert eng.num_constraints == want.num_constraints
+    assert len(eng.get_input_history()) == 1
+    assert eng.undo()
+    np.testing.assert_array_equal(eng.get_poses(), data.poses)
+
+
+@pytest.mark.parametrize("how", ["selection_changed", "state_changed",
+                                 "post_optimize", "run_queue", "reclick"])
+def test_speculative_miss_and_discard(how):
+    """A dispatch that no longer matches is waited for and dropped: no hit,
+    and the results are those of the engine without speculation."""
+    from hitl_slam_torch.core.state import SingleInput
+    from hitl_slam_torch.models.hitl.engine import HitLSLAM
+
+    data, entries = _golden()
+    entry = entries[0]
+    eng = HitLSLAM(device="cpu")
+    eng.init(data.poses, data.covariances, data.point_clouds,
+             data.normal_clouds, constraint_capacity=256)
+    want, _ = _plain_run(data, [entry])
+    _click(eng, entry)
+    assert eng._speculative is not None
+    if how == "selection_changed":
+        # the selection is edited between the last click and run()
+        moved = entry.points + np.float32(0.004)
+        eng.selected_points = [p for p in moved]
+        rep = eng.run()
+        other, other_reps = _plain_run(
+            data, [SingleInput(entry.correction_type, 0, moved)])
+        assert eng.speculative_hits == 0
+        _same_report(rep, other_reps[0])
+        np.testing.assert_array_equal(eng.get_poses(), other.get_poses())
+    elif how == "state_changed":
+        # a replay_log in between retires the dispatch; the state.poses it
+        # was made for is gone, so the run() after it is a fresh cycle
+        thread = eng._speculative.thread
+        stale = SingleInput(entry.correction_type, 0,
+                            entry.points + np.float32(0.004))
+        assert eng.replay_log(stale).accepted
+        assert not thread.is_alive() and eng._speculative is None
+        eng.speculate = False
+        _click(eng, entry)
+        eng.run()
+        assert eng.speculative_hits == 0
+        ref, _ = _plain_run(data, [])
+        assert ref.replay_log(stale).accepted
+        _click(ref, entry)
+        ref.run()
+        np.testing.assert_array_equal(eng.get_poses(), ref.get_poses())
+    elif how == "post_optimize":
+        thread = eng._speculative.thread
+        assert eng.post_optimize(max_iterations=2).accepted
+        assert not thread.is_alive() and eng._speculative is None
+        # state.poses is the refine's now: the pending selection runs fresh
+        assert eng.run().accepted
+        assert eng.speculative_hits == 0
+    elif how == "run_queue":
+        thread = eng._speculative.thread
+        reps = eng.run_queue([entry])
+        assert not thread.is_alive() and eng._speculative is None
+        assert reps[0].accepted and eng.speculative_hits == 0
+        np.testing.assert_array_equal(eng.get_poses(), want.get_poses())
+    else:
+        # a second complete selection supersedes the first dispatch
+        first = eng._speculative.thread
+        eng.reset_correction_inputs()
+        _click(eng, entry)
+        assert not first.is_alive()
+        assert eng._speculative.thread is not first
+        assert eng.run().accepted and eng.speculative_hits == 1
+        np.testing.assert_array_equal(eng.get_poses(), want.get_poses())
+
+
+def test_speculative_worker_exception_is_raised_by_run(monkeypatch):
+    """An exception on the worker is raised by the run() that would have
+    used its result; a dispatch that is dropped takes its exception along."""
+    from hitl_slam_torch.models.hitl import engine as E
+
+    data, entries = _golden()
+    eng = E.HitLSLAM(device="cpu")
+    eng.init(data.poses, data.covariances, data.point_clouds,
+             data.normal_clouds, constraint_capacity=256)
+
+    def boom(*a, **k):
+        raise RuntimeError("cycle failed on the worker")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(E, "cycle_step", boom)
+        _click(eng, entries[0])
+        eng._speculative.thread.join(timeout=60)
+        assert not eng._speculative.thread.is_alive()
+    with pytest.raises(RuntimeError, match="on the worker"):
+        eng.run()
+    assert eng.speculative_hits == 0 and eng._speculative is None
+    # dropped, not raised: the selection no longer matches
+    with monkeypatch.context() as mp:
+        mp.setattr(E, "cycle_step", boom)
+        _click(eng, entries[0])
+        eng._speculative.thread.join(timeout=60)
+    eng.selected_points = [p + np.float32(0.004) for p in eng.selected_points]
+    assert eng.run().accepted
+    assert eng.speculative_hits == 0
+
+
+def test_port_cli_post_optimize(tmp_path, capsys):
+    """--post-optimize --refine-matcher pair after each replay mode and with
+    no log at all, on the golden files: the report line is printed, and the
+    saved poses are those of the engine driven directly."""
+    from hitl_slam_torch.cli import main
+
+    pg = os.path.join(DATA, "golden.stfs.covars")
+    log = ["-L", os.path.join(DATA, "golden.log")]
+    refine = ["--post-optimize", "--refine-matcher", "pair"]
+    outs = {}
+    for name, extra in (("replay", [*log, "--replay-all"]),
+                        ("refined", [*log, "--replay-all", *refine]),
+                        ("fused", [*log, "--replay-fused", *refine]),
+                        ("nolog", ["--post-optimize"])):
+        out = tmp_path / f"{name}.txt"
+        assert main(["-P", pg, *extra, "-V", str(out), "--device",
+                     "cpu"]) == 0
+        outs[name] = np.loadtxt(out)
+    text = capsys.readouterr().out
+    assert text.count("post-optimize (STF refine): lm_iters=") == 3
+    assert np.abs(outs["refined"] - outs["replay"]).max() > 1e-3
+    np.testing.assert_array_equal(outs["fused"], outs["refined"])
+
+    eng, _ = _replay("golden.stfs.covars", "golden.log", 8192)
+    rep = eng.post_optimize(matcher="pair")
+    assert rep.accepted and "pair matcher" in rep.reason
+    np.testing.assert_allclose(outs["refined"], eng.get_poses(), atol=1e-5)
+    fresh, _ = _plain_run(_golden()[0], [], capacity=8192)
+    fresh.post_optimize()
+    np.testing.assert_allclose(outs["nolog"], fresh.get_poses(), atol=1e-5)
+
+
+def test_bench_prints_one_json_line(tmp_path, capsys):
+    """python -m hitl_slam_torch.bench on the CPU, with the small golden
+    session standing in for the 1024-pose one (same file names): one JSON
+    line with the documented fields, the replay within the tight golden
+    tolerance, the split refine bit-equal to the engine's."""
+    import gzip
+    import json
+    import shutil
+
+    from hitl_slam_torch import bench
+
+    with open(os.path.join(DATA, "golden.stfs.covars"), "rb") as f, \
+            gzip.open(tmp_path / "golden_large.stfs.covars.gz", "wb") as g:
+        shutil.copyfileobj(f, g)
+    shutil.copy(os.path.join(DATA, "golden.log"),
+                tmp_path / "golden_large.log")
+    shutil.copy(os.path.join(DATA, "golden_expected_poses_tight.txt"),
+                tmp_path / "golden_large_expected_poses.txt")
+    assert bench.main(["--device", "cpu", "--replays", "3", "--data",
+                       str(tmp_path), "--refine-iterations", "5"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert out["name"] == "cpu" and out["power_limit"] is None
+    assert (out["poses"], out["replays"]) == (64, 3)
+    assert len(out["cycle_wall_ms"]) == len(out["cycle_lm_iterations"]) == 1
+    q = out["cycle_wall_ms"][0]
+    assert 0 < q["q1"] <= q["median"] <= q["q3"]
+    assert out["replay_pose_error"]["xy_m"] <= TIGHT[0]
+    assert out["replay_pose_error"]["theta_rad"] <= TIGHT[1]
+    po = out["post_optimize"]
+    assert po["finite"] and po["split_equals_engine"]
+    assert po["final_cost"] <= po["initial_cost"]
+    assert po["num_matches"] > 0 and 0 < po["lm_iterations"] <= 5
+    assert po["match_ms"] > 0 and po["solve_ms"] > 0 and po["wall_ms"] > 0
+    for k in ("match_dropped", "pairs_dropped", "vote_dropped",
+              "elect_dropped"):
+        assert k in po
+    assert po["match_dropped"] == po["dropped_rows"] == 0
+    assert bench.main(["--device", "cpu", "--replays", "0"]) == 2

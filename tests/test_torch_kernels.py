@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain torch versions, on the card.
+"""The port's CUDA kernels against their plain torch versions, and the
+refine's plain-torch path on the card against the same path on the CPU.
 
 Every test here needs an NVIDIA GPU (marker `cuda`) and skips without one.
 This file imports neither jax nor the JAX package, so it also runs on a
@@ -185,3 +186,79 @@ def test_wrappers_reject_bad_inputs(cuda_device):
         bcr_kernel.bcr_solve_cuda(D, U[:-1], b)
     with pytest.raises(ValueError):
         bcr_kernel.bcr_solve_cuda(D.transpose(-1, -2), U, b)
+
+
+# ------------------------------------------------- the refine, card vs CPU
+
+@pytest.mark.cuda
+def test_grid_match_card_equals_cpu(cuda_device, golden_large):
+    """The matcher at the full width of the 1024-pose map, fed the same
+    world points on both devices: its arithmetic is IEEE adds, multiplies
+    and compares in a fixed order, and its sorts are stable, so targets,
+    valid mask, drop count and the factor table are equal bit for bit, and
+    the distances to one ulp."""
+    from hitl_slam_torch.core.state import make_map_state
+    from hitl_slam_torch.ops import correspond as C
+    from hitl_slam_torch.ops.geometry import rotate
+
+    data, _ = golden_large
+    st = make_map_state(data.poses, data.covariances, data.point_clouds,
+                        data.normal_clouds, "cpu")
+    world = st.world_points()
+    wnrm = rotate(st.poses[:, 2][:, None], st.normals)
+    cpu = C.grid_match(world, wnrm, st.point_mask)
+    card = C.grid_match(world.to(cuda_device), wnrm.to(cuda_device),
+                        st.point_mask.to(cuda_device))
+    assert int(cpu.valid.sum()) > 1000
+    assert torch.equal(card.valid.cpu(), cpu.valid)
+    assert torch.equal(card.target.cpu(), cpu.target)
+    assert int(card.dropped) == int(cpu.dropped)
+    # torch's square root differs by one ulp between the devices
+    assert float((card.dist.cpu() - cpu.dist).abs().max()) <= 2e-8
+    stf_cpu = C.build_stf_factors(st.points, st.normals, cpu)
+    stf_card = C.build_stf_factors(st.points.to(cuda_device),
+                                   st.normals.to(cuda_device), card)
+    for name in ("pose0", "pose1", "p0", "p1", "n0", "n1", "weight", "valid"):
+        assert torch.equal(getattr(stf_card, name).cpu(),
+                           getattr(stf_cpu, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dense", "dense_fused", "pcg"])
+def test_refine_solvers_card_close_to_cpu(cuda_device, solver):
+    """Each refine solver on the small golden map, from one factor table:
+    the card's result within f32 round-off of the CPU's (cost rtol 1e-3,
+    poses 1e-4), and two runs on the card bit-equal."""
+    import dataclasses
+
+    from hitl_slam_torch.core.state import ConstraintTable, make_map_state
+    from hitl_slam_torch.io import stfs
+    from hitl_slam_torch.models.hitl import refine as R
+    from hitl_slam_torch.solver.lm import LMConfig
+
+    data = stfs.load_stfs_covars(os.path.join(DATA, "golden.stfs.covars"))
+    st = make_map_state(data.poses, data.covariances, data.point_clouds,
+                        data.normal_clouds, "cpu", constraint_capacity=64)
+    stf, *_ = R.match_factors(st.points, st.normals, st.point_mask, st.poses,
+                              "pair", 65536, 1024, 64, None)
+    assert int(stf.valid.sum()) > 1000
+
+    def to(obj, dev):
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).to(dev)
+            for f in dataclasses.fields(obj)})
+
+    cfg = LMConfig(max_iterations=8)
+    cpu = R.solve_factors(st.poses, st.constraints, stf, cfg, True, solver,
+                          1024)
+    args = (st.poses.to(cuda_device), to(st.constraints, cuda_device),
+            to(stf, cuda_device), cfg, True, solver, 1024)
+    assert isinstance(args[1], ConstraintTable)
+    card = R.solve_factors(*args)
+    again = R.solve_factors(*args)
+    assert torch.equal(card.poses, again.poses)
+    assert float(card.final_cost) < float(card.initial_cost)
+    np.testing.assert_allclose(float(card.final_cost), float(cpu.final_cost),
+                               rtol=1e-3)
+    np.testing.assert_allclose(card.poses.cpu().numpy(), cpu.poses.numpy(),
+                               atol=1e-4)

@@ -143,6 +143,9 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('hitl_slam_tpu'))\n"
         "assert not bad, bad\n"
+        "for name in ('solver.cg', 'ops.correspond', 'solver.stf_solve', "
+        "'models.hitl.refine', 'bench'):\n"
+        "    assert 'hitl_slam_torch.' + name in names, name\n"
         "print(len(names))\n"
     )
     env = dict(os.environ)
@@ -150,4 +153,4 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 19, out.stdout
+    assert int(out.stdout.strip()) >= 24, out.stdout

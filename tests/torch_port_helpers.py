@@ -68,3 +68,36 @@ def chain_poses(rng, num):
         step = np.array([np.cos(p[i - 1, 2]), np.sin(p[i - 1, 2])]) * 0.5
         p[i, :2] = p[i - 1, :2] + step + rng.normal(0, 0.02, 2)
     return p
+
+
+def table_to_torch(table):
+    """The port's ConstraintTable from the JAX package's."""
+    from hitl_slam_torch.core.state import table_from_numpy
+
+    return table_from_numpy(np_fields(table), "cpu")
+
+
+def matches_to_torch(m):
+    """The port's Matches from the JAX package's."""
+    from hitl_slam_torch.ops.correspond import Matches
+
+    return Matches(**{k: t(v) for k, v in np_fields(m).items()})
+
+
+def factors_to_torch(f):
+    """The port's STFFactors from the JAX package's."""
+    from hitl_slam_torch.ops.correspond import STFFactors
+
+    return STFFactors(**{k: t(v) for k, v in np_fields(f).items()})
+
+
+def assert_fields_match(got, ref, atol=1e-6, rtol=0.0):
+    """Field by field: integer and boolean fields of the port's dataclass
+    `got` equal the JAX dataclass `ref`'s, floats agree to the tolerance."""
+    for name, want in np_fields(ref).items():
+        have = n(getattr(got, name))
+        if want.dtype.kind in "biu":
+            np.testing.assert_array_equal(have, want, err_msg=name)
+        else:
+            np.testing.assert_allclose(have, want, atol=atol, rtol=rtol,
+                                       err_msg=name)
