@@ -9,11 +9,18 @@ C++ (csrc/, built at first use by utils/cuda_build.py):
 
 Layout mirrors hitl_slam_tpu so each counterpart sits at the same path:
   core/      MapState / ConstraintTable dataclasses, numpy <-> torch converter
-  io/        .stfs.covars and correction-log readers (host numpy only)
-  ops/       geometry, factor residuals, the em_scan kernel wrapper
-  solver/    block-tridiagonal solve, normal equations, Levenberg-Marquardt
-  models/    the HitL correction cycle and its session engine
-  cli.py     headless replay entry point
+  io/        .stfs.covars and correction-log readers and writers, the
+             synthetic figure-8 map generator (host numpy only)
+  ops/       geometry, factor residuals, the em_scan kernel wrapper, the
+             refine's matchers, RANSAC segments, the correlative scan
+             matcher, rasterization, the truncated SDF
+  solver/    block-tridiagonal solve, normal equations, Levenberg-Marquardt,
+             the refine's dense and matrix-free solvers
+  models/    the HitL correction cycle, its session engine, the refine and
+             the auto-proposed corrections; the LTVM map curator
+  gui/       draw lists and the display builders (host numpy and json)
+  cli.py     headless replay, auto-repair and rendering entry point
+  cli_ltvm.py  the LTVM curator's entry point
 
 Every function takes tensors on an explicit device; nothing here picks a
 device on its own. The package never imports jax or hitl_slam_tpu.

@@ -11,7 +11,11 @@ object: the device's name and power limit as nvidia-smi gives them, the
 per-cycle wall ms (median and quartiles over the replays), the refine's wall
 ms (total, match, solve), its LM iterations, match count and four drop
 counters, peak device memory, and the pose errors against the golden poses
-in tests/data. Correctness fields are against those files; nothing of JAX
+in tests/data. Then the auto-proposal stage on the raw (drifted) map (wall ms
+of propose_corrections, split into the device stage and the host loop, and
+the number of proposals) and one LTVM curation of the repaired map (wall ms
+of curate, split into SDF, filter, RANSAC and the host merge, and the number
+of vectors). Correctness fields are against those files; nothing of JAX
 is imported. Runs on the card unless --device says otherwise.
 """
 
@@ -181,6 +185,33 @@ def main(argv=None) -> int:
     split_poses = split.pop("poses")
     refined = eng.get_poses()
     shift_xy, shift_th = pose_errors(refined, repaired.poses.cpu().numpy())
+    # the auto-proposal stage on the raw map, warm (the second of two calls)
+    raw = HitLSLAM(device=device)
+    raw.init(data.poses, data.covariances, data.point_clouds,
+             data.normal_clouds, constraint_capacity=16384)
+    raw.propose_corrections(max_proposals=4, seed=0)
+    propose_split = {}
+    sync()
+    t0 = time.perf_counter()
+    proposals = raw.propose_corrections(max_proposals=4, seed=0,
+                                        timings_ms=propose_split)
+    sync()
+    propose_ms = (time.perf_counter() - t0) * 1e3
+
+    # one LTVM curation of the repaired map, warm likewise
+    from .models.ltvm.curator import LongTermVectorMap
+
+    LongTermVectorMap(seed=0).curate(repaired.poses, repaired.points,
+                                     repaired.point_mask)
+    curate_split = {}
+    sync()
+    t0 = time.perf_counter()
+    vectors = LongTermVectorMap(seed=0).curate(
+        repaired.poses, repaired.points, repaired.point_mask,
+        timings_ms=curate_split)
+    sync()
+    curate_ms = (time.perf_counter() - t0) * 1e3
+
     result = {
         **device_facts(torch, device),
         "torch": torch.__version__,
@@ -204,6 +235,13 @@ def main(argv=None) -> int:
             "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                                   if device.type == "cuda" else None),
         },
+        "propose_corrections": {
+            "wall_ms": propose_ms, **propose_split,
+            "proposals": len(proposals),
+            "pairs": [[p.anchor_pose, p.corrected_pose] for p in proposals],
+        },
+        "ltvm_curate": {"wall_ms": curate_ms, **curate_split,
+                        "vectors": len(vectors)},
     }
     print(json.dumps(result))
     return 0

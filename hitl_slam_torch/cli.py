@@ -13,6 +13,10 @@ Port of the headless flags of hitl_slam_tpu/cli.py:
                       given)
   --refine-matcher    auto | global | pair: the refinement's correspondence
                       search
+  --auto-repair N     headless auto-repair: up to N rounds of propose-and-
+                      apply loop-closure corrections, no human input
+  --render PATH       write a PNG render of the (repaired) map
+  --info-mat PATH     write the factor-adjacency PNG after a replay mode
   --device            torch device to run on (default cuda)
 
 Run as `python -m hitl_slam_torch.cli -P map.stfs.covars -L session.log
@@ -47,6 +51,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "tiles (needed on heavily re-traversed maps), "
                         "'auto' falls back from global to pair when the "
                         "global matcher yields zero gated bundles")
+    p.add_argument("--auto-repair", type=int, default=0, metavar="N",
+                   help="headless auto-repair: up to N rounds of "
+                        "propose-and-apply loop-closure corrections "
+                        "(batched correlative matcher), no human input")
+    p.add_argument("--render", default=None, metavar="PATH",
+                   help="write a PNG render of the (repaired) map")
+    p.add_argument("--info-mat", default=None, metavar="PATH",
+                   help="write the factor-adjacency PNG after a replay mode")
     p.add_argument("--device", default="cuda",
                    help="torch device, e.g. cuda, cuda:1 or cpu")
     return p
@@ -67,6 +79,60 @@ def _post_optimize(engine, matcher: str, device, timed: bool) -> None:
     print(f"post-optimize (STF refine): lm_iters={rep.lm_iterations} "
           f"cost {rep.initial_cost:.4g} -> {rep.final_cost:.4g}"
           + (f" ({dt:.1f} ms)" if timed else ""))
+
+
+def auto_repair(engine, rounds: int, device) -> list:
+    """Rounds of {batched proposals -> apply} until a round yields nothing
+    or the round budget is spent. The applied corrections land in the input
+    history, so the session can be logged and replayed like a human one.
+    Returns [(round, proposal, report)] of every correction tried."""
+    import numpy as np
+
+    t_start = time.perf_counter()
+    applied = 0
+    tried = []
+    for rnd in range(rounds):
+        props = engine.propose_corrections(max_proposals=4, seed=rnd)
+        if not props:
+            print(f"[round {rnd}] no proposals; stopping")
+            break
+        for i, p in enumerate(props):
+            rep = engine.replay_log(p.input, record=True)
+            status = "ok" if rep.accepted else f"rejected: {rep.reason}"
+            applied += int(rep.accepted)
+            tried.append((rnd, p, rep))
+            print(f"[round {rnd}] ({p.anchor_pose},{p.corrected_pose}) "
+                  f"score={p.score:.2f} "
+                  f"drift={np.linalg.norm(p.drift[:2]):.2f}m: {status}")
+            if rep.accepted and i + 1 < len(props):
+                # an accepted correction moves poses, so the remaining
+                # proposals (computed from the pre-round state) are stale:
+                # drop them and propose afresh next round
+                break
+    _sync(device)
+    total = time.perf_counter() - t_start
+    print(f"auto-repair: {applied} corrections applied in {total:.2f} s")
+    return tried
+
+
+def _write_info_mat(engine, path: str) -> None:
+    from .ops.raster import info_matrix_image
+    from .utils.image import write_png
+
+    t = engine.state.constraints
+    img = info_matrix_image(engine.state.poses[:, 0], t.anchor,
+                            t.constrained, t.active)
+    write_png(path, img.cpu().numpy())
+
+
+def _render(engine, path: str) -> None:
+    from .ops.raster import render_map
+    from .utils.image import write_png
+
+    st = engine.state
+    img = render_map(st.world_points(), st.point_mask, st.poses)
+    write_png(path, img.cpu().numpy())
+    print(f"rendered map to {path}")
 
 
 def main(argv=None) -> int:
@@ -108,7 +174,12 @@ def main(argv=None) -> int:
             return 1
         print(f"loaded {len(input_log)} logged corrections from {args.log}")
 
-    if args.replay_fused:
+    replayed = True
+    if args.auto_repair > 0:
+        auto_repair(engine, args.auto_repair, device)
+        if args.post_optimize:
+            _post_optimize(engine, args.refine_matcher, device, timed=False)
+    elif args.replay_fused:
         live = [e for e in input_log if not e.undone]
         t_start = time.perf_counter()
         reports = engine.run_queue(live)
@@ -142,11 +213,17 @@ def main(argv=None) -> int:
         print(f"replayed {len(input_log)} corrections in {total:.2f} s")
         if args.post_optimize:
             _post_optimize(engine, args.refine_matcher, device, timed=True)
-    elif args.post_optimize:
-        _post_optimize(engine, args.refine_matcher, device, timed=True)
+    else:
+        replayed = False
+        if args.post_optimize:
+            _post_optimize(engine, args.refine_matcher, device, timed=True)
 
     stfs.save_results_poses(args.save, engine.get_poses())
     print(f"saved {len(data.poses)} poses to {args.save}")
+    if args.info_mat and replayed:
+        _write_info_mat(engine, args.info_mat)
+    if args.render:
+        _render(engine, args.render)
     return 0
 
 

@@ -1,9 +1,9 @@
 """Reader for the `.stfs.covars` pose-graph text format, and the results
 writer. Host numpy only.
 
-Port of hitl_slam_tpu/io/stfs.py (the numpy parser; the optional native
-parser is not carried over). Format: a map-name line, a timestamp line, then
-one CSV row per lidar point with 16 fields:
+Port of hitl_slam_tpu/io/stfs.py (the numpy parser and the .stfs.covars
+writer; the optional native parser is not carried over). Format: a map-name
+line, a timestamp line, then one CSV row per lidar point with 16 fields:
 
   pose_x, pose_y, pose_theta, obs_x, obs_y, normal_x, normal_y, cov(9 row-major)
 
@@ -86,6 +86,34 @@ def _group_rows(map_name: str, timestamp: float, rows: np.ndarray) -> PoseGraphD
         map_name, timestamp,
         np.stack(poses), np.stack(covs), pcs, ncs,
     )
+
+
+def save_stfs_covars(
+    path: str,
+    map_name: str,
+    timestamp: float,
+    poses: np.ndarray,
+    covariances: np.ndarray,
+    point_clouds: list[np.ndarray],
+    normal_clouds: list[np.ndarray],
+) -> None:
+    """Write robot-frame clouds as world-frame rows, 16 CSV fields per point
+    (%.4f for poses, points and normals, %f for the covariance)."""
+    with open(path, "w") as f:
+        f.write(f"{map_name}\n{timestamp:f}\n")
+        for i in range(len(poses)):
+            x, y, th = (float(v) for v in poses[i])
+            R = _rot(np.float64(th))
+            wp = point_clouds[i] @ R.T + np.array([x, y])
+            wn = normal_clouds[i] @ R.T
+            c = np.asarray(covariances[i]).reshape(-1)
+            for j in range(len(wp)):
+                f.write(
+                    f"{x:.4f},{y:.4f},{th:.4f},{wp[j,0]:.4f},{wp[j,1]:.4f}, "
+                    f"{wn[j,0]:.4f},{wn[j,1]:.4f},"
+                    + ", ".join(f"{v:f}" for v in c)
+                    + "\n"
+                )
 
 
 def save_results_poses(path: str, poses: np.ndarray) -> None:

@@ -2,7 +2,8 @@
 
 Port of hitl_slam_tpu/models/hitl/engine.py::HitLSLAM: init / run /
 replay_log / run_queue / add_correction_points / undo / getters /
-get_cost_breakdown / post_optimize and speculative dispatch, with the same
+get_cost_breakdown / propose_corrections / post_optimize and speculative
+dispatch, with the same
 single-depth undo snapshot and the two-click pending-correction state
 machine. The numeric cycle runs on the engine's device
 (models/hitl/cycle.py); this class holds the state, records history and
@@ -16,8 +17,6 @@ called. run() takes the result only if the correction type, the selection
 bytes, the identity of `state.poses` and the constraint count are those of
 the dispatch; anything else waits for the worker, drops its result and runs
 the cycle afresh.
-
-Not ported yet: propose_corrections.
 """
 
 from __future__ import annotations
@@ -333,6 +332,17 @@ class HitLSLAM:
             "human_cost": hum,
             "num_active_constraints": int(n_act),
         }
+
+    # -- auto-proposed corrections -----------------------------------------
+
+    def propose_corrections(self, max_proposals: int = 3, **kw):
+        """Loop-closure suggestions from the correlative scan matcher
+        (models/hitl/propose.py); each proposal's .input runs through the
+        ordinary replay_log path when accepted."""
+        from .propose import propose_corrections
+
+        return propose_corrections(self.state, max_proposals=max_proposals,
+                                   **kw)
 
     # -- post-human STF refinement -----------------------------------------
 

@@ -7,9 +7,18 @@ dims and dtype-preserving.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
+
+
+def f32_reciprocal(c: float) -> float:
+    """1 / c rounded to f32, both ways. The reference's compiled programs
+    divide by a constant as a multiplication by this value (XLA rewrites
+    x / const so), and a cell index at a bin edge depends on which of the
+    two is done."""
+    return float(np.float32(1.0) / np.float32(c))
 
 
 def angle_mod(a: Tensor) -> Tensor:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time of one correction cycle and of the post-human refine goes,
-for the PyTorch port on a GPU.
+"""Where the time of one correction cycle, of the post-human refine, of the
+auto-proposal stage and of an LTVM curation goes, for the PyTorch port on a
+GPU.
 
     python scripts/profile_torch_cycle.py [--repeat 3] [--trace trace.json]
 
@@ -15,7 +16,15 @@ solves, the cost-only factor pass) timed on their own for the fused and the
 two-pass dense solver, and a torch.profiler window. Prints the card's name
 and power limit, the wall times, host ms per stage, device time by kernel
 name (top 20), the number of device operations, and the device's busy share
-of each profiled window. Needs one CUDA device; imports nothing of JAX.
+of each profiled window.
+
+Then propose_corrections on the drifted 1024-pose figure-8 map of
+chip_smoke.py (wall ms, its stages and a profiler window at the 4 candidates
+the auto-repair loop sees and at the full batch of 8, and the correlation as
+the port's gathered sum beside the reference's dense conv2d), one LTVM curation of
+the clean figure-8 map (the same), and, with --refine-poses N, post_optimize
+on a drifted N-pose figure-8 map (above 2048 poses the matrix-free PCG
+solver). Needs one CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -201,12 +210,197 @@ def refine_profile(torch, data, entries, repeat):
     device_profile(torch, refine, "profiled refine (dense_fused)")
 
 
+def event_ms(torch, fn, iters=10):
+    """Mean ms per call by CUDA events, after two warm calls."""
+    fn(), fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# min_gap at which chip_smoke.py's drifted map yields all 8 candidates that
+# max_proposals=4 admits (the default, a quarter of the poses, yields 4)
+FULL_BATCH_MIN_GAP = 96
+
+
+def dense_correlation(torch, field, ki, kj, ok, W):
+    """The reference's formulation of the matcher's scores, to hold the
+    port's gathered sum against: each field [B, H, H] against its T
+    rasterized 0/1 kernels [K, K] by one dense VALID cross-correlation."""
+    import torch.nn.functional as F
+
+    B, T, _ = ki.shape
+    K = field.shape[1] - W + 1
+    bt = torch.arange(B * T, device=field.device).view(B, T, 1)
+    flat = (bt * K + kj.long()) * K + ki.long()
+    flat = torch.where(ok, flat, B * T * K * K)
+    kern = torch.zeros((B * T * K * K + 1,), dtype=field.dtype,
+                       device=field.device)
+    kern[flat.reshape(-1)] = 1.0
+    kern = kern[:-1].view(B * T, 1, K, K)
+    return F.conv2d(field[None], kern, groups=B)[0].view(B, T, W, W)
+
+
+def proposal_profile(torch, repeat):
+    """propose_corrections on the drifted 1024-pose map at the default
+    matcher parameters: as the auto-repair loop calls it (the default
+    min_gap, B = 4 candidates on this map) and at the full batch
+    max_proposals=4 admits (B = 8, min_gap=FULL_BATCH_MIN_GAP)."""
+    from chip_smoke import DRIFTED_MAP
+    from hitl_slam_torch.io.figure8 import generate_figure8
+    from hitl_slam_torch.models.hitl import propose as P
+    from hitl_slam_torch.models.hitl.engine import HitLSLAM
+    from hitl_slam_torch.ops import scan_match as M
+
+    m = generate_figure8(**DRIFTED_MAP)
+    eng = HitLSLAM(device="cuda")
+    eng.init(m.poses, m.covariances, m.point_clouds, m.normal_clouds,
+             odometry=m.odometry, constraint_capacity=16384)
+    poses = eng.state.poses.cpu().numpy()
+    targets = [(P, "candidate_pairs"), (P, "candidate_inputs"),
+               (P, "build_likelihood_field"), (P, "correlative_match"),
+               (P, "extract_segments"), (P, "gate_and_pair")]
+
+    for min_gap in (None, FULL_BATCH_MIN_GAP):
+        B = len(P.candidate_pairs(poses, 4, min_gap=min_gap))
+        if min_gap is not None and B != 8:
+            raise RuntimeError(f"min_gap={min_gap} gave {B} candidates, not 8")
+        label = f"propose_corrections, min_gap={min_gap}, B={B}"
+
+        def propose():
+            return eng.propose_corrections(max_proposals=4, seed=0,
+                                           min_gap=min_gap)
+
+        for r in range(repeat + 1):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            props = propose()
+            torch.cuda.synchronize()
+            print(f"{label}, run {r}{' (warm-up)' if r == 0 else ''}: wall "
+                  f"{(time.perf_counter() - t0) * 1e3:.3f} ms, {len(props)} "
+                  f"proposals, peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
+        with StageTimer(torch, targets) as timer:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            propose()
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+        timer.report(f"{label}: stage split", total,
+                     "(host reads, the rest)")
+        device_profile(torch, propose, f"profiled {label}")
+
+    # the correlation alone at B = 8: the port's gathered sum against the
+    # reference's dense conv2d
+    st = eng.state
+    chosen = P.candidate_pairs(poses, max_proposals=4,
+                               min_gap=FULL_BATCH_MIN_GAP)
+    a_pts, a_mask, centers, scans, smask, guess = P.candidate_inputs(
+        st, st.world_points(), poses, chosen)
+    field = M.build_likelihood_field(a_pts, a_mask, centers)
+    B, H, _ = field.shape
+    T, W, N = 29, 41, scans.shape[1]
+    K = H - W + 1
+    g = torch.Generator().manual_seed(0)
+    ki = torch.randint(0, K, (B, T, N), generator=g, dtype=torch.int32).cuda()
+    kj = torch.randint(0, K, (B, T, N), generator=g, dtype=torch.int32).cuda()
+    ok = smask[:, None, :].expand(B, T, N).contiguous()
+    ms = event_ms(torch, lambda: M.correlate_gather(field, ki, kj, ok, W))
+    print(f"correlation, B={B} T={T} W={W} K={K} N={N}: gathered sum "
+          f"{ms:.3f} ms ({B * T * W * W * int(smask.sum(1).max())} additions "
+          f"at most)")
+    a = M.correlate_gather(field, ki, kj, ok, W)
+    b = dense_correlation(torch, field, ki, kj, ok, W)
+    ms = event_ms(torch, lambda: dense_correlation(torch, field, ki, kj, ok, W),
+                  iters=3)
+    print(f"correlation, same shapes: dense conv2d {ms:.3f} ms "
+          f"({2 * B * T * W * W * K * K / 1e12:.3f} TFLOP), max difference "
+          f"from the gathered sum {float((a - b).abs().max()):.3e}")
+
+
+def ltvm_profile(torch, repeat):
+    """One LTVM curation of the clean 1024-pose figure-8 map at the default
+    parameters (SDF at 0.04 m, RANSAC 32 x 256 on 131,072 points)."""
+    from chip_smoke import CLEAN_MAP
+    from hitl_slam_torch.core.state import make_map_state
+    from hitl_slam_torch.io.figure8 import generate_figure8
+    from hitl_slam_torch.models.ltvm import curator as L
+
+    m = generate_figure8(**CLEAN_MAP)
+    st = make_map_state(m.gt_poses, m.covariances, m.point_clouds,
+                        m.normal_clouds, "cuda")
+
+    def curate():
+        return L.LongTermVectorMap(seed=0).curate(
+            st.poses, st.points, st.point_mask)
+
+    for r in range(repeat + 1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        vectors = curate()
+        torch.cuda.synchronize()
+        print(f"curate {r}{' (warm-up)' if r == 0 else ''}: wall "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms, "
+              f"{len(vectors)} vectors, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
+    targets = [(L, "sdf_bounds"), (L, "build_sdf"), (L, "filter_points"),
+               (L, "extract_segments")]
+    with StageTimer(torch, targets) as timer:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        curate()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    timer.report("curate stage split", total, "(host merge, the rest)")
+    device_profile(torch, curate, "profiled curate")
+
+
+def large_refine(torch, num_poses):
+    """post_optimize on a drifted two-lap figure-8 map of `num_poses` poses
+    (the matrix-free PCG solver above 2048 poses)."""
+    from hitl_slam_torch.io.figure8 import generate_figure8
+    from hitl_slam_torch.models.hitl.engine import HitLSLAM
+
+    m = generate_figure8(num_poses=num_poses, num_rays=120, seed=11,
+                         drift_theta_bias=1.5e-4 * 1024 / num_poses,
+                         num_laps=2)
+    eng = HitLSLAM(device="cuda")
+    eng.init(m.poses, m.covariances, m.point_clouds, m.normal_clouds,
+             odometry=m.odometry, constraint_capacity=16384)
+    start = eng.state
+    for r in range(2):
+        eng.init_from_state(start)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rep = eng.post_optimize()
+        torch.cuda.synchronize()
+        print(f"post_optimize on {num_poses} figure-8 poses, run {r}: wall "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms, LM iterations "
+              f"{rep.lm_iterations}, cost {rep.initial_cost:.6g} -> "
+              f"{rep.final_cost:.6g}, {rep.reason}, dropped rows "
+              f"{rep.dropped_rows}, finite "
+              f"{bool(torch.isfinite(eng.state.poses).all())}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--repeat", type=int, default=3)
     ap.add_argument("--trace", default=None,
                     help="also write a chrome trace of the profiled replay")
+    ap.add_argument("--refine-poses", type=int, default=0, metavar="N",
+                    help="also run post_optimize on a drifted N-pose "
+                         "figure-8 map")
     args = ap.parse_args()
 
     import torch
@@ -237,6 +431,10 @@ def main() -> int:
                    f"profiled replay of {len(entries)} cycles",
                    trace=args.trace)
     refine_profile(torch, data, entries, args.repeat)
+    proposal_profile(torch, args.repeat)
+    ltvm_profile(torch, args.repeat)
+    if args.refine_poses:
+        large_refine(torch, args.refine_poses)
     return 0
 
 

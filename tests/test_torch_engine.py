@@ -159,9 +159,8 @@ def _golden():
 
 
 def test_engine_public_names_cover_the_reference():
-    """Every public method and attribute of the reference's HitLSLAM but
-    propose_corrections exists on the port's, on the class and on a fresh
-    instance."""
+    """Every public method and attribute of the reference's HitLSLAM
+    exists on the port's, on the class and on a fresh instance."""
     from hitl_slam_torch.models.hitl.engine import HitLSLAM
     from hitl_slam_tpu.models.hitl.engine import HitLSLAM as JHitLSLAM
 
@@ -169,11 +168,11 @@ def test_engine_public_names_cover_the_reference():
         return {k for k in dir(obj) if not k.startswith("_")}
 
     missing = public(JHitLSLAM) - public(HitLSLAM)
-    assert missing == {"propose_corrections"}, missing
+    assert missing == set(), missing
     # last_pre_solve_poses appears on the reference only after a cycle
     want = public(JHitLSLAM()) | {"last_pre_solve_poses"}
     missing = want - public(HitLSLAM(device="cpu"))
-    assert missing == {"propose_corrections"}, missing
+    assert missing == set(), missing
 
 
 def test_cycle_sets_last_pre_solve_poses():
@@ -674,4 +673,12 @@ def test_bench_prints_one_json_line(tmp_path, capsys):
               "elect_dropped"):
         assert k in po
     assert po["match_dropped"] == po["dropped_rows"] == 0
+    pr = out["propose_corrections"]
+    assert pr["wall_ms"] > 0 and pr["device_ms"] > 0 and pr["host_ms"] >= 0
+    assert pr["proposals"] == len(pr["pairs"])
+    lt = out["ltvm_curate"]
+    assert lt["vectors"] >= 1 and lt["wall_ms"] > 0
+    for k in ("sdf_ms", "filter_ms", "ransac_ms", "merge_ms"):
+        assert lt[k] >= 0
+    assert lt["sdf_ms"] + lt["ransac_ms"] <= lt["wall_ms"]
     assert bench.main(["--device", "cpu", "--replays", "0"]) == 2

@@ -262,3 +262,157 @@ def test_refine_solvers_card_close_to_cpu(cuda_device, solver):
                                rtol=1e-3)
     np.testing.assert_allclose(card.poses.cpu().numpy(), cpu.poses.numpy(),
                                atol=1e-4)
+
+
+# ------------------------- proposals, rendering and LTVM, card vs CPU
+
+@pytest.fixture(scope="module")
+def drifted_state():
+    """A drifted two-lap 256-pose figure-8 map as a CPU MapState."""
+    from hitl_slam_torch.core.state import make_map_state
+    from hitl_slam_torch.io.figure8 import generate_figure8
+
+    m = generate_figure8(num_poses=256, num_rays=120, seed=7,
+                         drift_theta_bias=6e-4, num_laps=2)
+    return make_map_state(m.poses, m.covariances, m.point_clouds,
+                          m.normal_clouds, "cpu")
+
+
+def _candidates(st, device):
+    """Fields, scans and guesses of 4 loop candidates of the map (anchor
+    neighbourhoods of 11 poses), on `device`."""
+    ii = torch.tensor([20, 40, 67, 100])
+    jj = torch.tensor([150, 170, 195, 230])
+    win = (ii[:, None] + torch.arange(-5, 6)[None])
+    world = st.world_points()
+    a_pts = world[win].reshape(4, -1, 2)
+    a_mask = st.point_mask[win].reshape(4, -1)
+    out = (a_pts, a_mask, st.poses[ii, :2].contiguous(), st.points[jj],
+           st.point_mask[jj], st.poses[jj])
+    return tuple(x.to(device) for x in out)
+
+
+@pytest.mark.cuda
+def test_correlative_match_card_equals_cpu(cuda_device, drifted_state):
+    """Four candidates at the default parameters (0.05 m cells, 29 angles):
+    the likelihood fields agree to 1e-6, the winning pose is the same cell
+    and angle (1e-6), score and ambiguity agree to 1e-5, and the
+    gathered correlation agrees with the reference's dense conv2d on the
+    card."""
+    from torch_port_helpers import dense_correlation
+
+    from hitl_slam_torch.ops import scan_match as S
+
+    res = {}
+    for dev in ("cpu", cuda_device):
+        a_pts, a_mask, centers, scans, smask, guess = _candidates(
+            drifted_state, dev)
+        field = S.build_likelihood_field(a_pts, a_mask, centers)
+        res[str(dev)] = (field, *S.correlative_match(field, centers, scans,
+                                                     smask, guess))
+    cpu, card = res["cpu"], res[str(cuda_device)]
+    assert float((card[0].cpu() - cpu[0]).abs().max()) <= 1e-6
+    assert float((card[1].cpu() - cpu[1]).abs().max()) <= 1e-6
+    assert float((card[2].cpu() - cpu[2]).abs().max()) <= 1e-5
+    assert float((card[3].cpu() - cpu[3]).abs().max()) <= 1e-5
+    assert float(cpu[2].min()) > 0.3
+
+    field = card[0]
+    g = torch.Generator().manual_seed(0)
+    ki = torch.randint(0, 520, (4, 29, 128), generator=g, dtype=torch.int32)
+    kj = torch.randint(0, 520, (4, 29, 128), generator=g, dtype=torch.int32)
+    ok = torch.rand((4, 29, 128), generator=g) > 0.1
+    ki, kj, ok = (x.to(cuda_device) for x in (ki, kj, ok))
+    a = S.correlate_gather(field, ki, kj, ok, 41)
+    b = dense_correlation(field, ki, kj, ok, 41)
+    assert float((a - b).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_extract_segments_card_equals_cpu(cuda_device, drifted_state):
+    """Fixed uniforms, the same points: inlier counts and valid equal on
+    both devices, endpoints within 1e-5 m, batched (4 neighbourhoods) and
+    on the whole map at once (32 rounds of 256 hypotheses)."""
+    from hitl_slam_torch.ops import ransac as R
+
+    rp = R.RansacParams(num_segments=8, min_inliers=10, min_length=0.8)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        a_pts, a_mask, *_ = _candidates(drifted_state, dev)
+        batched = R.extract_segments(a_pts, a_mask,
+                                     R.uniform_draws(1, rp, dev, batch=4), rp)
+        st = drifted_state
+        whole = R.extract_segments(
+            st.world_points().reshape(-1, 2).to(dev),
+            st.point_mask.reshape(-1).to(dev),
+            R.uniform_draws(2, R.RansacParams(), dev))
+        out[str(dev)] = (batched, whole)
+    for cpu, card in zip(out["cpu"], out[str(cuda_device)]):
+        assert int(cpu.valid.sum()) >= 2
+        assert torch.equal(card.count.cpu(), cpu.count)
+        assert torch.equal(card.valid.cpu(), cpu.valid)
+        for name in ("p1", "p2", "centroid"):
+            d = (getattr(card, name).cpu() - getattr(cpu, name)).abs().max()
+            assert float(d) <= 1e-5, (name, float(d))
+
+
+@pytest.mark.cuda
+def test_render_map_card_equals_cpu(cuda_device, drifted_state):
+    """The same world points rendered on both devices: equal images (the
+    pixel arithmetic is one subtraction, one multiplication and a cast),
+    and two renders on the card bit-equal."""
+    from hitl_slam_torch.ops import raster as T
+
+    st = drifted_state
+    world = st.world_points()
+    cpu = T.render_map(world, st.point_mask, st.poses)
+    card = T.render_map(world.to(cuda_device), st.point_mask.to(cuda_device),
+                        st.poses.to(cuda_device))
+    again = T.render_map(world.to(cuda_device), st.point_mask.to(cuda_device),
+                         st.poses.to(cuda_device))
+    assert card.shape == (1024, 1024, 3) and card.dtype == torch.uint8
+    assert torch.equal(card, again)
+    assert int((card.cpu() != cpu).any(-1).sum()) <= 4
+    assert int((cpu > 0).sum()) > 10000
+    tab = st.constraints
+    a = T.info_matrix_image(st.poses[:, 0], tab.anchor, tab.constrained,
+                            tab.active)
+    b = T.info_matrix_image(st.poses[:, 0].to(cuda_device),
+                            tab.anchor.to(cuda_device),
+                            tab.constrained.to(cuda_device),
+                            tab.active.to(cuda_device))
+    assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+def test_build_sdf_card_close_to_cpu(cuda_device, drifted_state):
+    """The SDF of the first 64 poses at 0.1 m: values within 1e-5 and
+    weights within 1e-4 of the CPU's but for at most 0.05 % of the pixels
+    (a bearing within an ulp of a bin edge reads the neighbouring beam);
+    two builds on the card bit-equal; the filter keeps the same points from
+    the same image."""
+    from hitl_slam_torch.ops import sdf as S
+
+    st = drifted_state
+    params = S.SdfParams(image_resolution=0.1)
+    args = (st.poses[:64], st.points[:64], st.point_mask[:64],
+            torch.tensor([-22.0, -3.0]))
+    cpu = S.build_sdf(*args, 160, 440, params)
+    cargs = tuple(x.to(cuda_device) for x in args)
+    card = S.build_sdf(*cargs, 160, 440, params)
+    again = S.build_sdf(*cargs, 160, 440, params)
+    assert torch.equal(card.values, again.values)
+    assert torch.equal(card.weights, again.weights)
+    dv = (card.values.cpu() - cpu.values).abs()
+    dw = (card.weights.cpu() - cpu.weights).abs()
+    allowed = 5e-4 * dv.numel()
+    assert int((dv > 1e-5).sum()) <= allowed, int((dv > 1e-5).sum())
+    assert int((dw > 1e-4).sum()) <= allowed, int((dw > 1e-4).sum())
+    world = st.world_points()[:64]
+    same = S.SdfImage(values=cpu.values.to(cuda_device),
+                      weights=cpu.weights.to(cuda_device),
+                      origin=cargs[3], resolution=cpu.resolution.to(cuda_device))
+    keep_cpu = S.filter_points(cpu, world, st.point_mask[:64], params)
+    keep_card = S.filter_points(same, world.to(cuda_device), cargs[2], params)
+    assert torch.equal(keep_card.cpu(), keep_cpu)
+    assert 0 < int(keep_cpu.sum()) < int(st.point_mask[:64].sum())

@@ -101,3 +101,72 @@ def assert_fields_match(got, ref, atol=1e-6, rtol=0.0):
         else:
             np.testing.assert_allclose(have, want, atol=atol, rtol=rtol,
                                        err_msg=name)
+
+
+def reference_draws(keys, num_segments: int, num_hypotheses: int):
+    """A `draws` callable for the port's extract_segments that draws with
+    the JAX package's own key tree: `keys` is one jax.random key (as
+    ops/ransac.py::extract_segments takes it) or a stack of B keys (as
+    propose.py vmaps it). Round r splits its key in two and calls
+    jax.random.choice over the availability mask the port hands over, so
+    both packages score the same index pairs."""
+    import jax
+    import jax.numpy as jnp
+
+    keys = np.asarray(keys)
+    batched = keys.ndim == 2
+    per_round = [jax.random.split(jnp.asarray(k), num_segments)
+                 for k in (keys if batched else keys[None])]
+
+    def draw(r, avail):
+        av = n(avail) if batched else n(avail)[None]
+        M = av.shape[1]
+        ia, ib = [], []
+        for b, rk in enumerate(per_round):
+            k1, k2 = jax.random.split(rk[r])
+            p_av = jnp.asarray(av[b]).astype(jnp.float32)
+            p_av = p_av / jnp.maximum(jnp.sum(p_av), 1.0)
+            ia.append(np.array(jax.random.choice(
+                k1, M, (num_hypotheses,), p=p_av)))
+            ib.append(np.array(jax.random.choice(
+                k2, M, (num_hypotheses,), p=p_av)))
+        ia, ib = np.stack(ia), np.stack(ib)
+        if not batched:
+            ia, ib = ia[0], ib[0]
+        return torch.as_tensor(ia), torch.as_tensor(ib)
+
+    return draw
+
+
+def dense_correlation(field, ki, kj, ok, W: int):
+    """The reference's formulation of the scan matcher's scores: each field
+    [B, H, H] against its T rasterized 0/1 kernels [K, K] (K = H - W + 1,
+    cells ki, kj [B, T, N] where ok) by one dense VALID cross-correlation
+    -> [B, T, W, W]."""
+    import torch.nn.functional as F
+
+    B, T, _ = ki.shape
+    K = field.shape[1] - W + 1
+    bt = torch.arange(B * T, device=field.device).view(B, T, 1)
+    flat = (bt * K + kj.long()) * K + ki.long()
+    flat = torch.where(ok, flat, B * T * K * K)
+    kern = torch.zeros((B * T * K * K + 1,), dtype=field.dtype,
+                       device=field.device)
+    kern[flat.reshape(-1)] = 1.0
+    kern = kern[:-1].view(B * T, 1, K, K)
+    return F.conv2d(field[None], kern, groups=B)[0].view(B, T, W, W)
+
+
+def procrustes_error(poses, gt_poses) -> float:
+    """Mean position error after the best rigid alignment onto gt_poses
+    (the measure of tests/test_scan_match.py)."""
+    a = np.asarray(poses[:, :2], np.float64)
+    b = np.asarray(gt_poses[:, :2], np.float64)
+    ca, cb = a.mean(0), b.mean(0)
+    H = (a - ca).T @ (b - cb)
+    U, _, Vt = np.linalg.svd(H)
+    R = (U @ Vt).T
+    if np.linalg.det(R) < 0:
+        Vt[-1] *= -1
+        R = (U @ Vt).T
+    return float(np.linalg.norm((a - ca) @ R.T + cb - b, axis=1).mean())
