@@ -41,13 +41,22 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      figure-8 map (the figure-8's walls, the prune floors, bit-equal repeat
      from the seed, the SDF against the CPU's); wall and device ms of the
      SDF, the filter and the RANSAC;
- 10. times at the main path's shapes: each kernel by CUDA events (host
+ 10. EnML batch localization (launches neither kernel; the counts are
+     zeroed before it and must stay 0): the sweep on the card against the
+     CPU on the test-size stream (pose and covariance differences, match
+     counts of every 16th window); the sweep over the reference's scale
+     map (1078 nodes, 256 padded points a node) with its wall, ms a node,
+     realtime factor, launches a node and busy share from a profiled
+     32-node segment, peak memory, consistency and the error against ground
+     truth; then a bag through `cli_enml` on the card into HitLSLAM; one
+     `{"enml": {...}}` line;
+ 11. times at the main path's shapes: each kernel by CUDA events (host
      overhead included) and by torch.profiler (its own device time), its
      plain version, its bound from the shapes, and for BCR
      torch.linalg.solve on the dense system; BCR also at n = 64, 16384
      and 32768;
- 11. a `{"kernels": [...]}` line with launches, agreement, times and bounds;
- 12. the last line: {"ok": true, "device": {...}}.
+ 12. a `{"kernels": [...]}` line with launches, agreement, times and bounds;
+ 13. the last line: {"ok": true, "device": {...}}.
 
 scripts/compare_checkouts.py times two checkouts' kernels and replays
 against each other on one card with the helpers here.
@@ -1041,6 +1050,296 @@ def phase_ltvm(torch, large, large_log, clean):
 
 # ---------------------------------------------------------------- phase 10
 
+# tests/test_enml.py's stream, and bench.py's reference-scale EnML map
+# (2600 raw steps, 7 laps: 1078 episode nodes, 199,679 points, 256 padded
+# points a node, so W * N = 2560 matcher rows a window at W = 10)
+ENML_TEST_STREAM = dict(num_steps=160, num_rays=240, seed=11,
+                        noise_trans=4e-3, noise_theta=2e-3)
+ENML_SCALE_STREAM = dict(num_steps=2600, num_rays=240, seed=12, num_laps=7)
+ENML_SCAN_PERIOD_S = 0.05          # the CLI's --scan-period default
+# the sweep of the scale map runs whole unless its projected wall passes
+# this; it is then cut to its first K nodes, never below ENML_MIN_NODES
+ENML_SWEEP_BUDGET_S = 300.0
+ENML_MIN_NODES = 512
+# card against CPU on the test-size stream: poses and relative covariances
+# (f32 round-off carried through 128 window solves; the CPU parity tests
+# hold the port to the JAX package at 1e-4 and 1e-3)
+ENML_POSE_ATOL, ENML_COV_RTOL = 1e-3, 1e-2
+
+
+def _episode_state(stream, device):
+    import numpy as np
+
+    from hitl_slam_torch.core.state import make_map_state
+    from hitl_slam_torch.models.enml.driver import (EpisodeOptions,
+                                                     build_episodes)
+
+    scans, angles, rel = stream[:3]
+    poses, pcs, ncs, _ = build_episodes(
+        scans, angles, rel, EpisodeOptions(clip_low=10, clip_high=10))
+    st = make_map_state(poses, np.zeros((len(poses), 3, 3), np.float32),
+                        pcs, ncs, device)
+    return st, poses, pcs, ncs
+
+
+def _node_scans(rel) -> list[int]:
+    """The scan index of each episode node: build_episodes' motion gating
+    at the CLI's EpisodeOptions, replayed on the odometry alone."""
+    import numpy as np
+
+    from hitl_slam_torch.models.enml.driver import EpisodeOptions
+
+    o = EpisodeOptions(clip_low=10, clip_high=10)
+    acc_t, acc_th, first, out = np.zeros(2), 0.0, True, []
+    for k, r in enumerate(rel):
+        c, s = np.cos(acc_th), np.sin(acc_th)
+        acc_t = acc_t + np.array([[c, -s], [s, c]]) @ r[:2]
+        acc_th = acc_th + r[2]
+        if (not first and np.linalg.norm(acc_t) < o.minimum_node_translation
+                and abs(acc_th) < o.minimum_node_rotation):
+            continue
+        out.append(k)
+        acc_t, acc_th, first = np.zeros(2), 0.0, False
+    return out
+
+
+def _check_covariances(name, covs) -> None:
+    import numpy as np
+
+    check(np.isfinite(covs).all(), f"{name}: covariances not finite")
+    asym = float(np.abs(covs - np.swapaxes(covs, 1, 2)).max())
+    check(asym <= 1e-5, f"{name}: covariances asymmetric by {asym:.3e}")
+    low = float(np.linalg.eigvalsh(covs[1:]).min())
+    check(low > -1e-7, f"{name}: a covariance eigenvalue is {low:.3e}")
+
+
+def _cobot_bag_messages(scans, angles, rel):
+    """LaserScan messages interleaved with two CobotOdometryMsg deltas a
+    scan, as a CoBot bag records them (tests/test_rosbag.py)."""
+    import numpy as np
+
+    from hitl_slam_torch.io import rosbag as rb
+
+    msgs = []
+    t = 100.0
+    inc = float(angles[1] - angles[0])
+    for i in range(len(scans)):
+        if i > 0:
+            dr, dx, dy = float(rel[i][2]), float(rel[i][0]), float(rel[i][1])
+            msgs.append(("/Cobot/Odometry", "vector_slam_msgs/CobotOdometryMsg",
+                         t, rb.serialize_cobot_odometry(dr / 2, dx / 2, dy / 2,
+                                                        t)))
+            t += 0.01
+            # the second half is in the frame after the first half-rotation
+            c, s = np.cos(dr / 2), np.sin(dr / 2)
+            hx, hy = dx / 2, dy / 2
+            msgs.append(("/Cobot/Odometry", "vector_slam_msgs/CobotOdometryMsg",
+                         t, rb.serialize_cobot_odometry(
+                             dr / 2, c * hx + s * hy, -s * hx + c * hy, t)))
+            t += 0.01
+        msgs.append(("laser", "sensor_msgs/LaserScan", t,
+                     rb.serialize_laser_scan(scans[i], float(angles[0]), inc,
+                                             range_min=0.02, range_max=13.0,
+                                             stamp=t)))
+        t += 0.03
+    return msgs
+
+
+def _device_only_profile(torch, run) -> tuple[float, int]:
+    """(device ms, device operations) of run() from torch.profiler tracing
+    the card alone: a window of ~175,000 launches costs minutes to record
+    and sum with the host's operator events too. Rerun up to three times
+    where the window comes back without a device record."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        ops = sum(e.count for e in events)
+        if ops:
+            break
+    check(ops > 0, "enml: the profiler showed no device operation")
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0)) for e in events)
+    return us / 1e3, ops
+
+
+def phase_enml(torch, smi):
+    """EnML batch localization: card against CPU at test size, the sweep at
+    the reference's scale, and a bag through the CLI into HitLSLAM."""
+    import tempfile
+
+    import numpy as np
+
+    from hitl_slam_torch import cli_enml
+    from hitl_slam_torch.io import rosbag, stfs
+    from hitl_slam_torch.io.figure8 import generate_raw_stream
+    from hitl_slam_torch.models.enml import localizer as L
+    from hitl_slam_torch.models.enml.driver import consistency_metric
+    from hitl_slam_torch.models.hitl.engine import HitLSLAM
+
+    o = L.EnmlOptions()
+    out = {"card": smi}
+    _sync()
+    _reset_counts()
+
+    # ---- 1. card against CPU on the test-size stream ----
+    stream = generate_raw_stream(**ENML_TEST_STREAM)
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        st, poses0, pcs, _ = _episode_state(stream, dev)
+        t0 = time.perf_counter()
+        p, c = L.batch_localize(st.points, st.normals, st.point_mask,
+                                st.poses, o)
+        _sync()
+        runs[dev] = (st, p, c, (time.perf_counter() - t0) * 1e3)
+    st, p_card, c_card, ms_card = runs[DEVICE]
+    st_cpu, p_cpu, c_cpu, ms_cpu = runs["cpu"]
+    pc, cc = p_card.cpu().numpy(), c_card.cpu().numpy()
+    dxy, dth = pose_errors(pc, p_cpu.numpy())
+    scale = np.maximum(np.abs(c_cpu.numpy()).max(axis=(1, 2), keepdims=True),
+                       1e-30)
+    cov_rel = float((np.abs(cc - c_cpu.numpy()) / scale).max())
+    check(np.isfinite(pc).all(), "enml test size: poses not finite")
+    _check_covariances("enml test size", cc)
+    check(dxy <= ENML_POSE_ATOL and dth <= ENML_POSE_ATOL,
+          f"enml: card poses {dxy:.3e} m / {dth:.3e} rad from the CPU's")
+    check(cov_rel <= ENML_COV_RTOL,
+          f"enml: card covariances {cov_rel:.3e} (relative) from the CPU's")
+    before = consistency_metric(poses0, pcs)
+    after = consistency_metric(pc, pcs)
+    check(after <= 1.05 * before,
+          f"enml test size: consistency {before:.4f} -> {after:.4f}")
+    P = st.num_poses
+    counts, differ = {}, []
+    for t in range(0, P, 16):
+        n = []
+        for s_, p_ in ((st, p_card), (st_cpu, p_card.cpu())):
+            _, _, valid = L.window_correspondences(
+                s_.points, s_.normals, s_.point_mask, p_, t, o)
+            n.append(int(valid.sum()))
+        counts[t] = n[0]
+        if n[0] != n[1]:
+            differ.append((t, n[0], n[1]))
+    log(f"[enml] test size: {P} nodes x {st.max_points} padded points; card "
+        f"{ms_card:.0f} ms, CPU {ms_cpu:.0f} ms; card against CPU: poses "
+        f"{dxy:.3e} m / {dth:.3e} rad, covariances {cov_rel:.3e} relative; "
+        f"matches at every 16th window {counts}, "
+        f"{'equal' if not differ else f'differ at (node, card, cpu) {differ}'}"
+        f"; consistency {before:.4f} -> {after:.4f} ({smi})")
+    out["test_size"] = dict(nodes=P, card_ms=ms_card, cpu_ms=ms_cpu,
+                            pose_diff_m=dxy, pose_diff_rad=dth,
+                            cov_rel_diff=cov_rel, matches=counts,
+                            match_differ=differ, consistency=[before, after])
+
+    # ---- 2. the reference's scale map ----
+    scans, angles, rel, gt, _ = generate_raw_stream(**ENML_SCALE_STREAM)
+    st, poses0, pcs, _ = _episode_state((scans, angles, rel), DEVICE)
+    P, N = st.points.shape[:2]
+    real = int(st.point_mask.sum())
+    nodes = _node_scans(rel)
+    check(len(nodes) == P, f"node gating replay gave {len(nodes)} != {P}")
+    W = min(o.max_history, P)
+    pre = L.sweep_precompute(st.poses, o)
+    cov0 = torch.zeros((P, 3, 3), dtype=st.poses.dtype, device=DEVICE)
+    seg = 32
+    # warm, then the profiled 32-node segment (nodes 64..95: full windows)
+    L.sweep_segment(st.points, st.normals, st.point_mask, st.poses, cov0,
+                    pre, 0, o, seg)
+    _sync()
+    t0 = time.perf_counter()
+    L.sweep_segment(st.points, st.normals, st.point_mask, st.poses, cov0,
+                    pre, 64, o, seg)
+    _sync()
+    seg_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms, ops = _device_only_profile(torch, lambda: L.sweep_segment(
+        st.points, st.normals, st.point_mask, st.poses, cov0, pre, 64, o,
+        seg))
+    # the device's busy share: its time over the unprofiled segment's wall
+    busy = dev_ms / seg_ms
+    # the whole sweep, or its first K nodes where the budget forces a cut
+    K = P
+    if seg_ms / seg * P / 1e3 > ENML_SWEEP_BUDGET_S:
+        K = max(ENML_MIN_NODES, int(ENML_SWEEP_BUDGET_S * 1e3 * seg / seg_ms))
+        K = min(K, P)
+    if DEVICE != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    _sync()
+    t0 = time.perf_counter()
+    p_l, c_l = L.batch_localize(st.points[:K], st.normals[:K],
+                                st.point_mask[:K], st.poses[:K], o)
+    _sync()
+    wall_s = time.perf_counter() - t0
+    peak = _peak_memory_mb(torch)
+    p_l, c_l = p_l.cpu().numpy(), c_l.cpu().numpy()
+    check(np.isfinite(p_l).all(), "enml scale: poses not finite")
+    check(np.isfinite(c_l).all(), "enml scale: covariances not finite")
+    sub = slice(0, K, 16)
+    sub_pcs = pcs[:K][sub]
+    before = consistency_metric(poses0[:K][sub], sub_pcs)
+    after = consistency_metric(p_l[sub], sub_pcs)
+    check(after <= 1.05 * before,
+          f"enml scale: consistency {before:.4f} -> {after:.4f}")
+    gt_nodes = gt[np.asarray(nodes[:K])]
+    err_odo = procrustes_error(poses0[:K], gt_nodes)
+    err_loc = procrustes_error(p_l, gt_nodes)
+    steps = nodes[K - 1] + 1 if K < P else len(scans)
+    rtf = steps * ENML_SCAN_PERIOD_S / wall_s
+    cut = "" if K == P else f" (cut to the first {K} of {P} nodes: time)"
+    log(f"[enml] scale map: {P} nodes x {N} padded points ({real} real), "
+        f"W = {W}, W*N = {W * N} matcher rows; sweep of {K} nodes{cut}: "
+        f"wall {wall_s:.2f} s, {wall_s * 1e3 / K:.2f} ms a node, realtime "
+        f"factor {rtf:.2f} ({steps} scans at {ENML_SCAN_PERIOD_S} s); "
+        f"32-node segment: wall {seg_ms:.1f} ms, device {dev_ms:.2f} ms in "
+        f"{ops / seg:.0f} device operations a node, busy {100 * busy:.1f} %; "
+        f"peak memory {peak:.0f} MiB; consistency "
+        f"(every 16th node) {before:.4f} -> {after:.4f}; error against "
+        f"ground truth (aligned) odometry {err_odo:.4f} m, localized "
+        f"{err_loc:.4f} m ({smi})")
+    out["scale"] = dict(nodes=P, padded_points=P * N, real_points=real,
+                        swept_nodes=K, wall_s=wall_s,
+                        ms_per_node=wall_s * 1e3 / K, realtime_factor=rtf,
+                        segment_wall_ms=seg_ms, segment_device_ms=dev_ms,
+                        launches_per_node=ops / seg, busy_share=busy,
+                        peak_mib=peak, consistency=[before, after],
+                        gt_error_m=[err_odo, err_loc])
+
+    # ---- 3. a bag through cli_enml on the card into HitLSLAM ----
+    scans, angles, rel = stream[:3]
+    with tempfile.TemporaryDirectory() as tmp:
+        bag = os.path.join(tmp, "session.bag")
+        rosbag.write_bag(bag, _cobot_bag_messages(scans, angles, rel))
+        prefix = os.path.join(tmp, "bagout")
+        t0 = time.perf_counter()
+        rc = cli_enml.main(["-b", bag, "-o", prefix, "--device", DEVICE])
+        cli_s = time.perf_counter() - t0
+        check(rc == 0, f"cli_enml exited {rc}")
+        data = stfs.load_stfs_covars(prefix + ".stfs.covars")
+    n_bag = len(data.poses)
+    check(n_bag > 5 and np.isfinite(data.poses).all(),
+          f"cli_enml: {n_bag} poses from the bag")
+    eng = HitLSLAM(device=DEVICE)
+    eng.init(data.poses, data.covariances, data.point_clouds,
+             data.normal_clouds, constraint_capacity=256)
+    check(eng.get_poses().shape == data.poses.shape
+          and eng.state.points.shape[0] == n_bag,
+          f"HitLSLAM took {eng.get_poses().shape} from {data.poses.shape}")
+    check(_read_counts() == (0, 0),
+          f"EnML launched a hand-written kernel: {_read_counts()}")
+    log(f"[enml] bag ({len(scans)} scans) -> cli_enml on {DEVICE} in "
+        f"{cli_s:.1f} s -> {n_bag} poses -> HitLSLAM state "
+        f"{tuple(eng.state.points.shape)}; kernel launches 0 and 0 ({smi})")
+    out["bag"] = dict(scans=len(scans), poses=n_bag, cli_s=cli_s)
+    print(json.dumps({"enml": out}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------- phase 11
+
 def phase_times(torch, state, log_entries):
     """Each kernel at the main path's shapes (em_scan on the golden_large
     map, BCR at its 1024 poses), beside its plain version, its bound and
@@ -1158,10 +1457,12 @@ def main() -> int:
     phase_render(torch, fig8_eng)
     # ---- 9. LTVM ----
     phase_ltvm(torch, large, large_log, clean)
+    # ---- 10. EnML ----
+    phase_enml(torch, smi)
     log(smi)
-    # ---- 10. times ----
+    # ---- 11. times ----
     times = phase_times(torch, state, large_log)
-    # ---- 11. kernels line ----
+    # ---- 12. kernels line ----
     kernels = [
         {"name": "em_scan", "route": "cuda",
          "source": "hitl_slam_torch/csrc/em_scan.cu",
@@ -1174,7 +1475,7 @@ def main() -> int:
     ]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    # ---- 12. contract line ----
+    # ---- 13. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -10,17 +10,22 @@ C++ (csrc/, built at first use by utils/cuda_build.py):
 Layout mirrors hitl_slam_tpu so each counterpart sits at the same path:
   core/      MapState / ConstraintTable dataclasses, numpy <-> torch converter
   io/        .stfs.covars and correction-log readers and writers, the
-             synthetic figure-8 map generator (host numpy only)
+             synthetic figure-8 map generator, the ROS bag reader and
+             writer (host numpy only)
   ops/       geometry, factor residuals, the em_scan kernel wrapper, the
              refine's matchers, RANSAC segments, the correlative scan
-             matcher, rasterization, the truncated SDF
+             matcher, rasterization, the truncated SDF, the LTF map factors
   solver/    block-tridiagonal solve, normal equations, Levenberg-Marquardt,
              the refine's dense and matrix-free solvers
   models/    the HitL correction cycle, its session engine, the refine and
-             the auto-proposed corrections; the LTVM map curator
-  gui/       draw lists and the display builders (host numpy and json)
+             the auto-proposed corrections; the LTVM map curator; the EnML
+             sliding-window batch localizer and its driver
+  gui/       draw lists, the display builders and the vector-map file
+             (host numpy and json)
+  utils/     kernel builds, images, timing, the TOML and Lua configs
   cli.py     headless replay, auto-repair and rendering entry point
   cli_ltvm.py  the LTVM curator's entry point
+  cli_enml.py  EnML batch localization: bag or stream -> .stfs.covars
 
 Every function takes tensors on an explicit device; nothing here picks a
 device on its own. The package never imports jax or hitl_slam_tpu.

@@ -17,6 +17,9 @@ Port of the headless flags of hitl_slam_tpu/cli.py:
                       apply loop-closure corrections, no human input
   --render PATH       write a PNG render of the (repaired) map
   --info-mat PATH     write the factor-adjacency PNG after a replay mode
+  --config FILE       TOML/JSON engine parameters; its [lm] table sets the
+                      LM solver (config/hitl_slam.toml)
+  --profile DIR       write a torch.profiler trace of the session into DIR
   --device            torch device to run on (default cuda)
 
 Run as `python -m hitl_slam_torch.cli -P map.stfs.covars -L session.log
@@ -59,6 +62,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a PNG render of the (repaired) map")
     p.add_argument("--info-mat", default=None, metavar="PATH",
                    help="write the factor-adjacency PNG after a replay mode")
+    p.add_argument("--config", default=None,
+                   help="TOML/JSON engine parameters (config/hitl_slam.toml); "
+                        "its [lm] table sets the LM solver")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the whole session "
+                        "into DIR (open with chrome://tracing or Perfetto)")
     p.add_argument("--device", default="cuda",
                    help="torch device, e.g. cuda, cuda:1 or cpu")
     return p
@@ -136,18 +145,41 @@ def _render(engine, path: str) -> None:
 
 
 def main(argv=None) -> int:
+    from .utils.timing import install_crash_guard
+
+    install_crash_guard()
     args = build_parser().parse_args(argv)
 
     import torch
-
-    from .io import logs, stfs
-    from .models.hitl.engine import HitLSLAM
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("ERROR: --device cuda but no CUDA device is available "
               "(pass --device cpu to run on the CPU)", file=sys.stderr)
         return 2
+    if args.profile:
+        from .utils.timing import device_trace
+
+        with device_trace("hitl-session", enabled=True, logdir=args.profile):
+            rc = _main_impl(args, device)
+        print(f"profiler trace written to {args.profile}")
+        return rc
+    return _main_impl(args, device)
+
+
+def _main_impl(args, device) -> int:
+    from .io import logs, stfs
+    from .models.hitl.engine import HitLSLAM
+    from .solver.lm import LMConfig
+    from .utils.config import load_config
+
+    try:
+        cfg = load_config(args.config) if args.config else None
+        lm_config = LMConfig(**cfg.get("lm", {})) if cfg else LMConfig()
+    except (OSError, ValueError, TypeError) as e:
+        print(f"ERROR: cannot load config {args.config}: {e}",
+              file=sys.stderr)
+        return 1
 
     print(f"loading pose graph: {args.pose_graph}")
     try:
@@ -160,7 +192,7 @@ def main(argv=None) -> int:
           f"{sum(len(pc) for pc in data.point_clouds)} points "
           f"(map '{data.map_name}') on {device}")
 
-    engine = HitLSLAM(device=device)
+    engine = HitLSLAM(device=device, lm_config=lm_config)
     engine.init(data.poses, data.covariances, data.point_clouds,
                 data.normal_clouds)
 

@@ -28,6 +28,9 @@ def build_parser():
 
 
 def main(argv=None) -> int:
+    from .utils.timing import install_crash_guard
+
+    install_crash_guard()
     args = build_parser().parse_args(argv)
 
     import torch

@@ -1,0 +1,1027 @@
+"""Minimal self-contained ROS1 `.bag` (format v2.0) reader + writer.
+
+Port of hitl_slam_tpu/io/rosbag.py (host numpy only). The reference routes
+per-chunk record framing through an optional C++ scanner (its `native/`
+package); that scanner is not in the port yet, so every read takes the
+pure-Python path the reference falls back to, which the reference's tests
+hold equal to the scanner.
+
+Real-data ingestion for EnML without roscpp: the reference's front end is
+rosbag -> LoadLaserMessage / LoadOdometryMessage / LoadSetLocationMessage ->
+AddPose (vector_mapping_main.cpp:1072-1320, LoadRosBag :1320). The bag format
+is self-describing (http://wiki.ros.org/Bags/Format/2.0): a version line then
+length-prefixed records, each a header (length-prefixed name=value fields)
+plus a data blob. Messages live inside chunk records (compression none, bz2,
+and lz4 — the roslz4 LZ4-frame format, io/lz4frame.py — all supported).
+
+Supported message types (hand-rolled little-endian deserializers, layouts
+from the .msg definitions in the reference's vector_slam_msgs/msg and the
+ROS common_msgs):
+
+  sensor_msgs/LaserScan            topics laser, /Cobot/Laser,
+                                   /Cobot/Kinect/Scan (use_kinect mode)
+  nav_msgs/Odometry                topic  odom        (standardized bags)
+  vector_slam_msgs/CobotOdometryMsg topic /Cobot/Odometry (dr,dx,dy deltas)
+  vector_slam_msgs/LocalizationMsg  topic set_location
+
+`bag_to_stream` mirrors the reference's odometry bookkeeping: standardized
+nav_msgs/Odometry is differenced against the pose at the previous laser node
+(vector_mapping_main.cpp:1216-1236); CobotOdometryMsg deltas accumulate in
+the running relative frame (:1256-1263). The writer emits spec-complete
+bags with the real rosbag record layout (per-chunk connection records,
+INDEX_DATA after each chunk, trailing connection + CHUNK_INFO index section,
+index_pos back-patched; none/bz2/lz4/mixed chunk compression, chunk
+splitting). Maintenance utilities: `reindex` (crash recovery) + `bag_info`,
+exposed as `python -m hitl_slam_torch.io.rosbag {info,reindex}`.
+
+Robustness (real-world quirks, adversarially tested in test_rosbag.py):
+truncated tails stop cleanly with a warning; corrupt bz2 chunks, malformed
+records, zero-beam or beam-count-changing scans are counted and skipped;
+multiple connections per topic and unknown record ops are handled.
+"""
+
+from __future__ import annotations
+
+import bz2
+import io
+import struct
+import warnings
+from dataclasses import dataclass
+
+import numpy as np
+
+_OP_BAG_HEADER = 0x03
+_OP_CHUNK = 0x05
+_OP_CONNECTION = 0x07
+_OP_MESSAGE_DATA = 0x02
+_OP_INDEX_DATA = 0x04
+_OP_CHUNK_INFO = 0x06
+
+VERSION_LINE = b"#ROSBAG V2.0\n"
+
+# default laser subscription: standardized + CoBot scanner (the reference
+# subscribes exactly ONE of laser / /Cobot/Laser / kinect, chosen by
+# kStandardizedData / use_kinect_, vector_mapping_main.cpp:196-210,
+# 1359-1373 — merging kinect with the lidar would double-ingest)
+LASER_TOPICS = ("laser", "/Cobot/Laser")
+KINECT_TOPIC = "/Cobot/Kinect/Scan"   # vector_mapping_main.cpp:199
+ODOM_TOPIC_STD = "odom"
+ODOM_TOPIC_COBOT = "/Cobot/Odometry"
+SET_LOCATION_TOPIC = "set_location"
+
+
+# ---------------------------------------------------------------------------
+# record-level framing
+# ---------------------------------------------------------------------------
+
+def _parse_header(buf: bytes) -> dict:
+    fields = {}
+    off = 0
+    n = len(buf)
+    while off + 4 <= n:
+        (flen,) = struct.unpack_from("<I", buf, off)
+        off += 4
+        field = buf[off:off + flen]
+        off += flen
+        eq = field.find(b"=")
+        if eq >= 0:
+            # errors="replace": a corrupt header key must not abort the
+            # ingest (the record is skipped downstream like other malformed
+            # records), matching the value-side decoding policy
+            fields[field[:eq].decode(errors="replace")] = field[eq + 1:]
+    return fields
+
+
+def _emit(damage, msg: str) -> None:
+    """Route a framing diagnostic: warn by default, or append to the
+    caller's list (thread-safe control-flow signal for _load_index)."""
+    if damage is None:
+        warnings.warn(msg)
+    else:
+        damage.append(msg)
+
+
+def _iter_records_stream(f, off: int, n: int, where: str = "bag",
+                         damage=None, yield_offsets: bool = False):
+    """Yield (header, data) records — or (record_start, header, data) with
+    yield_offsets=True — from a file-like positioned at `off` (absolute
+    offsets; n = total size, so in-memory and streaming callers produce
+    identical diagnostics on the same bytes). A TRUNCATED tail (crash-cut
+    bag, the most common real-world quirk — rosbag ships a reindex tool
+    for exactly this) stops iteration cleanly with a warning instead of
+    raising."""
+    while off + 4 <= n:
+        rec_start = off
+        (hlen,) = struct.unpack("<I", f.read(4))
+        off += 4
+        if off + hlen + 4 > n:
+            _emit(damage, f"truncated record header in {where} "
+                          f"(offset {off - 4}/{n}); stopping")
+            return
+        header = _parse_header(f.read(hlen))
+        off += hlen
+        (dlen,) = struct.unpack("<I", f.read(4))
+        off += 4
+        if off + dlen > n:
+            _emit(damage, f"truncated record data in {where} "
+                          f"(offset {off - 4}/{n}); stopping")
+            return
+        data = f.read(dlen)
+        off += dlen
+        yield (rec_start, header, data) if yield_offsets else (header, data)
+    if off != n and n - off >= 1:
+        _emit(damage, f"{n - off} trailing bytes in {where} ignored")
+
+
+def _iter_records(buf: bytes, off: int = 0, where: str = "bag",
+                  yield_offsets: bool = False):
+    """In-memory wrapper over _iter_records_stream (chunk payloads)."""
+    f = io.BytesIO(buf)
+    f.seek(off)
+    yield from _iter_records_stream(f, off, len(buf), where,
+                                    yield_offsets=yield_offsets)
+
+
+@dataclass
+class BagMessage:
+    topic: str
+    msgtype: str
+    time: float       # seconds
+    raw: bytes        # serialized message body
+
+
+def _op_of(header) -> int:
+    op = header.get("op", b"")
+    return op[0] if op else -1
+
+
+def _handle_connection(header, data, conns) -> None:
+    # real bags repeat connection records inside every chunk AND in
+    # the trailing index section, and carry multiple connections per
+    # topic (latched/unlatched, remapped original names) — conn ids
+    # are authoritative, topics are display only
+    if "conn" not in header or len(header["conn"]) < 4:
+        warnings.warn("connection record without conn id; skipped")
+        return
+    cid = struct.unpack("<I", header["conn"][:4])[0]
+    topic = header.get("topic", b"").decode(errors="replace")
+    sub = _parse_header(data)
+    msgtype = sub.get("type", b"").decode(errors="replace")
+    # the connection data's own 'topic' (original name) wins if set
+    conns[cid] = (topic or sub.get("topic", b"").decode(
+        errors="replace"), msgtype)
+
+
+def _handle_record(header, data, conns):
+    op = _op_of(header)
+    if op == _OP_CONNECTION:
+        _handle_connection(header, data, conns)
+        return None
+    if op == _OP_MESSAGE_DATA:
+        if ("conn" not in header or len(header["conn"]) < 4
+                or "time" not in header or len(header["time"]) < 8):
+            warnings.warn("malformed message record skipped")
+            return None
+        cid = struct.unpack("<I", header["conn"][:4])[0]
+        secs, nsecs = struct.unpack("<II", header["time"][:8])
+        topic, msgtype = conns.get(cid, ("?", "?"))
+        return BagMessage(topic, msgtype, secs + 1e-9 * nsecs, data)
+    # INDEX_DATA / CHUNK_INFO / BAG_HEADER and unknown future ops are
+    # framing/metadata — skipped (this reader scans chunks directly)
+    return None
+
+
+def _chunk_payload(header, data):
+    """Decompress a chunk record's data. None = corrupt chunk (skipped with
+    a warning); raises on unsupported compression."""
+    comp = header.get("compression", b"none").decode(errors="replace")
+    if comp == "none":
+        return data
+    if comp == "bz2":
+        try:
+            return bz2.decompress(data)
+        except OSError as e:
+            warnings.warn(f"corrupt bz2 chunk skipped ({e})")
+            return None
+    if comp == "lz4":
+        from . import lz4frame
+
+        if not lz4frame.available():
+            raise ValueError(
+                "lz4-compressed bag but liblz4.so.1 is not available; "
+                "re-record or decompress the bag")
+        try:
+            return lz4frame.decompress(data)
+        except ValueError as e:
+            warnings.warn(f"corrupt lz4 chunk skipped ({e})")
+            return None
+    raise ValueError(
+        f"unsupported chunk compression {comp!r} "
+        "(only none/bz2/lz4; re-record or decompress the bag)")
+
+
+def read_messages(path: str, use_native: bool = True, topics=None):
+    """Yield BagMessage for every message record, in chunk order.
+
+    Streams the bag chunk-at-a-time (constant memory in the file size; the
+    reference's roscpp reader is likewise chunk-buffered). use_native is
+    kept for the reference's signature: the C++ record scanner
+    (`native/bag_scanner.cpp` in the reference) is still to be ported, so
+    every read takes the pure-Python path, which the reference holds equal
+    to the scanner.
+
+    topics: optional iterable of topic names — the rosbag::View(TopicQuery)
+    analog (vector_mapping_main.cpp:1359-1378 subscribes only the laser /
+    odometry / set_location topics). When given, only matching messages are
+    yielded, and when the bag carries a readable trailing index (bag-header
+    index_pos -> connection + CHUNK_INFO records), chunks whose index shows
+    no matching connection are skipped WITHOUT being read or decompressed —
+    on real robot bags the bulk (camera images) never touches bz2/lz4."""
+    tset = None if topics is None else frozenset(topics)
+    with open(path, "rb") as f:
+        f.seek(0, 2)
+        n = f.tell()
+        f.seek(0)
+        if f.read(len(VERSION_LINE)) != VERSION_LINE:
+            raise ValueError(
+                f"not a ROS bag v2.0 file: {path!r} (bad version line)")
+        # the native scanner (reference `native/`) is still to come: no
+        # use_native route yet
+        stream = None
+        if tset is not None:
+            index = _load_index(f, n)
+            if index is not None:
+                stream = _messages_indexed(f, n, index, tset)
+        if stream is None:
+            f.seek(len(VERSION_LINE))
+            stream = _messages_linear(f, n)
+        for msg in stream:
+            if tset is None or msg.topic in tset:
+                yield msg
+
+
+def _messages_linear(f, n: int):
+    """Forward scan of every record from the current file position."""
+    conns: dict[int, tuple[str, str]] = {}
+    for header, data in _iter_records_stream(f, f.tell(), n):
+        if _op_of(header) == _OP_CHUNK:
+            payload = _chunk_payload(header, data)
+            if payload is None:
+                continue
+            yield from _chunk_messages(payload, conns)
+        else:
+            msg = _handle_record(header, data, conns)
+            if msg is not None:
+                yield msg
+
+
+def _chunk_messages(payload: bytes, conns):
+    for h2, d2 in _iter_records(payload, where="chunk"):
+        msg = _handle_record(h2, d2, conns)
+        if msg is not None:
+            yield msg
+
+
+def _load_index(f, n: int):
+    """Parse the trailing index section. Returns (conns, chunk_infos) where
+    chunk_infos is [(chunk_pos, {conn_id: msg_count})] in file order, or
+    None (with a warning for damaged indexes) when the bag has no usable
+    index — callers fall back to the linear scan (rosbag ships `reindex`
+    for exactly these bags)."""
+    try:
+        f.seek(len(VERSION_LINE))
+        first = next(_iter_records_stream(f, len(VERSION_LINE), n), None)
+        if first is None:
+            return None
+        header, _ = first
+        if (_op_of(header) != _OP_BAG_HEADER
+                or len(header.get("index_pos", b"")) < 8):
+            return None
+        (index_pos,) = struct.unpack("<Q", header["index_pos"][:8])
+        if not len(VERSION_LINE) < index_pos < n:
+            return None   # 0 = unindexed (crash-cut); out of range = damaged
+        chunk_count = None
+        if len(header.get("chunk_count", b"")) >= 4:
+            (chunk_count,) = struct.unpack("<I", header["chunk_count"][:4])
+        f.seek(index_pos)
+        conns: dict[int, tuple[str, str]] = {}
+        chunk_infos: list[tuple[int, dict[int, int]]] = []
+        damage: list[str] = []
+        for header, data in _iter_records_stream(f, index_pos, n,
+                                                 damage=damage):
+            op = _op_of(header)
+            if op == _OP_CONNECTION:
+                _handle_connection(header, data, conns)
+            elif op == _OP_CHUNK_INFO:
+                if len(header.get("chunk_pos", b"")) < 8:
+                    raise ValueError("chunk_info without chunk_pos")
+                (pos,) = struct.unpack("<Q", header["chunk_pos"][:8])
+                counts: dict[int, int] = {}
+                for off in range(0, len(data) - 7, 8):
+                    cid, cnt = struct.unpack_from("<II", data, off)
+                    counts[cid] = counts.get(cid, 0) + cnt
+                chunk_infos.append((pos, counts))
+            elif op == _OP_CHUNK:
+                raise ValueError("chunk record inside the index section")
+        if damage:
+            # a truncated/garbled index would silently drop tail chunks —
+            # damage means fall back to the full linear scan
+            raise ValueError(damage[0])
+        if chunk_count is not None and len(chunk_infos) != chunk_count:
+            raise ValueError(
+                f"index lists {len(chunk_infos)} chunks, bag header "
+                f"declares {chunk_count}")
+        if not chunk_infos:
+            return None
+        if any(not len(VERSION_LINE) <= pos < n for pos, _ in chunk_infos):
+            raise ValueError("chunk_pos out of range")
+        chunk_infos.sort(key=lambda pc: pc[0])   # message order = file order
+        return conns, chunk_infos
+    except (ValueError, struct.error, OSError) as e:
+        warnings.warn(f"bag index unreadable ({e}); falling back to a "
+                      "linear scan")
+        return None
+
+
+def _messages_indexed(f, n: int, index, tset):
+    """Index-driven chunk iteration: seek to each chunk whose CHUNK_INFO
+    shows a connection on a requested topic; untouched chunks are never
+    read or decompressed. Message order within and across visited chunks
+    matches the linear scan (chunk_infos are in file order)."""
+    index_conns, chunk_infos = index
+    relevant = {cid for cid, (topic, _) in index_conns.items()
+                if topic in tset}
+    conns = dict(index_conns)   # chunks repeat their own connection records
+    for pos, counts in chunk_infos:
+        if not any(cid in relevant and cnt > 0 for cid, cnt in
+                   counts.items()):
+            continue
+        f.seek(pos)
+        rec = next(_iter_records_stream(f, pos, n), None)
+        if rec is None:
+            # unreadable record at chunk_pos; later indexed chunks may
+            # still be intact — skip, don't abort the whole iteration
+            warnings.warn(f"index chunk at offset {pos} unreadable; "
+                          "skipped")
+            continue
+        header, data = rec
+        if _op_of(header) != _OP_CHUNK:
+            warnings.warn(f"index chunk_pos {pos} does not point at a "
+                          "chunk record; skipped")
+            continue
+        payload = _chunk_payload(header, data)
+        if payload is None:
+            continue
+        yield from _chunk_messages(payload, conns)
+
+
+# ---------------------------------------------------------------------------
+# message deserializers
+# ---------------------------------------------------------------------------
+
+def _skip_ros_header(raw: bytes, off: int = 0) -> int:
+    """std_msgs/Header: uint32 seq, time stamp, string frame_id."""
+    off += 4 + 8
+    (slen,) = struct.unpack_from("<I", raw, off)
+    return off + 4 + slen
+
+
+def parse_laser_scan(raw: bytes):
+    """-> dict(angle_min, angle_increment, range_min, range_max, ranges)."""
+    off = _skip_ros_header(raw)
+    (angle_min, angle_max, angle_increment, time_increment, scan_time,
+     range_min, range_max) = struct.unpack_from("<7f", raw, off)
+    off += 28
+    (n,) = struct.unpack_from("<I", raw, off)
+    off += 4
+    ranges = np.frombuffer(raw, np.float32, n, off).copy()
+    return dict(angle_min=angle_min, angle_max=angle_max,
+                angle_increment=angle_increment, range_min=range_min,
+                range_max=range_max, ranges=ranges)
+
+
+def parse_odometry(raw: bytes):
+    """nav_msgs/Odometry -> (x, y, theta) from pose.pose; theta via the
+    planar quaternion convention 2*atan2(z, w) (:1223-1226)."""
+    off = _skip_ros_header(raw)
+    (slen,) = struct.unpack_from("<I", raw, off)   # child_frame_id
+    off += 4 + slen
+    x, y, _z = struct.unpack_from("<3d", raw, off)
+    off += 24
+    qx, qy, qz, qw = struct.unpack_from("<4d", raw, off)
+    theta = 2.0 * np.arctan2(qz, qw)
+    return float(x), float(y), float(theta)
+
+
+def parse_cobot_odometry(raw: bytes):
+    """vector_slam_msgs/CobotOdometryMsg -> (dr, dx, dy)."""
+    off = _skip_ros_header(raw)
+    dr, dx, dy = struct.unpack_from("<3f", raw, off)
+    return float(dr), float(dx), float(dy)
+
+
+def parse_localization(raw: bytes):
+    """vector_slam_msgs/LocalizationMsg -> (x, y, angle)."""
+    (slen,) = struct.unpack_from("<I", raw, 0)
+    off = 4 + slen
+    x, y, _z = struct.unpack_from("<3d", raw, off)
+    off += 24
+    (angle,) = struct.unpack_from("<f", raw, off)
+    return float(x), float(y), float(angle)
+
+
+# ---------------------------------------------------------------------------
+# EnML ingestion: bag -> (scans, angles, rel_odometry, set_locations)
+# ---------------------------------------------------------------------------
+
+def bag_to_stream(path: str, max_laser_msgs: int | None = None,
+                  time_skip: float = 0.0, laser_topics=None):
+    """Convert a bag into the EnML driver's raw-stream arrays.
+
+    Returns (scans [T,R] f32, angles [R] f32, rel_odometry [T,3] f32,
+    set_locations: list of (scan_index, (x, y, theta)) re-localization
+    events in stream order — apply with apply_set_locations).
+    rel_odometry[i] is the odometry motion between laser scans i-1 and i
+    in scan i-1's frame (dx, dy, dtheta); row 0 is 0.
+
+    Subscribes only the reference's topic set (rosbag::View + TopicQuery,
+    vector_mapping_main.cpp:1359-1378): on indexed real bags, chunks that
+    carry only other topics (camera images dominate robot bags) are never
+    read or decompressed. laser_topics selects the scan source (default
+    LASER_TOPICS = standardized + CoBot lidar; pass (KINECT_TOPIC,) for
+    the reference's use_kinect mode — it subscribes exactly one scanner).
+    """
+    if laser_topics is None:
+        laser_topics = LASER_TOPICS
+    scans: list[np.ndarray] = []
+    rels: list[np.ndarray] = []
+    angles = None
+    meta = None
+    set_locations: list[tuple[int, tuple]] = []
+    t0 = None
+
+    # standardized-odometry bookkeeping: pose at previous laser node
+    last_abs = None       # (x, y, theta) at last laser
+    cur_abs = None        # latest nav_msgs/Odometry pose
+    # cobot-delta bookkeeping: accumulated relative motion since last laser
+    rel_loc = np.zeros(2, np.float64)
+    rel_ang = 0.0
+
+    skipped = 0
+    wanted = (*laser_topics, ODOM_TOPIC_STD, ODOM_TOPIC_COBOT,
+              SET_LOCATION_TOPIC)
+    for msg in read_messages(path, topics=wanted):
+        if t0 is None:
+            t0 = msg.time
+        if msg.time - t0 < time_skip:
+            continue
+        if msg.msgtype == "sensor_msgs/LaserScan" and (
+                msg.topic in laser_topics):
+            try:
+                scan = parse_laser_scan(msg.raw)
+            except (struct.error, ValueError):
+                skipped += 1
+                continue
+            if angles is None:
+                n = len(scan["ranges"])
+                if n == 0:
+                    skipped += 1
+                    continue
+                angles = (scan["angle_min"]
+                          + scan["angle_increment"] * np.arange(n)).astype(
+                              np.float32)
+                meta = scan
+            if len(scan["ranges"]) != len(angles):
+                # out-of-spec bags interleave reconfigured scanners; EnML
+                # needs one static beam layout — keep the first
+                skipped += 1
+                continue
+            if cur_abs is not None:
+                # difference absolute odometry against the last laser node
+                if last_abs is None:
+                    rel = np.zeros(3, np.float64)
+                else:
+                    dx, dy = cur_abs[0] - last_abs[0], cur_abs[1] - last_abs[1]
+                    c, s = np.cos(-last_abs[2]), np.sin(-last_abs[2])
+                    dth = np.arctan2(np.sin(cur_abs[2] - last_abs[2]),
+                                     np.cos(cur_abs[2] - last_abs[2]))
+                    rel = np.array([c * dx - s * dy, s * dx + c * dy, dth])
+                last_abs = cur_abs
+            else:
+                rel = np.array([rel_loc[0], rel_loc[1], rel_ang])
+                rel_loc = np.zeros(2, np.float64)
+                rel_ang = 0.0
+            scans.append(scan["ranges"])
+            rels.append(rel.astype(np.float32))
+            if max_laser_msgs and len(scans) >= max_laser_msgs:
+                break
+        elif msg.msgtype == "nav_msgs/Odometry" and (
+                msg.topic == ODOM_TOPIC_STD):
+            try:
+                cur_abs = parse_odometry(msg.raw)
+            except struct.error:
+                skipped += 1
+                continue
+            if last_abs is None:
+                last_abs = cur_abs
+        elif msg.msgtype == "vector_slam_msgs/CobotOdometryMsg" and (
+                msg.topic == ODOM_TOPIC_COBOT):
+            try:
+                dr, dx, dy = parse_cobot_odometry(msg.raw)
+            except struct.error:
+                skipped += 1
+                continue
+            c, s = np.cos(rel_ang), np.sin(rel_ang)
+            rel_loc += np.array([c * dx - s * dy, s * dx + c * dy])
+            rel_ang += dr
+        elif msg.msgtype == "vector_slam_msgs/LocalizationMsg" and (
+                msg.topic == SET_LOCATION_TOPIC):
+            try:
+                # applies from the NEXT laser node on, at its stream
+                # position — the reference resets global_location/angle
+                # mid-run (vector_mapping_main.cpp:1271-1289), it does not
+                # re-anchor the whole trajectory
+                set_locations.append((len(scans), parse_localization(msg.raw)))
+            except struct.error:
+                skipped += 1
+
+    if skipped:
+        warnings.warn(f"{skipped} malformed/mismatched messages skipped "
+                      f"in {path!r}")
+    if not scans:
+        hint = ("; a Kinect-only bag needs --use-kinect"
+                if KINECT_TOPIC not in laser_topics else "")
+        raise ValueError(f"no laser scans found in {path!r} "
+                         f"(looked for topics {tuple(laser_topics)}{hint})")
+    scans_arr = np.stack(scans).astype(np.float32)
+    rel_arr = np.stack(rels).astype(np.float32)
+    # invalid returns (non-finite, or outside the SCANNER's [range_min,
+    # range_max] interval per the LaserScan spec) become np.inf so the
+    # downstream isfinite gate drops them — the old range_max+1.0 sentinel
+    # was FINITE and passed `r < max_point_cloud_range` whenever the config
+    # max exceeded it (12/40/70 m in the reference domains), inventing a
+    # phantom wall point per missed beam (review finding r3)
+    lo, hi = meta["range_min"], meta["range_max"]
+    bad = (~np.isfinite(scans_arr) | (scans_arr < lo) | (scans_arr > hi))
+    scans_arr = np.where(bad, np.inf, scans_arr).astype(np.float32)
+    return scans_arr, angles, rel_arr, set_locations
+
+
+def apply_set_locations(rel: np.ndarray, events) -> np.ndarray:
+    """Fold re-localization events into the relative-odometry stream at
+    their stream positions (reference LoadSetLocationMessage semantics:
+    global_location/angle reset mid-run, vector_mapping_main.cpp:1271-1289
+    — subsequent poses integrate from the given map-frame pose with the
+    SAME relative motions).
+
+    `rel` uses the driver convention that row 0 is the absolute start pose
+    (or zero). Returns a rel array with the same convention: the poses
+    integrated from it satisfy pose[k] == L for each event (k, L), with the
+    pose chain after k rigidly carried."""
+    if not events:
+        return rel
+    rel = np.asarray(rel, np.float64)
+    T = len(rel)
+
+    def compose(p, d):
+        c, s = np.cos(p[2]), np.sin(p[2])
+        return np.array([p[0] + c * d[0] - s * d[1],
+                         p[1] + s * d[0] + c * d[1], p[2] + d[2]])
+
+    poses = np.zeros((T, 3))
+    poses[0] = rel[0]
+    for i in range(1, T):
+        poses[i] = compose(poses[i - 1], rel[i])
+    for k, loc in sorted(events):
+        k = min(max(int(k), 0), T - 1)
+        L = np.asarray(loc, np.float64)
+        # rigid map: pose -> L o inv(pose_k) o pose for all j >= k
+        dth = L[2] - poses[k, 2]
+        c, s = np.cos(dth), np.sin(dth)
+        R = np.array([[c, -s], [s, c]])
+        t = L[:2] - R @ poses[k, :2]
+        poses[k:, :2] = poses[k:, :2] @ R.T + t
+        poses[k:, 2] += dth
+    out = np.zeros_like(poses)
+    out[0] = poses[0]
+    for i in range(1, T):
+        d = poses[i, :2] - poses[i - 1, :2]
+        c, s = np.cos(-poses[i - 1, 2]), np.sin(-poses[i - 1, 2])
+        out[i] = [c * d[0] - s * d[1], s * d[0] + c * d[1],
+                  np.arctan2(np.sin(poses[i, 2] - poses[i - 1, 2]),
+                             np.cos(poses[i, 2] - poses[i - 1, 2]))]
+    return out.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# writer (uncompressed, single chunk) + serializers
+# ---------------------------------------------------------------------------
+
+def _field(name: str, value: bytes) -> bytes:
+    body = name.encode() + b"=" + value
+    return struct.pack("<I", len(body)) + body
+
+
+def _record(fields: dict, data: bytes) -> bytes:
+    header = b"".join(_field(k, v) for k, v in fields.items())
+    return (struct.pack("<I", len(header)) + header
+            + struct.pack("<I", len(data)) + data)
+
+
+def _time(t: float) -> bytes:
+    secs = int(t)
+    nsecs = int(round((t - secs) * 1e9))
+    return struct.pack("<II", secs, nsecs)
+
+
+def serialize_laser_scan(ranges, angle_min, angle_increment,
+                         range_min=0.02, range_max=10.0,
+                         stamp=0.0, frame_id=b"laser") -> bytes:
+    ranges = np.asarray(ranges, np.float32)
+    n = len(ranges)
+    hdr = (struct.pack("<I", 0) + _time(stamp)
+           + struct.pack("<I", len(frame_id)) + frame_id)
+    angle_max = angle_min + angle_increment * (n - 1)
+    body = struct.pack("<7f", angle_min, angle_max, angle_increment,
+                       0.0, 0.0, range_min, range_max)
+    return (hdr + body + struct.pack("<I", n) + ranges.tobytes()
+            + struct.pack("<I", 0))  # empty intensities
+
+
+def serialize_cobot_odometry(dr, dx, dy, stamp=0.0) -> bytes:
+    hdr = struct.pack("<I", 0) + _time(stamp) + struct.pack("<I", 0)
+    return (hdr + struct.pack("<3f", dr, dx, dy)
+            + struct.pack("<4f", 0, 0, 0, 0)       # v0..v3
+            + struct.pack("<3f", 0, 0, 0)          # vr vx vy
+            + struct.pack("<f", 0.0) + b"\x00")    # VBatt, status
+
+
+def serialize_odometry(x, y, theta, stamp=0.0) -> bytes:
+    hdr = struct.pack("<I", 0) + _time(stamp) + struct.pack("<I", 0)
+    child = struct.pack("<I", 0)
+    pose = struct.pack("<3d", x, y, 0.0) + struct.pack(
+        "<4d", 0.0, 0.0, np.sin(theta / 2.0), np.cos(theta / 2.0))
+    cov = struct.pack("<36d", *([0.0] * 36))
+    twist = struct.pack("<6d", *([0.0] * 6)) + cov
+    return hdr + child + pose + cov + twist
+
+
+def serialize_localization(x, y, angle, map_name=b"map") -> bytes:
+    return (struct.pack("<I", len(map_name)) + map_name
+            + struct.pack("<3d", x, y, 0.0) + struct.pack("<f", angle))
+
+
+def write_bag(path: str, messages, compression: str = "none",
+              chunk_size: int | None = None) -> None:
+    """messages: iterable of (topic, msgtype, time_s, raw_bytes). Writes a
+    spec-complete v2.0 bag with the REAL rosbag record layout: connection
+    records repeated inside each chunk, per-connection INDEX_DATA records
+    after each chunk, and a trailing index section (connections + CHUNK_INFO)
+    pointed to by the bag header's index_pos — the structures real bags
+    carry and adversarial tests exercise.
+
+    compression: "none", "bz2", "lz4" (roslz4 LZ4-frame), or "mixed"
+    (cycling all three per chunk, an out-of-spec-tool quirk seen in the
+    wild). chunk_size: approximate
+    uncompressed bytes per chunk (None = single chunk)."""
+    msg_list = list(messages)
+    topics: dict[str, int] = {}
+    conn_records = []
+    for topic, msgtype, _t, _raw in msg_list:
+        if topic not in topics:
+            cid = len(topics)
+            topics[topic] = cid
+            conn_data = (_field("topic", topic.encode())
+                         + _field("type", msgtype.encode())
+                         + _field("md5sum", b"0" * 32)
+                         + _field("message_definition", b""))
+            conn_records.append(_record(
+                {"op": bytes([_OP_CONNECTION]),
+                 "conn": struct.pack("<I", cid),
+                 "topic": topic.encode()}, conn_data))
+    if compression not in ("none", "bz2", "lz4", "mixed"):
+        raise ValueError(f"unsupported compression {compression!r}")
+    mixed_cycle = ("none", "bz2", "lz4")
+    if compression in ("lz4", "mixed"):
+        from . import lz4frame
+
+        if not lz4frame.available():
+            if compression == "lz4":
+                raise ValueError(
+                    "lz4 compression requested but liblz4.so.1 unavailable")
+            mixed_cycle = ("none", "bz2")   # degrade gracefully
+
+    # split messages into chunks of ~chunk_size serialized bytes
+    chunks: list[list[tuple[str, float, bytes]]] = [[]]
+    acc = 0
+    for topic, _mt, t, raw in msg_list:
+        if chunk_size and acc >= chunk_size and chunks[-1]:
+            chunks.append([])
+            acc = 0
+        chunks[-1].append((topic, t, raw))
+        acc += len(raw) + 64
+
+    chunk_infos = []
+    with open(path, "wb") as f:
+        f.write(VERSION_LINE)
+        f.write(_bag_header_record(0, len(topics), len(chunks)))
+
+        for k, cmsgs in enumerate(chunks):
+            comp = (compression if compression != "mixed"
+                    else mixed_cycle[k % len(mixed_cycle)])
+            # real rosbag repeats the connection records in every chunk
+            parts = list(conn_records)
+            offset = sum(map(len, parts))   # running byte cursor (O(M))
+            index: dict[int, list[tuple[float, int]]] = {}
+            for topic, t, raw in cmsgs:
+                cid = topics[topic]
+                index.setdefault(cid, []).append((t, offset))
+                rec = _record(
+                    {"op": bytes([_OP_MESSAGE_DATA]),
+                     "conn": struct.pack("<I", cid),
+                     "time": _time(t)}, raw)
+                parts.append(rec)
+                offset += len(rec)
+            payload = b"".join(parts)
+            size = len(payload)
+            if comp == "bz2":
+                blob = bz2.compress(payload)
+            elif comp == "lz4":
+                from . import lz4frame
+
+                blob = lz4frame.compress(payload)
+            else:
+                blob = payload
+            chunk_pos = f.tell()
+            f.write(_record(
+                {"op": bytes([_OP_CHUNK]), "compression": comp.encode(),
+                 "size": struct.pack("<I", size)}, blob))
+            # per-connection INDEX_DATA records follow each chunk
+            for cid, entries in index.items():
+                data = b"".join(_time(t) + struct.pack("<I", off)
+                                for t, off in entries)
+                f.write(_record(
+                    {"op": bytes([_OP_INDEX_DATA]),
+                     "ver": struct.pack("<I", 1),
+                     "conn": struct.pack("<I", cid),
+                     "count": struct.pack("<I", len(entries))}, data))
+            times = [t for _, t, _ in cmsgs] or [0.0]
+            counts = b"".join(struct.pack("<II", cid, len(entries))
+                              for cid, entries in index.items())
+            chunk_infos.append(_record(
+                {"op": bytes([_OP_CHUNK_INFO]),
+                 "ver": struct.pack("<I", 1),
+                 "chunk_pos": struct.pack("<Q", chunk_pos),
+                 "start_time": _time(min(times)),
+                 "end_time": _time(max(times)),
+                 "count": struct.pack("<I", len(index))}, counts))
+
+        # trailing index section: connections + chunk infos
+        index_pos = f.tell()
+        for rec in conn_records:
+            f.write(rec)
+        for rec in chunk_infos:
+            f.write(rec)
+        # back-patch index_pos in the bag header
+        f.seek(len(VERSION_LINE))
+        f.write(_bag_header_record(index_pos, len(topics), len(chunks)))
+
+
+# ---------------------------------------------------------------------------
+# maintenance utilities: reindex (crash recovery) + info
+# ---------------------------------------------------------------------------
+
+def _bag_header_record(index_pos: int, conn_count: int,
+                       chunk_count: int) -> bytes:
+    """The 4096-byte padded bag-header record (rosbag pads it so index_pos
+    can be back-patched in place)."""
+    fields = {"op": bytes([_OP_BAG_HEADER]),
+              "index_pos": struct.pack("<Q", index_pos),
+              "conn_count": struct.pack("<I", conn_count),
+              "chunk_count": struct.pack("<I", chunk_count)}
+    header = b"".join(_field(k, v) for k, v in fields.items())
+    pad = 4096 - 4 - len(header) - 4
+    return (struct.pack("<I", len(header)) + header
+            + struct.pack("<I", pad) + b" " * pad)
+
+
+def _scan_chunk_index(payload: bytes, conns, conn_raw):
+    """Collect what the chunk's regenerated index needs: per-message
+    (conn id, raw 8-byte time field, record offset in the decompressed
+    payload), registering connection records on the way. Malformed tails
+    warn through the shared framing iterator (the surviving entries are
+    still indexed)."""
+    entries: list[tuple[int, bytes, int]] = []
+    for start, header, data in _iter_records(payload, where="chunk",
+                                             yield_offsets=True):
+        op = _op_of(header)
+        if (op == _OP_MESSAGE_DATA and len(header.get("conn", b"")) >= 4
+                and len(header.get("time", b"")) >= 8):
+            (cid,) = struct.unpack("<I", header["conn"][:4])
+            entries.append((cid, header["time"][:8], start))
+        elif op == _OP_CONNECTION and len(header.get("conn", b"")) >= 4:
+            (cid,) = struct.unpack("<I", header["conn"][:4])
+            _handle_connection(header, data, conns)
+            conn_raw.setdefault(cid, (header.get("topic", b""), data))
+    return entries
+
+
+def reindex(path: str, out_path: str) -> tuple[int, int]:
+    """Rebuild a damaged or crash-cut bag into a fully indexed one — the
+    `rosbag reindex` analog (the recovery step real CoBot workflows run
+    before LoadRosBag on bags cut by a crash).
+
+    Stream-rewrites in constant memory: every intact chunk record is
+    copied BYTE-FOR-BYTE (no recompression), its INDEX_DATA records are
+    regenerated from the decompressed payload, stale or partial index
+    records are dropped, and a fresh bag header + trailing index section
+    (connections + CHUNK_INFO) is written. Corrupt chunks are skipped with
+    the reader's warnings; out-of-spec TOP-LEVEL message records are
+    preserved verbatim (readable by the linear scan, not indexed), with a
+    warning. out_path == path reindexes IN PLACE like rosbag's own tool:
+    the rewrite goes to a temp file, the original is kept as
+    `<path>.orig`, and the result replaces `path` atomically. Returns
+    (n_chunks, n_messages)."""
+    import os
+
+    # validate BEFORE opening the output: with out_path == path, opening
+    # 'wb' first would truncate the (by definition precious) input
+    with open(path, "rb") as probe:
+        if probe.read(len(VERSION_LINE)) != VERSION_LINE:
+            raise ValueError(
+                f"not a ROS bag v2.0 file: {path!r} (bad version line)")
+    in_place = os.path.exists(out_path) and os.path.samefile(path, out_path)
+    tmp_path = out_path + ".reindex.tmp" if in_place else out_path
+    with open(path, "rb") as f, open(path, "rb") as raw, \
+            open(tmp_path, "wb") as o:
+        f.seek(0, 2)
+        n = f.tell()
+        f.seek(0)
+        if f.read(len(VERSION_LINE)) != VERSION_LINE:
+            raise ValueError(
+                f"not a ROS bag v2.0 file: {path!r} (bad version line)")
+        o.write(VERSION_LINE)
+        o.write(_bag_header_record(0, 0, 0))   # back-patched below
+
+        conns: dict[int, tuple[str, str]] = {}
+        conn_raw: dict[int, tuple[bytes, bytes]] = {}
+        chunk_infos: list[bytes] = []
+        n_msgs = 0
+        prev_end = len(VERSION_LINE)
+        for header, data in _iter_records_stream(f, prev_end, n):
+            cur_end = f.tell()
+            op = _op_of(header)
+            if op == _OP_CHUNK:
+                payload = _chunk_payload(header, data)
+                if payload is not None:
+                    entries = _scan_chunk_index(payload, conns, conn_raw)
+                    chunk_pos = o.tell()
+                    raw.seek(prev_end)
+                    o.write(raw.read(cur_end - prev_end))   # verbatim copy
+                    per: dict[int, list[tuple[bytes, int]]] = {}
+                    for cid, tb, rs in entries:
+                        per.setdefault(cid, []).append((tb, rs))
+                    for cid, ents in per.items():
+                        d = b"".join(tb + struct.pack("<I", rs)
+                                     for tb, rs in ents)
+                        o.write(_record(
+                            {"op": bytes([_OP_INDEX_DATA]),
+                             "ver": struct.pack("<I", 1),
+                             "conn": struct.pack("<I", cid),
+                             "count": struct.pack("<I", len(ents))}, d))
+                    n_msgs += len(entries)
+                    stamps = sorted(struct.unpack("<II", tb)
+                                    for _, tb, _ in entries)
+                    lo = _time(0.0) if not stamps \
+                        else struct.pack("<II", *stamps[0])
+                    hi = _time(0.0) if not stamps \
+                        else struct.pack("<II", *stamps[-1])
+                    counts = b"".join(
+                        struct.pack("<II", cid, len(ents))
+                        for cid, ents in per.items())
+                    chunk_infos.append(_record(
+                        {"op": bytes([_OP_CHUNK_INFO]),
+                         "ver": struct.pack("<I", 1),
+                         "chunk_pos": struct.pack("<Q", chunk_pos),
+                         "start_time": lo, "end_time": hi,
+                         "count": struct.pack("<I", len(per))}, counts))
+            elif op == _OP_CONNECTION and len(header.get("conn", b"")) >= 4:
+                (cid,) = struct.unpack("<I", header["conn"][:4])
+                _handle_connection(header, data, conns)
+                conn_raw.setdefault(cid, (header.get("topic", b""), data))
+            elif op == _OP_MESSAGE_DATA:
+                # out-of-spec but readable: preserve verbatim so no data
+                # is lost (the linear scan yields it; indexes can't)
+                warnings.warn("top-level message record preserved "
+                              "verbatim (unindexed)")
+                raw.seek(prev_end)
+                o.write(raw.read(cur_end - prev_end))
+                n_msgs += 1
+            # BAG_HEADER / INDEX_DATA / CHUNK_INFO / unknown: regenerated
+            # or stale — dropped
+            prev_end = cur_end
+
+        index_pos = o.tell()
+        for cid, (topic, data) in sorted(conn_raw.items()):
+            o.write(_record(
+                {"op": bytes([_OP_CONNECTION]),
+                 "conn": struct.pack("<I", cid), "topic": topic}, data))
+        for rec in chunk_infos:
+            o.write(rec)
+        o.seek(len(VERSION_LINE))
+        o.write(_bag_header_record(index_pos, len(conn_raw),
+                                   len(chunk_infos)))
+    if in_place:
+        os.replace(path, path + ".orig")
+        os.replace(tmp_path, path)
+    return len(chunk_infos), n_msgs
+
+
+def bag_info(path: str) -> dict:
+    """`rosbag info` analog: topics (message counts + types), time range,
+    chunk compression breakdown, index health. One streaming pass."""
+    import os
+
+    info: dict = {"size": os.path.getsize(path), "chunks": {},
+                  "topics": {}, "types": {}, "messages": 0,
+                  "start": None, "end": None, "indexed": False}
+    with open(path, "rb") as f:
+        f.seek(0, 2)
+        n = f.tell()
+        f.seek(0)
+        if f.read(len(VERSION_LINE)) != VERSION_LINE:
+            raise ValueError(
+                f"not a ROS bag v2.0 file: {path!r} (bad version line)")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # health only, not diagnosis
+            info["indexed"] = _load_index(f, n) is not None
+        f.seek(len(VERSION_LINE))
+        # pure-Python record framing (the native scanner is still to come)
+        conns: dict[int, tuple[str, str]] = {}
+        for header, data in _iter_records_stream(f, len(VERSION_LINE), n):
+            if _op_of(header) == _OP_CHUNK:
+                comp = header.get("compression",
+                                  b"none").decode(errors="replace")
+                info["chunks"][comp] = info["chunks"].get(comp, 0) + 1
+                payload = _chunk_payload(header, data)
+                if payload is None:
+                    continue
+                msgs = _chunk_messages(payload, conns)
+            else:
+                m = _handle_record(header, data, conns)
+                msgs = [m] if m is not None else []
+            for m in msgs:
+                info["messages"] += 1
+                info["topics"][m.topic] = info["topics"].get(m.topic, 0) + 1
+                info["types"][m.topic] = m.msgtype
+                if info["start"] is None or m.time < info["start"]:
+                    info["start"] = m.time
+                if info["end"] is None or m.time > info["end"]:
+                    info["end"] = m.time
+    return info
+
+
+def _main(argv=None) -> int:
+    """`python -m hitl_slam_torch.io.rosbag {info,reindex}` — the rosbag
+    command-line analogs for the two operations this stack needs."""
+    import argparse
+
+    p = argparse.ArgumentParser(prog="python -m hitl_slam_torch.io.rosbag")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    pi = sub.add_parser("info", help="topics, counts, chunks, index health")
+    pi.add_argument("bag")
+    pr = sub.add_parser("reindex",
+                        help="rebuild a damaged/crash-cut bag's index")
+    pr.add_argument("bag")
+    pr.add_argument("-o", "--out", required=True)
+    args = p.parse_args(argv)
+    if args.cmd == "info":
+        info = bag_info(args.bag)
+        dur = (0.0 if info["start"] is None
+               else info["end"] - info["start"])
+        print(f"size:     {info['size']} bytes")
+        print(f"duration: {dur:.2f} s")
+        print(f"messages: {info['messages']}")
+        print(f"indexed:  {info['indexed']}")
+        print("chunks:   " + ", ".join(
+            f"{c}={k}" for c, k in sorted(info["chunks"].items())))
+        for topic in sorted(info["topics"]):
+            print(f"  {topic:30s} {info['topics'][topic]:8d}  "
+                  f"{info['types'][topic]}")
+    else:
+        n_chunks, n_msgs = reindex(args.bag, args.out)
+        print(f"reindexed {args.bag} -> {args.out}: "
+              f"{n_chunks} chunks, {n_msgs} messages")
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        raise SystemExit(_main())
+    except BrokenPipeError:
+        # stdout closed early (e.g. `... info bag | head`): exit quietly
+        # like the standard rosbag tool instead of tracebacking.
+        import os as _os
+        import sys as _sys
+        _os.dup2(_os.open(_os.devnull, _os.O_WRONLY), _sys.stdout.fileno())
+        raise SystemExit(1)

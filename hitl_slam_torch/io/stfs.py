@@ -1,5 +1,5 @@
-"""Reader for the `.stfs.covars` pose-graph text format, and the results
-writer. Host numpy only.
+"""Reader for the `.stfs.covars` pose-graph text format, and the writers
+of the results, `.stfs`, odometry and test-set files. Host numpy only.
 
 Port of hitl_slam_tpu/io/stfs.py (the numpy parser and the .stfs.covars
 writer; the optional native parser is not carried over). Format: a map-name
@@ -121,3 +121,50 @@ def save_results_poses(path: str, poses: np.ndarray) -> None:
     with open(path, "w") as f:
         for p in poses:
             f.write(f"{p[0]:f} {p[1]:f} {p[2]:f}\n")
+
+
+def append_test_set_poses(test_set_index: int, poses: np.ndarray,
+                          directory: str = ".") -> str:
+    """APPEND one line of result poses to `non_markov_test_<N>.txt` — the
+    reference's test-set evaluation hook (vector_mapping_main.cpp:736-744
+    inside SaveResults :719): every pose as `x,y,theta, ` (comma-space
+    separated, trailing separator kept), one line per run, append mode so
+    a batch of runs accumulates into one offline-comparison file.
+
+    Returns the file path written."""
+    import os
+
+    path = os.path.join(directory, f"non_markov_test_{test_set_index}.txt")
+    with open(path, "a") as f:
+        for p in poses:
+            f.write(f"{p[0]:f},{p[1]:f},{p[2]:f}, ")
+        f.write("\n")
+    return path
+
+
+def save_stfs(
+    path: str,
+    map_name: str,
+    timestamp: float,
+    poses: np.ndarray,
+    point_clouds: list[np.ndarray],
+) -> None:
+    """Covariance-free variant (`SaveStfs`, vector_mapping_main.cpp:1930-1987):
+    map name, timestamp, then `pose_x,pose_y,pose_theta, px,py` world-frame
+    rows."""
+    with open(path, "w") as f:
+        f.write(f"{map_name}\n{timestamp:f}\n")
+        for i in range(len(poses)):
+            x, y, th = (float(v) for v in poses[i])
+            R = _rot(np.float64(th))
+            wp = point_clouds[i] @ R.T + np.array([x, y])
+            for j in range(len(wp)):
+                f.write(f"{x:.4f},{y:.4f},{th:.4f}, {wp[j,0]:.4f},{wp[j,1]:.4f}\n")
+
+
+def save_odometry(path: str, rel_poses: np.ndarray) -> None:
+    """Relative odometry dump (`Odom.txt`, vector_mapping_main.cpp:2386-2395):
+    one `dx dy dtheta` row per pose node."""
+    with open(path, "w") as f:
+        for r in rel_poses:
+            f.write(f"{r[0]:f} {r[1]:f} {r[2]:f}\n")

@@ -423,11 +423,14 @@ class HitLSLAM:
         return dropped
 
     def run_queue(self, inputs: list[SingleInput],
+                  chain_capacity: int = 8,
                   record: bool = False) -> list[CycleReport]:
-        """Execute queued corrections as one device-carried chain
-        (cycle.queue_chain) with one host read at its end. Per-cycle
-        accept/reject semantics match sequential replay_log; undo()
-        restores the state before the whole queue."""
+        """Execute queued corrections as device-carried chains
+        (cycle.queue_chain), up to `chain_capacity` corrections a chain, with
+        one host read at the end of each. Per-cycle accept/reject semantics
+        match sequential replay_log; undo() restores the state before the
+        whole queue. Nothing is compiled, so a short chain needs no padding
+        cycles."""
         if not inputs:
             return []
         self._discard_speculative()
@@ -436,6 +439,15 @@ class HitLSLAM:
         self.prev_covariances = st.covariances
         self.prev_num_constraints = self.num_constraints
         self._undo_is_refine = False
+        reports: list[CycleReport] = []
+        for lo in range(0, len(inputs), chain_capacity):
+            reports += self._run_chain(inputs[lo:lo + chain_capacity], record)
+        return reports
+
+    def _run_chain(self, inputs: list[SingleInput],
+                   record: bool) -> list[CycleReport]:
+        """One chunk of run_queue: one queue_chain call and its reports."""
+        st = self.state
         live = [self._prepare_sel(s.correction_type,
                                   np.asarray(s.points, np.float32))
                 for s in inputs]

@@ -24,7 +24,12 @@ the auto-repair loop sees and at the full batch of 8, and the correlation as
 the port's gathered sum beside the reference's dense conv2d), one LTVM curation of
 the clean figure-8 map (the same), and, with --refine-poses N, post_optimize
 on a drifted N-pose figure-8 map (above 2048 poses the matrix-free PCG
-solver). Needs one CUDA device; imports nothing of JAX.
+solver). Then the EnML sweep on chip_smoke.py's reference-scale map (1078
+nodes): wall ms a node over 64 full windows, the node's stages (the window
+match, the Cholesky factor and solve, the covariance inverse, the rest: the
+window systems' assembly) timed on their own, and a profiler window over 8
+nodes; `--enml-only` runs this part alone. Needs one CUDA device; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -392,6 +397,46 @@ def large_refine(torch, num_poses):
               f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
 
 
+def enml_profile(torch, repeat):
+    """The EnML sweep on the reference-scale map: nodes 64..127 (full
+    windows) by sweep_segment."""
+    from chip_smoke import ENML_SCALE_STREAM, _episode_state
+    from hitl_slam_torch.io.figure8 import generate_raw_stream
+    from hitl_slam_torch.models.enml import localizer as L
+
+    st = _episode_state(generate_raw_stream(**ENML_SCALE_STREAM), "cuda")[0]
+    o = L.EnmlOptions()
+    pre = L.sweep_precompute(st.poses, o)
+    cov0 = torch.zeros((st.num_poses, 3, 3), device="cuda")
+    P, N = st.points.shape[:2]
+
+    def sweep(t0, nodes):
+        return L.sweep_segment(st.points, st.normals, st.point_mask,
+                               st.poses, cov0, pre, t0, o, nodes)
+
+    sweep(0, 8)
+    for r in range(repeat):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep(64, 64)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        print(f"enml sweep {r}: {P} nodes x {N} padded points, nodes 64..127 "
+              f"in {ms:.1f} ms ({ms / 64:.2f} ms a node)")
+    targets = [(L, "_brute_window_match"), (L, "_pair_mask"),
+               (torch.linalg, "cholesky_ex"), (torch, "cholesky_solve"),
+               (torch.linalg, "inv_ex")]
+    with StageTimer(torch, targets) as timer:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep(64, 16)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    timer.report("enml stage split over 16 nodes", total,
+                 "(window systems, set-up)")
+    device_profile(torch, lambda: sweep(64, 8), "profiled enml, 8 nodes")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -401,6 +446,8 @@ def main() -> int:
     ap.add_argument("--refine-poses", type=int, default=0, metavar="N",
                     help="also run post_optimize on a drifted N-pose "
                          "figure-8 map")
+    ap.add_argument("--enml-only", action="store_true",
+                    help="profile only the EnML sweep")
     args = ap.parse_args()
 
     import torch
@@ -415,6 +462,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"device: {torch.cuda.get_device_name(0)} ({smi})")
+    if args.enml_only:
+        enml_profile(torch, args.repeat)
+        return 0
     data = stfs.load_stfs_covars(os.path.join(DATA,
                                               "golden_large.stfs.covars.gz"))
     entries = logs.load_log(os.path.join(DATA, "golden_large.log"))
@@ -435,6 +485,7 @@ def main() -> int:
     ltvm_profile(torch, args.repeat)
     if args.refine_poses:
         large_refine(torch, args.refine_poses)
+    enml_profile(torch, args.repeat)
     return 0
 
 

@@ -94,6 +94,85 @@ def test_port_cli_errors(tmp_path):
                  str(bad), "--device", "cpu"]) == 1
 
 
+@pytest.mark.parametrize("where", ["alone", "among_full_rows"])
+def test_port_cli_truncated_row(tmp_path, capsys, where):
+    """A .stfs.covars row of 15 fields, alone or among 16-field rows, gives
+    the reference's clean "Unable to open" error and exit 1."""
+    from hitl_slam_torch.cli import main
+
+    lines = open(os.path.join(DATA, "golden.stfs.covars")).read().splitlines()
+    short = ",".join(lines[2].split(",")[:15])
+    rows = [short] if where == "alone" else lines[2:8] + [short] + lines[8:12]
+    path = tmp_path / "short.stfs.covars"
+    path.write_text("\n".join(lines[:2] + rows) + "\n")
+    assert main(["-P", str(path), "--device", "cpu"]) == 1
+    err = capsys.readouterr().err
+    assert "ERROR: Unable to open specified pose-graph file" in err
+
+
+def test_port_cli_config_sets_lm(tmp_path):
+    """--config reads the [lm] table into the engine's LMConfig, as the
+    reference's CLI does with config/hitl_slam.toml; the CLI entry points
+    install the crash guard."""
+    import faulthandler
+
+    from hitl_slam_torch import cli
+    from hitl_slam_torch.models.hitl import engine as E
+    from hitl_slam_torch.solver.lm import LMConfig
+
+    seen = []
+    init = E.HitLSLAM.__init__
+
+    def spy(self, device, lm_config=LMConfig()):
+        seen.append(lm_config)
+        init(self, device, lm_config)
+
+    faulthandler.disable()
+    E.HitLSLAM.__init__ = spy
+    try:
+        out = tmp_path / "r.txt"
+        cfg = os.path.join(os.path.dirname(DATA), os.pardir, "config",
+                           "hitl_slam.toml")
+        assert cli.main(["-P", os.path.join(DATA, "golden.stfs.covars"),
+                         "-L", os.path.join(DATA, "golden.log"),
+                         "--replay-all", "-V", str(out), "--config", cfg,
+                         "--device", "cpu"]) == 0
+        bad = tmp_path / "bad.toml"
+        bad.write_text("[lm]\nno_such_field = 1\n")
+        assert cli.main(["-P", os.path.join(DATA, "golden.stfs.covars"),
+                         "--config", str(bad), "--device", "cpu"]) == 1
+    finally:
+        E.HitLSLAM.__init__ = init
+    assert seen == [LMConfig(max_iterations=100, function_tolerance=1e-6)]
+    assert faulthandler.is_enabled()
+    _assert_poses(np.loadtxt(out),
+                  np.loadtxt(os.path.join(DATA, "golden_expected_poses.txt")),
+                  LOOSE)
+
+
+def test_port_cli_profile_writes_trace(tmp_path):
+    """--profile DIR writes a torch.profiler Chrome trace of the session;
+    cli_ltvm installs the crash guard too."""
+    import faulthandler
+    import json
+
+    from hitl_slam_torch.cli import main
+    from hitl_slam_torch.cli_ltvm import main as ltvm_main
+
+    trace_dir = tmp_path / "trace"
+    assert main(["-P", os.path.join(DATA, "golden.stfs.covars"),
+                 "-L", os.path.join(DATA, "golden.log"), "--replay-all",
+                 "-V", str(tmp_path / "r.txt"), "--profile", str(trace_dir),
+                 "--device", "cpu"]) == 0
+    trace = json.loads((trace_dir / "hitl-session.pt.trace.json").read_text())
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert "hitl-session" in names
+    faulthandler.disable()
+    assert ltvm_main(["-P", str(tmp_path / "missing.stfs.covars"),
+                      "--device", "cpu"]) == 1
+    assert faulthandler.is_enabled()
+
+
 def test_engine_run_undo_breakdown_match_jax():
     """The two-click input path, run(), get_cost_breakdown() and undo() of
     the port's engine against the JAX engine on the small golden session."""
@@ -160,7 +239,8 @@ def _golden():
 
 def test_engine_public_names_cover_the_reference():
     """Every public method and attribute of the reference's HitLSLAM
-    exists on the port's, on the class and on a fresh instance."""
+    exists on the port's, on the class and on a fresh instance, and every
+    public method takes the reference's parameters."""
     from hitl_slam_torch.models.hitl.engine import HitLSLAM
     from hitl_slam_tpu.models.hitl.engine import HitLSLAM as JHitLSLAM
 
@@ -173,6 +253,46 @@ def test_engine_public_names_cover_the_reference():
     want = public(JHitLSLAM()) | {"last_pre_solve_poses"}
     missing = want - public(HitLSLAM(device="cpu"))
     assert missing == set(), missing
+    # every public method (and the constructor) takes the reference's
+    # parameters in the reference's order; the port may add only these
+    import inspect
+
+    extra = {"device", "draws", "timings_ms"}
+    methods = sorted(k for k in public(JHitLSLAM)
+                     if callable(getattr(JHitLSLAM, k))) + ["__init__"]
+    for name in methods:
+        want_params = list(inspect.signature(
+            getattr(JHitLSLAM, name)).parameters)
+        got = [p for p in inspect.signature(getattr(HitLSLAM, name)).parameters
+               if p not in extra]
+        assert got == want_params, (name, got, want_params)
+
+
+def test_run_queue_chain_capacity():
+    """run_queue takes the reference's chain_capacity in second position
+    and chunks the queue by it: chains of one give the poses of one chain
+    of all, and no input is recorded without `record`."""
+    from hitl_slam_torch.models.hitl.engine import HitLSLAM
+
+    data, entries = _golden()
+
+    def engine():
+        eng = HitLSLAM(device="cpu")
+        eng.init(data.poses, data.covariances, data.point_clouds,
+                 data.normal_clouds, constraint_capacity=256)
+        return eng
+
+    one, whole = engine(), engine()
+    reps_one = one.run_queue(entries, 1)
+    reps_whole = whole.run_queue(entries)
+    assert [r.accepted for r in reps_one] == [r.accepted for r in reps_whole]
+    assert all(r.accepted for r in reps_one)
+    np.testing.assert_allclose(one.get_poses(), whole.get_poses(), atol=1e-6)
+    assert one.input_history == [] and whole.input_history == []
+    assert one.num_constraints == whole.num_constraints
+    rec = engine()
+    rec.run_queue(entries, chain_capacity=1, record=True)
+    assert len(rec.input_history) == len(entries)
 
 
 def test_cycle_sets_last_pre_solve_poses():
