@@ -48,15 +48,30 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      map (1078 nodes, 256 padded points a node) with its wall, ms a node,
      realtime factor, launches a node and busy share from a profiled
      32-node segment, peak memory, consistency and the error against ground
-     truth; then a bag through `cli_enml` on the card into HitLSLAM; one
-     `{"enml": {...}}` line;
- 11. times at the main path's shapes: each kernel by CUDA events (host
+     truth; then a bag through `cli_enml` on the card into HitLSLAM;
+ 11. the checkerboard localizer (launches neither kernel): card against
+     CPU on the test-size stream (both matcher routes, the probe's
+     counts), then the scale map at W = 10 (16 windows a batch) and at
+     W = 80 (the grid matcher, 8 a batch) with wall, ms a node, realtime
+     factor, launches a node and busy share from a device-only profile,
+     peak memory, consistency, aligned error and the probe's dropped count;
+ 12. an interactive EnML session on a drifted two-lap 256-pose figure-8:
+     segments of 32, one loop correction queued mid-sweep and one after
+     (em_scan = 2 x cycles, bcr = LM iterations), then a fresh session
+     replays its log: poses and covariances bit-equal to the session's;
+ 13. `cli_enml --online` on the bag of phase 10 at the recorded rate:
+     nodes localized live and the lag at the final flush;
+ 14. one round trip through the GUI bridge (`cli --gui` on a free port:
+     a correction drawn and run, saved, shut down): the saved poses and the
+     launches equal replay_log's; skipped, and said so, without
+     `websockets`; then one `{"enml": {...}}` line for phases 10-14;
+ 15. times at the main path's shapes: each kernel by CUDA events (host
      overhead included) and by torch.profiler (its own device time), its
      plain version, its bound from the shapes, and for BCR
      torch.linalg.solve on the dense system; BCR also at n = 64, 16384
      and 32768;
- 12. a `{"kernels": [...]}` line with launches, agreement, times and bounds;
- 13. the last line: {"ok": true, "device": {...}}.
+ 16. a `{"kernels": [...]}` line with launches, agreement, times and bounds;
+ 17. the last line: {"ok": true, "device": {...}}.
 
 scripts/compare_checkouts.py times two checkouts' kernels and replays
 against each other on one card with the helpers here.
@@ -69,8 +84,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1103,14 +1120,24 @@ def _node_scans(rel) -> list[int]:
     return out
 
 
-def _check_covariances(name, covs) -> None:
+def _check_covariances(name, covs, rel=None) -> None:
+    """Finite, symmetric and PSD: to 1e-5 and -1e-7 absolute, or, with
+    `rel`, to `rel` of each pose's largest entry (an f32 inverse of a
+    [3W, 3W] window system rounds in proportion to its entries)."""
     import numpy as np
 
     check(np.isfinite(covs).all(), f"{name}: covariances not finite")
-    asym = float(np.abs(covs - np.swapaxes(covs, 1, 2)).max())
-    check(asym <= 1e-5, f"{name}: covariances asymmetric by {asym:.3e}")
-    low = float(np.linalg.eigvalsh(covs[1:]).min())
-    check(low > -1e-7, f"{name}: a covariance eigenvalue is {low:.3e}")
+    scale = (1.0 if rel is None else
+             np.maximum(np.abs(covs).max(axis=(1, 2)), 1e-30)[:, None, None])
+    asym = float((np.abs(covs - np.swapaxes(covs, 1, 2)) / scale).max())
+    check(asym <= (1e-5 if rel is None else rel),
+          f"{name}: covariances asymmetric by {asym:.3e}"
+          + ("" if rel is None else " relative"))
+    low = float((np.linalg.eigvalsh(covs[1:]) / scale[1:, :, 0]).min()
+                if rel is not None else np.linalg.eigvalsh(covs[1:]).min())
+    check(low > (-1e-7 if rel is None else -rel),
+          f"{name}: a covariance eigenvalue is {low:.3e}"
+          + ("" if rel is None else " relative"))
 
 
 def _cobot_bag_messages(scans, angles, rel):
@@ -1168,11 +1195,12 @@ def _device_only_profile(torch, run) -> tuple[float, int]:
     return us / 1e3, ops
 
 
-def phase_enml(torch, smi):
+def phase_enml(torch, smi, tmp):
     """EnML batch localization: card against CPU at test size, the sweep at
-    the reference's scale, and a bag through the CLI into HitLSLAM."""
-    import tempfile
-
+    the reference's scale, and a bag through the CLI into HitLSLAM. Returns
+    the `enml` record, the test-size stream, the scale map (state, initial
+    poses, clouds, ground truth at the nodes, scan count, and the sweep's
+    poses where it ran whole) and the bag's path under `tmp`."""
     import numpy as np
 
     from hitl_slam_torch import cli_enml
@@ -1307,18 +1335,20 @@ def phase_enml(torch, smi):
                         launches_per_node=ops / seg, busy_share=busy,
                         peak_mib=peak, consistency=[before, after],
                         gt_error_m=[err_odo, err_loc])
+    scale = dict(state=st, poses0=poses0, pcs=pcs,
+                 gt=gt[np.asarray(nodes)], scans=len(scans),
+                 sequential=p_l if K == P else None)
 
     # ---- 3. a bag through cli_enml on the card into HitLSLAM ----
     scans, angles, rel = stream[:3]
-    with tempfile.TemporaryDirectory() as tmp:
-        bag = os.path.join(tmp, "session.bag")
-        rosbag.write_bag(bag, _cobot_bag_messages(scans, angles, rel))
-        prefix = os.path.join(tmp, "bagout")
-        t0 = time.perf_counter()
-        rc = cli_enml.main(["-b", bag, "-o", prefix, "--device", DEVICE])
-        cli_s = time.perf_counter() - t0
-        check(rc == 0, f"cli_enml exited {rc}")
-        data = stfs.load_stfs_covars(prefix + ".stfs.covars")
+    bag = os.path.join(tmp, "session.bag")
+    rosbag.write_bag(bag, _cobot_bag_messages(scans, angles, rel))
+    prefix = os.path.join(tmp, "bagout")
+    t0 = time.perf_counter()
+    rc = cli_enml.main(["-b", bag, "-o", prefix, "--device", DEVICE])
+    cli_s = time.perf_counter() - t0
+    check(rc == 0, f"cli_enml exited {rc}")
+    data = stfs.load_stfs_covars(prefix + ".stfs.covars")
     n_bag = len(data.poses)
     check(n_bag > 5 and np.isfinite(data.poses).all(),
           f"cli_enml: {n_bag} poses from the bag")
@@ -1334,11 +1364,450 @@ def phase_enml(torch, smi):
         f"{cli_s:.1f} s -> {n_bag} poses -> HitLSLAM state "
         f"{tuple(eng.state.points.shape)}; kernel launches 0 and 0 ({smi})")
     out["bag"] = dict(scans=len(scans), poses=n_bag, cli_s=cli_s)
-    print(json.dumps({"enml": out}), flush=True)
-    return out
+    return out, stream, scale, bag
 
 
 # ---------------------------------------------------------------- phase 11
+
+# card against CPU, checkerboard on the test-size stream: poses and
+# relative covariances (the CPU parity tests hold the port to the JAX
+# package at 1e-5 and 1e-3 for one pass)
+CB_POSE_ATOL, CB_COV_RTOL = 1e-4, 1e-2
+# the grid route against the CPU: one pass over the first 64 nodes, as
+# tests/test_torch_checkerboard.py runs it
+CB_GRID_NODES, CB_GRID_OPTS = 64, dict(gn_iterations=6, match_rounds=1)
+# the two scale configurations of bench.py: the default window (brute
+# matcher, 16 windows a batch) and the reference config's max_history = 80
+# (grid matcher, 8 windows a batch)
+CB_SCALE = (("W10", {}, 16), ("W80", dict(max_history=80), 8))
+# symmetry and PSD of the scale map's covariances, relative to each pose's
+# largest entry: at W = 80 the f32 inverse of a [240, 240] window system
+# leaves 3.8e-5 of absolute asymmetry on the H100
+CB_COV_SYM_RTOL = 1e-3
+
+
+def phase_checkerboard(torch, smi, stream, scale):
+    """The checkerboard localizer (launches neither kernel): card against
+    CPU on the test-size stream, both routes, and the probe's counts; then
+    the scale map at W = 10 and W = 80 with wall, ms a node, realtime
+    factor, launches a node and busy share from a device-only profile, peak
+    memory, consistency, aligned error and the probe's dropped count."""
+    import numpy as np
+
+    from hitl_slam_torch.models.enml import localizer as L
+    from hitl_slam_torch.models.enml import parallel_localizer as CB
+    from hitl_slam_torch.models.enml.driver import consistency_metric
+
+    out = {"card": smi}
+    _sync()
+    _reset_counts()
+
+    # ---- 1. card against CPU on the test-size stream ----
+    o = L.EnmlOptions()
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        st, poses0, pcs, _ = _episode_state(stream, dev)
+        args = (st.points, st.normals, st.point_mask, st.poses)
+        t0 = time.perf_counter()
+        p, c = CB.checkerboard_localize(*args, o)
+        _sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        g = tuple(a[:CB_GRID_NODES] for a in args)
+        gp, gc = CB.checkerboard_localize(*g, L.EnmlOptions(**CB_GRID_OPTS),
+                                          n_passes=1, force_grid=True)
+        probe = int(CB.probe_match_capacity(*args, o))
+        probe_cb = int(CB.probe_match_capacity(*args, L.EnmlOptions(
+            max_history=80)))
+        runs[dev] = [x.cpu().numpy() for x in (p, c, gp, gc)] + [
+            ms, (probe, probe_cb)]
+    (p, c, gp, gc, ms_card, probe), (pc, cc, gpc, gcc, ms_cpu, probe_cpu) = (
+        runs[DEVICE], runs["cpu"])
+    P = len(p)
+
+    def rel(a, b):
+        scale_ = np.maximum(np.abs(b).max(axis=(1, 2), keepdims=True), 1e-30)
+        return float((np.abs(a - b) / scale_).max())
+
+    dxy, dth = pose_errors(p, pc)
+    gxy, gth = pose_errors(gp, gpc)
+    cov_rel, gcov_rel = rel(c, cc), rel(gc, gcc)
+    check(np.isfinite(p).all() and np.isfinite(gp).all(),
+          "checkerboard test size: poses not finite")
+    _check_covariances("checkerboard test size", c)
+    check(max(dxy, dth, gxy, gth) <= CB_POSE_ATOL,
+          f"checkerboard: card poses {dxy:.3e} m / {dth:.3e} rad (grid "
+          f"{gxy:.3e} / {gth:.3e}) from the CPU's")
+    check(max(cov_rel, gcov_rel) <= CB_COV_RTOL,
+          f"checkerboard: card covariances {cov_rel:.3e} (grid {gcov_rel:.3e})"
+          " relative from the CPU's")
+    check(probe == probe_cpu,
+          f"checkerboard: probe counts {probe} on the card, {probe_cpu} on "
+          "the CPU")
+    before = consistency_metric(poses0, pcs)
+    after = consistency_metric(p, pcs)
+    check(after <= 1.05 * before,
+          f"checkerboard test size: consistency {before:.4f} -> {after:.4f}")
+    log(f"[checkerboard] test size: {P} nodes; card {ms_card:.0f} ms, CPU "
+        f"{ms_cpu:.0f} ms; card against CPU: poses {dxy:.3e} m / {dth:.3e} "
+        f"rad, covariances {cov_rel:.3e} relative; grid route ({CB_GRID_NODES}"
+        f" nodes, one pass) {gxy:.3e} m / {gth:.3e} rad, {gcov_rel:.3e}; "
+        f"probe dropped (W = 10, W = 80) {probe} on both; consistency "
+        f"{before:.4f} -> {after:.4f} ({smi})")
+    out["test_size"] = dict(nodes=P, card_ms=ms_card, cpu_ms=ms_cpu,
+                            pose_diff_m=dxy, pose_diff_rad=dth,
+                            cov_rel_diff=cov_rel, grid_pose_diff=[gxy, gth],
+                            grid_cov_rel_diff=gcov_rel, probe=list(probe),
+                            consistency=[before, after])
+
+    # ---- 2. the scale map at W = 10 and W = 80 ----
+    st = scale["state"]
+    args = (st.points, st.normals, st.point_mask, st.poses)
+    P, N = st.points.shape[:2]
+    pcs, poses0, gt = scale["pcs"], scale["poses0"], scale["gt"]
+    sub = slice(0, P, 16)
+    before = consistency_metric(poses0[sub], pcs[sub])
+    err_odo = procrustes_error(poses0, gt)
+    out["scale"] = {}
+    for name, okw, chunk in CB_SCALE:
+        o = L.EnmlOptions(**okw)
+        W = min(o.max_history, P)
+        route = "grid" if W * N > CB.BRUTE_MATCH_LIMIT else "brute"
+        # warm the libraries and the allocator on a prefix
+        CB.checkerboard_localize(*(a[:4 * W] for a in args), o, chunk=chunk)
+        _sync()
+        if DEVICE != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p, c = CB.checkerboard_localize(*args, o, chunk=chunk)
+        _sync()
+        wall_s = time.perf_counter() - t0
+        peak = _peak_memory_mb(torch)
+        dev_ms, ops = _device_only_profile(
+            torch, lambda: CB.checkerboard_localize(*args, o, chunk=chunk))
+        busy = dev_ms / (wall_s * 1e3)
+        dropped = int(CB.probe_match_capacity(*args[:3], p, o))
+        p, c = p.cpu().numpy(), c.cpu().numpy()
+        check(np.isfinite(p).all(), f"checkerboard {name}: poses not finite")
+        _check_covariances(f"checkerboard {name}", c, rel=CB_COV_SYM_RTOL)
+        asym = float(np.abs(c - np.swapaxes(c, 1, 2)).max())
+        after = consistency_metric(p[sub], pcs[sub])
+        check(after <= 1.05 * before,
+              f"checkerboard {name}: consistency {before:.4f} -> {after:.4f}")
+        err = procrustes_error(p, gt)
+        rtf = scale["scans"] * ENML_SCAN_PERIOD_S / wall_s
+        seq = scale["sequential"]
+        vs_seq = (None if seq is None or W != L.EnmlOptions().max_history
+                  else float(np.abs(p[:, :2] - seq[:, :2]).max()))
+        log(f"[checkerboard] scale map {name}: {P} nodes x {N} padded points, "
+            f"W = {W}, {route} matcher, {chunk} windows a batch; wall "
+            f"{wall_s:.3f} s, {wall_s * 1e3 / P:.3f} ms a node, realtime "
+            f"factor {rtf:.1f} ({scale['scans']} scans at "
+            f"{ENML_SCAN_PERIOD_S} s); device {dev_ms:.1f} ms in "
+            f"{ops / P:.1f} device operations a node, busy "
+            f"{100 * busy:.1f} %; peak memory {peak:.0f} MiB; consistency "
+            f"(every 16th node) {before:.4f} -> {after:.4f}; error against "
+            f"ground truth (aligned) odometry {err_odo:.4f} m, localized "
+            f"{err:.4f} m; probe dropped {dropped}; covariances asymmetric "
+            f"by {asym:.2e} at most (largest entry {np.abs(c).max():.2e})"
+            + ("" if vs_seq is None else
+               f"; {vs_seq:.4f} m from the sequential sweep") + f" ({smi})")
+        out["scale"][name] = dict(
+            nodes=P, W=W, route=route, chunk=chunk, wall_s=wall_s,
+            ms_per_node=wall_s * 1e3 / P, realtime_factor=rtf,
+            device_ms=dev_ms, launches_per_node=ops / P, busy_share=busy,
+            peak_mib=peak, consistency=[before, after],
+            gt_error_m=[err_odo, err], probe_dropped=dropped,
+            from_sequential_m=vs_seq)
+    check(_read_counts() == (0, 0),
+          f"the checkerboard launched a hand-written kernel: {_read_counts()}")
+    return out
+
+
+# ---------------------------------------------------------------- phase 12
+
+# a drifted two-lap figure-8 (tests/test_torch_engine.py's auto-repair map);
+# 256 poses, so the second lap re-observes the first at an offset of 128
+SESSION_MAP = dict(num_poses=256, num_rays=120, seed=7, drift_theta_bias=6e-4,
+                   num_laps=2)
+# (corrected poses, anchor poses, wall as (axis, value)) of the correction
+# queued at the 224-node boundary (it applies at the next one, the sweep's
+# last, before the progress call) and of the one made after the sweep: the
+# bottom wall y = 0, then the centre wall x = 0 (on the port's CPU run both
+# are accepted, in 1 and 12 LM iterations, and the aligned error falls from
+# 0.275 m after the sweep to 0.177 m and then 0.105 m)
+SESSION_QUEUED = ((128, 160), (0, 32), (1, 0.0))
+SESSION_QUEUE_AT = 224
+SESSION_AFTER = ((160, 192), (32, 64), (0, 0.0))
+
+
+def _logged(sel):
+    """The selection as a correction log stores and reloads it (4 decimals),
+    so that a replay of the log applies the very same floats."""
+    import numpy as np
+
+    return np.array([[float(f"{v:.4f}") for v in p] for p in sel], np.float32)
+
+
+def phase_session(torch, smi, tmp):
+    """An interactive EnML session on the card: localize in segments of 32
+    with one loop correction queued mid-sweep and one made after the sweep,
+    launches held against its cycles and LM iterations, then a fresh
+    session replays its log: poses and covariances bit-equal."""
+    import numpy as np
+
+    from hitl_slam_torch.core.state import CorrectionType
+    from hitl_slam_torch.io.figure8 import generate_figure8, synthesize_correction
+    from hitl_slam_torch.models.enml.localizer import EnmlOptions
+    from hitl_slam_torch.models.enml.session import EnmlSession
+
+    m = generate_figure8(**SESSION_MAP)
+    pcs = [np.asarray(p) for p in m.point_clouds]
+    ncs = [np.asarray(c) for c in m.normal_clouds]
+    o = EnmlOptions()
+
+    def session():
+        return EnmlSession(m.poses, pcs, ncs, options=o, device=DEVICE,
+                           constraint_capacity=16384)
+
+    def selection(s, spec):
+        late, early, wall = spec
+        return _logged(synthesize_correction(m, range(*late), range(*early),
+                                             wall, wall, poses=s.poses))
+
+    sess = session()
+    reports, boundaries = [], []
+    add = sess.add_loop_correction
+
+    def recorded(ctype, sel):
+        rep = add(ctype, sel)
+        reports.append(rep)
+        return rep
+
+    sess.add_loop_correction = recorded       # what _apply_pending calls too
+
+    def progress(s, t):
+        boundaries.append(t)
+        if t == SESSION_QUEUE_AT:
+            s.queue_correction(CorrectionType.COLINEAR,
+                               selection(s, SESSION_QUEUED))
+
+    loc_err = []
+    _sync()
+    _reset_counts()
+    t0 = time.perf_counter()
+    sess.localize(segment=32, progress_cb=progress)
+    _sync()
+    sweep_s = time.perf_counter() - t0
+    loc_err.append(procrustes_error(sess.poses, m.gt_poses))
+    t0 = time.perf_counter()
+    sess.add_loop_correction(CorrectionType.COLINEAR,
+                             selection(sess, SESSION_AFTER))
+    _sync()
+    after_ms = (time.perf_counter() - t0) * 1e3
+    n_em, n_bcr = _read_counts()
+    live = sess.poses.copy()
+    loc_err.append(procrustes_error(live, m.gt_poses))
+    iters = [r.lm_iterations for r in reports]
+    check(boundaries == list(range(32, 257, 32)),
+          f"session: segment boundaries {boundaries}")
+    check(len(reports) == 2 and all(r.accepted for r in reports),
+          f"session: corrections {[(r.accepted, r.reason) for r in reports]}")
+    check(n_em == 2 * len(reports),
+          f"session: em_scan launches {n_em} != 2 x {len(reports)} cycles")
+    check(n_bcr == sum(iters),
+          f"session: bcr launches {n_bcr} != LM iterations {sum(iters)}")
+    check(np.isfinite(live).all() and np.isfinite(sess.covariances).all(),
+          "session: poses or covariances not finite")
+    odo_err = procrustes_error(m.poses, m.gt_poses)
+    check(loc_err[1] < odo_err,
+          f"session: aligned error {odo_err:.4f} -> {loc_err[1]:.4f} m")
+    log_path = os.path.join(tmp, "enml_session.log")
+    sess.save_log(log_path)
+
+    # the log replayed by a fresh session: the queued correction applied
+    # after the sweep's last segment, as a replay applies it
+    s2 = session()
+    check(s2.load_log(log_path) == 2, "session: the log holds 2 entries")
+    t0 = time.perf_counter()
+    s2.localize(segment=32)
+    reps = s2.replay_all()
+    _sync()
+    replay_s = time.perf_counter() - t0
+    check([(r.accepted, r.lm_iterations) for r in reps]
+          == [(r.accepted, r.lm_iterations) for r in reports],
+          f"session replay: {[(r.accepted, r.reason) for r in reps]}")
+    check(np.array_equal(s2.poses, live)
+          and np.array_equal(s2.covariances, sess.covariances),
+          "session: the replayed log's poses differ from the session's: max "
+          f"{np.abs(s2.poses - live).max():.3e}")
+    log(f"[session] {len(live)} poses, segments of 32: sweep with the "
+        f"correction queued at node {SESSION_QUEUE_AT} {sweep_s:.2f} s, "
+        f"correction after the sweep {after_ms:.1f} ms; accepted [True, True],"
+        f" new constraints {[r.new_constraints for r in reports]}, LM "
+        f"iterations {iters}, launches em_scan={n_em} bcr={n_bcr}; aligned "
+        f"error odometry {odo_err:.4f} m, after the sweep and the queued "
+        f"correction {loc_err[0]:.4f} m, after both {loc_err[1]:.4f} m; the "
+        f"log replayed by a fresh session in {replay_s:.2f} s: poses and "
+        f"covariances bit-equal ({smi})")
+    return dict(poses=len(live), sweep_s=sweep_s, after_ms=after_ms,
+                replay_s=replay_s, lm_iterations=iters,
+                new_constraints=[r.new_constraints for r in reports],
+                launches=dict(em_scan=n_em, bcr=n_bcr),
+                gt_error_m=[odo_err] + loc_err,
+                replay_bit_equal=True), n_em, n_bcr
+
+
+# ---------------------------------------------------------------- phase 13
+
+def phase_online(torch, smi, bag, tmp):
+    """cli_enml --online on the bag of phase 10 at the recorded rate: the
+    producer feeds scans every 0.05 s, the worker localizes each new node's
+    trailing window on the card."""
+    import contextlib
+    import io
+    import re
+
+    import numpy as np
+
+    from hitl_slam_torch import cli_enml
+
+    prefix = os.path.join(tmp, "online")
+    buf = io.StringIO()
+    _sync()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_enml.main(["-b", bag, "--online", "--rate", "1", "-o", prefix,
+                            "--device", DEVICE])
+    wall_s = time.perf_counter() - t0
+    text = buf.getvalue()
+    check(rc == 0, f"cli_enml --online exited {rc}: {text[-500:]}")
+    got = re.search(r"online: (\d+) episode nodes localized live in "
+                    r"([\d.]+)s .*lag at flush ([\d.]+)s", text)
+    check(got is not None, f"cli_enml --online printed no summary: {text}")
+    nodes, lag = int(got[1]), float(got[3])
+    poses = np.loadtxt(prefix + ".poses")
+    check(poses.shape == (nodes, 3) and nodes > 5 and np.isfinite(poses).all(),
+          f"online: {poses.shape} poses for {nodes} nodes")
+    check(_read_counts() == (0, 0),
+          f"the online localizer launched a hand-written kernel: "
+          f"{_read_counts()}")
+    log(f"[online] {got[0]} ({smi})")
+    return dict(nodes=nodes, wall_s=wall_s, stream_s=float(got[2]),
+                lag_at_flush_s=lag)
+
+
+# ---------------------------------------------------------------- phase 14
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_gui(torch, smi, small, small_log, tmp):
+    """One round trip through the GUI bridge: `cli --gui` on the card on a
+    free port, a client enters correction mode, draws the first logged
+    correction, runs it, saves and shuts the server down; the saved poses
+    and the launches equal replay_log's."""
+    try:
+        import websockets
+    except ImportError:
+        log("[gui] skipped: websockets not installed")
+        return {"skipped": "websockets not installed"}, 0, 0
+    import asyncio
+    import threading
+
+    import numpy as np
+
+    from hitl_slam_torch import cli
+    from hitl_slam_torch.gui import server as S
+
+    entry = small_log[0]
+    want = _engine(small, 8192)       # the CLI's constraint capacity
+    _sync()
+    _reset_counts()
+    rep = want.replay_log(entry)
+    _sync()
+    w_counts = _read_counts()
+    check(rep.accepted, f"gui: replay_log rejected: {rep.reason}")
+
+    port = _free_port()
+    out = os.path.join(tmp, "gui_saved.txt")
+    listening = threading.Event()
+    start = S.GuiServer.start
+
+    def start_and_signal(self):
+        start(self)
+        listening.set()
+
+    rc = {}
+    S.GuiServer.start = start_and_signal
+    try:
+        _sync()
+        _reset_counts()
+        t0 = time.perf_counter()
+        th = threading.Thread(target=lambda: rc.update(code=cli.main(
+            ["-P", os.path.join(DATA, "golden.stfs.covars"), "--gui",
+             "--gui-port", str(port), "-V", out, "--device", DEVICE])),
+            daemon=True)
+        th.start()
+        check(listening.wait(120), "gui: the bridge did not start")
+    finally:
+        S.GuiServer.start = start
+    frames = []
+
+    async def drive():
+        async with websockets.connect(f"ws://127.0.0.1:{port}",
+                                      max_size=2 ** 24) as ws:
+            async def recv():
+                frames.append(json.loads(await asyncio.wait_for(ws.recv(),
+                                                                timeout=120)))
+
+            async def send(obj):
+                await ws.send(json.dumps(obj))
+
+            await recv()                                  # the latched frame
+            await send({"type": "keyboard", "keycode": 0x50})      # 'p'
+            p = [list(map(float, q)) for q in entry.points]
+            for k in (0, 2):
+                await send({"type": "mouse_click",
+                            "modifiers": int(entry.correction_type),
+                            "mouse_down": p[k], "mouse_up": p[k + 1]})
+                await recv()                              # selection drawn
+            await send({"type": "keyboard", "keycode": 0x50})      # run
+            await recv()
+            await send({"type": "keyboard", "keycode": 0x56})      # 'v'
+            await send({"type": "shutdown"})
+
+    asyncio.run(drive())
+    th.join(timeout=120)
+    _sync()
+    wall_s = time.perf_counter() - t0
+    counts = _read_counts()
+    check(not th.is_alive() and rc.get("code") == 0,
+          f"gui: the serve loop did not end cleanly ({rc})")
+    got = np.loadtxt(out)
+    dxy, dth = pose_errors(got, want.get_poses())
+    # the saved file has 6 decimals
+    check(max(dxy, dth) <= 1e-6,
+          f"gui: saved poses {dxy:.3e} m / {dth:.3e} rad from replay_log's")
+    check(counts == w_counts,
+          f"gui: launches {counts}, replay_log's {w_counts}")
+    moved = np.abs(np.asarray(frames[-1]["points"])
+                   - np.asarray(frames[0]["points"])).max()
+    log(f"[gui] cli --gui on port {port}: 'p', two drags, 'p', 'v', shutdown "
+        f"in {wall_s:.2f} s; {len(frames)} frames, the map moved "
+        f"{moved:.3f} m; saved poses {dxy:.1e} m / {dth:.1e} rad from "
+        f"replay_log's (6 decimals); launches em_scan={counts[0]} "
+        f"bcr={counts[1]}, as replay_log's ({smi})")
+    return dict(frames=len(frames), wall_s=wall_s, pose_diff=[dxy, dth],
+                launches=dict(em_scan=counts[0], bcr=counts[1])), *counts
+
+
+# ---------------------------------------------------------------- phase 15
 
 def phase_times(torch, state, log_entries):
     """Each kernel at the main path's shapes (em_scan on the golden_large
@@ -1458,11 +1927,28 @@ def main() -> int:
     # ---- 9. LTVM ----
     phase_ltvm(torch, large, large_log, clean)
     # ---- 10. EnML ----
-    phase_enml(torch, smi)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        enml, stream, scale, bag = phase_enml(torch, smi, tmp)
+        # ---- 11. the checkerboard localizer ----
+        enml["checkerboard"] = phase_checkerboard(torch, smi, stream, scale)
+        del scale
+        # ---- 12. an interactive EnML session with loop corrections ----
+        enml["session"], s_em, s_bcr = phase_session(torch, smi, tmp)
+        n_em, n_bcr = n_em + s_em, n_bcr + s_bcr
+        # ---- 13. the online localizer through cli_enml ----
+        enml["online"] = phase_online(torch, smi, bag, tmp)
+        # ---- 14. one round trip through the GUI bridge ----
+        enml["gui"], g_em, g_bcr = phase_gui(torch, smi, small, small_log,
+                                             tmp)
+        n_em, n_bcr = n_em + g_em, n_bcr + g_bcr
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"enml": enml}), flush=True)
     log(smi)
-    # ---- 11. times ----
+    # ---- 15. times ----
     times = phase_times(torch, state, large_log)
-    # ---- 12. kernels line ----
+    # ---- 16. kernels line ----
     kernels = [
         {"name": "em_scan", "route": "cuda",
          "source": "hitl_slam_torch/csrc/em_scan.cu",
@@ -1475,7 +1961,7 @@ def main() -> int:
     ]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    # ---- 13. contract line ----
+    # ---- 17. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -18,14 +18,19 @@ Layout mirrors hitl_slam_tpu so each counterpart sits at the same path:
   solver/    block-tridiagonal solve, normal equations, Levenberg-Marquardt,
              the refine's dense and matrix-free solvers
   models/    the HitL correction cycle, its session engine, the refine and
-             the auto-proposed corrections; the LTVM map curator; the EnML
-             sliding-window batch localizer and its driver
-  gui/       draw lists, the display builders and the vector-map file
-             (host numpy and json)
+             the auto-proposed corrections; the LTVM map curator; EnML:
+             the sequential and checkerboard batch localizers, the online
+             localizer, the interactive session with loop corrections, and
+             their driver
+  gui/       draw lists, the display builders, the vector-map and graph
+             files, the live scan view, the websocket bridge and the viewer
+             assets (host numpy, json and asyncio)
   utils/     kernel builds, images, timing, the TOML and Lua configs
-  cli.py     headless replay, auto-repair and rendering entry point
+  cli.py     replay, auto-repair, rendering and the interactive GUI serve
+             loop
   cli_ltvm.py  the LTVM curator's entry point
-  cli_enml.py  EnML batch localization: bag or stream -> .stfs.covars
+  cli_enml.py  EnML: bag or stream -> .stfs.covars (sequential or
+             checkerboard), online, interactive with loop corrections
 
 Every function takes tensors on an explicit device; nothing here picks a
 device on its own. The package never imports jax or hitl_slam_tpu.

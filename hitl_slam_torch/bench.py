@@ -15,7 +15,9 @@ in tests/data. Then the auto-proposal stage on the raw (drifted) map (wall ms
 of propose_corrections, split into the device stage and the host loop, and
 the number of proposals) and one LTVM curation of the repaired map (wall ms
 of curate, split into SDF, filter, RANSAC and the host merge, and the number
-of vectors). Correctness fields are against those files; nothing of JAX
+of vectors), and the checkerboard EnML localizer on a figure-8 stream
+(160 scans: wall ms and its stages, matches, batched GN steps, carry and
+scatter, covariance pass). Correctness fields are against those files; nothing of JAX
 is imported. Runs on the card unless --device says otherwise.
 """
 
@@ -107,6 +109,41 @@ def refine_split(sync, state, matcher: str, max_iterations: int,
         "elect_dropped": count(elect_dropped),
         "poses": out.poses,
     }
+
+
+def checkerboard_split(sync, device) -> dict:
+    """The checkerboard EnML localizer on tests/test_enml.py's figure-8
+    stream (160 scans, 240 beams: 128 nodes), warm (the second of two
+    calls): wall ms, ms a node, and its stage split (set-up, matches,
+    batched GN steps, carry and scatter, covariance pass; synchronised at
+    every boundary)."""
+    steps = 160
+    import numpy as np
+
+    from .core.state import make_map_state
+    from .io.figure8 import generate_raw_stream
+    from .models.enml.driver import EpisodeOptions, build_episodes
+    from .models.enml.localizer import EnmlOptions
+    from .models.enml.parallel_localizer import checkerboard_localize
+
+    scans, angles, rel, _, _ = generate_raw_stream(
+        num_steps=steps, num_rays=240, seed=11, noise_trans=4e-3,
+        noise_theta=2e-3)
+    poses, pcs, ncs, _ = build_episodes(
+        scans, angles, rel, EpisodeOptions(clip_low=10, clip_high=10))
+    st = make_map_state(poses, np.zeros((len(poses), 3, 3), np.float32),
+                        pcs, ncs, device)
+    args = (st.points, st.normals, st.point_mask, st.poses, EnmlOptions())
+    checkerboard_localize(*args)
+    stages = {}
+    sync()
+    t0 = time.perf_counter()
+    checkerboard_localize(*args, stage_ms=stages)
+    sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    return {"scans": steps, "nodes": st.num_poses, "wall_ms": wall_ms,
+            "ms_per_node": wall_ms / st.num_poses,
+            **{f"{k}_ms": v for k, v in stages.items()}}
 
 
 def main(argv=None) -> int:
@@ -212,6 +249,8 @@ def main(argv=None) -> int:
     sync()
     curate_ms = (time.perf_counter() - t0) * 1e3
 
+    enml = checkerboard_split(sync, device)
+
     result = {
         **device_facts(torch, device),
         "torch": torch.__version__,
@@ -242,6 +281,7 @@ def main(argv=None) -> int:
         },
         "ltvm_curate": {"wall_ms": curate_ms, **curate_split,
                         "vectors": len(vectors)},
+        "enml_checkerboard": enml,
     }
     print(json.dumps(result))
     return 0

@@ -9,6 +9,8 @@ original tool use it.
 
 from __future__ import annotations
 
+import datetime
+
 import numpy as np
 
 from ..core.state import CorrectionType, SingleInput
@@ -56,3 +58,11 @@ def save_log(path: str, inputs: list[SingleInput]) -> None:
             f.write(f"{int(inp.correction_type)}, {inp.undone}\n")
             for p in np.asarray(inp.points).reshape(-1, 2):
                 f.write(f"{p[0]:.4f}, {p[1]:.4f}\n")
+
+
+def default_log_name(pose_graph_file: str) -> str:
+    """`<posegraph>_logged_<date>.log`, the name the original tool gives the
+    session log it writes on Ctrl-C."""
+    now = datetime.datetime.now()
+    stamp = f"{now.year}-{now.month}-{now.day}-{now.hour}-{now.minute}-{now.second}"
+    return f"{pose_graph_file}_logged_{stamp}.log"

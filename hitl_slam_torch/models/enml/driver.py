@@ -254,10 +254,9 @@ def localize_and_save(
     <prefix>.poses and <prefix>.stfs (SaveStfsandCovars / SaveLoggedPoses /
     SaveStfs formats).
 
-    parallel_windows=True asks for the checkerboard (red/black) batched
-    window solver, which the port does not have yet (ROADMAP, queue 1: the
-    checkerboard localizer): it raises NotImplementedError rather than run
-    the sequential sweep in its place.
+    parallel_windows=True uses the checkerboard (red/black) batched window
+    solver instead of the sequential sliding-window sweep: the same
+    factors, the windows of one parity solved as one batched GN problem.
 
     ltf_segs [S, 4] is a world-frame vector map (LTVM curator output):
     observations it explains become long-term features anchored to the map
@@ -267,18 +266,35 @@ def localize_and_save(
     from ...core.state import make_map_state
     from .localizer import EnmlOptions, batch_localize
 
-    if parallel_windows:
-        raise NotImplementedError(
-            "parallel_windows: the checkerboard localizer is not ported yet "
-            "(ROADMAP queue 1, EnML third part: the checkerboard localizer)")
     st = make_map_state(poses, np.zeros((len(poses), 3, 3), np.float32),
                         point_clouds, normal_clouds, device)
     opts = options or EnmlOptions()
-    segs = (None if ltf_segs is None
-            else torch.as_tensor(np.asarray(ltf_segs), dtype=st.poses.dtype,
-                                 device=st.poses.device))
-    new_poses, covs = batch_localize(
-        st.points, st.normals, st.point_mask, st.poses, opts, ltf_segs=segs)
+    if ltf_segs is not None and parallel_windows:
+        raise ValueError("ltf_segs is not supported with parallel_windows "
+                         "(the checkerboard solver has no LTF term yet)")
+    if parallel_windows:
+        from .parallel_localizer import (
+            BRUTE_MATCH_LIMIT, checkerboard_localize, probe_match_capacity)
+
+        new_poses, covs = checkerboard_localize(
+            st.points, st.normals, st.point_mask, st.poses, opts)
+        W = min(opts.max_history, st.num_poses)
+        if W * st.points.shape[1] > BRUTE_MATCH_LIMIT:
+            # surface grid-matcher capacity violations on new datasets
+            dropped = int(probe_match_capacity(
+                st.points, st.normals, st.point_mask, new_poses, opts))
+            if dropped:
+                print(f"WARNING: grid matcher dropped {dropped} points "
+                      f"(per-cell/occupied-cell capacity) — results may "
+                      f"miss correspondences on this map density")
+    else:
+        segs = (None if ltf_segs is None
+                else torch.as_tensor(np.asarray(ltf_segs),
+                                     dtype=st.poses.dtype,
+                                     device=st.poses.device))
+        new_poses, covs = batch_localize(
+            st.points, st.normals, st.point_mask, st.poses, opts,
+            ltf_segs=segs)
     new_poses = new_poses.cpu().numpy()
     covs = covs.cpu().numpy()
     stfs.save_stfs_covars(out_prefix + ".stfs.covars", map_name, timestamp,

@@ -109,21 +109,25 @@ _CPU_MATCH_ROWS = 256
 
 
 def _pair_mask(flat_mask: Tensor, pose_of: Tensor) -> Tensor:
-    """[M, M] pairs that may match: both points real, on different poses."""
-    return (flat_mask[:, None] & flat_mask[None, :]
+    """[..., M, M] pairs that may match: both points real, on different
+    poses (flat_mask [..., M], with any leading batch dims)."""
+    return (flat_mask[..., :, None] & flat_mask[..., None, :]
             & (pose_of[:, None] != pose_of[None, :]))
 
 
 def _brute_window_match(poses, flat_pts, flat_nrm, flat_mask, pose_of,
                         t2, min_cos, pair_ok=None):
     """Best cross-pose nearest neighbour per point in the world frame ->
-    (tgt_idx [M] int64, valid [M]); tgt is 0 where no candidate passes.
-    O(M^2) distances: the right shape for a window of a few thousand points.
-    `pair_ok` is `_pair_mask(flat_mask, pose_of)`, if the caller has it."""
-    M = flat_pts.shape[0]
-    q = poses[pose_of]
-    pw = rotate(q[:, 2], flat_pts) + q[:, :2]
-    nw = rotate(q[:, 2], flat_nrm)
+    (tgt_idx [..., M] int64, valid [..., M]); tgt is 0 where no candidate
+    passes. O(M^2) distances: the right shape for a window of a few
+    thousand points. Any leading batch dims of `poses` [..., W, 3] and the
+    flat point arrays [..., M, ...] are windows matched each on its own;
+    `pose_of` [M] is shared. `pair_ok` is `_pair_mask(flat_mask, pose_of)`,
+    if the caller has it."""
+    M = flat_pts.shape[-2]
+    q = poses[..., pose_of, :]
+    pw = rotate(q[..., 2], flat_pts) + q[..., :2]
+    nw = rotate(q[..., 2], flat_nrm)
     if pair_ok is None:
         pair_ok = _pair_mask(flat_mask, pose_of)
     # Rows in blocks on the CPU, where an [M, M] pass runs out of cache (3x
@@ -132,25 +136,25 @@ def _brute_window_match(poses, flat_pts, flat_nrm, flat_mask, pose_of,
     rows = M if pw.is_cuda else _CPU_MATCH_ROWS
     best, tgt = [], []
     for r in range(0, M, rows):
-        p, nr = pw[r:r + rows], nw[r:r + rows]
+        p, nr = pw[..., r:r + rows, :], nw[..., r:r + rows, :]
         # the sum of squared coordinate differences, as the reference: the
         # matmul form of cdist rounds otherwise and flips matches at the gate
-        d2 = p[:, None, 0] - pw[None, :, 0]
-        dy = p[:, None, 1] - pw[None, :, 1]
+        d2 = p[..., :, None, 0] - pw[..., None, :, 0]
+        dy = p[..., :, None, 1] - pw[..., None, :, 1]
         d2.mul_(d2).add_(dy.mul_(dy))
         # normal agreement elementwise: no matmul, so no TF32 question
-        cos = nr[:, None, 0] * nw[None, :, 0]
-        cos.add_(nr[:, None, 1] * nw[None, :, 1])
-        ok = (cos > min_cos) & pair_ok[r:r + rows]
+        cos = nr[..., :, None, 0] * nw[..., None, :, 0]
+        cos.add_(nr[..., :, None, 1] * nw[..., None, :, 1])
+        ok = (cos > min_cos) & pair_ok[..., r:r + rows, :]
         # The distance gate is applied to the row minimum: the nearest
         # candidate passes d2 < t2 exactly when some candidate does, and
         # the entries equal to the minimum are then the same, so the first
         # of them is the reference's argmin. Where none passes, the
         # reference's row is all inf and its argmin 0.
-        b, i = torch.min(torch.where(ok, d2, torch.inf), dim=1)
+        b, i = torch.min(torch.where(ok, d2, torch.inf), dim=-1)
         best.append(b)
         tgt.append(i)
-    best, tgt = (torch.cat(best), torch.cat(tgt)) if len(best) > 1 \
+    best, tgt = (torch.cat(best, -1), torch.cat(tgt, -1)) if len(best) > 1 \
         else (best[0], tgt[0])
     valid = best < t2
     return torch.where(valid, tgt, 0), valid
@@ -179,37 +183,79 @@ def _window_gn(
     `eval_only=True` returns the input poses with the Hessian evaluated AT
     them (a fresh match, no GN step).
 
-    The point lanes keep a [W, N] layout: point (i, n) belongs to window
+    One window: `window_gn_batched` with a batch of one (leading dims of
+    size 1 are views, so it launches what an unbatched solve would)."""
+    if match_fn is not None:
+        inner = match_fn
+
+        def match_fn(poses):
+            tgt, valid = inner(poses[0])
+            return tgt[None], valid[None]
+
+    poses, H = window_gn_batched(
+        w_poses[None], w_pts[None], w_nrm[None], w_mask[None], w_axis[None],
+        w_d[None], w_rot[None], w_isig[None], w_chain_valid[None], o,
+        match_fn=match_fn, w_pin=None if w_pin is None else w_pin[None],
+        eval_only=eval_only, ltf_segs=ltf_segs, need_hessian=need_hessian,
+        gates=gates)
+    return poses[0], H[0]
+
+
+def window_gn_batched(
+    w_poses: Tensor,     # [B, W, 3] current window poses
+    w_pts: Tensor,       # [B, W, N, 2]
+    w_nrm: Tensor,       # [B, W, N, 2]
+    w_mask: Tensor,      # [B, W, N] (invalid rows fully masked)
+    w_axis: Tensor,      # [B, W-1, 2, 2] odometry constants of each chain
+    w_d: Tensor, w_rot: Tensor, w_isig: Tensor,  # [B, W-1, ...]
+    w_chain_valid: Tensor,  # [B, W-1] chain factor exists
+    o: EnmlOptions,
+    match_fn=None,       # (poses [B, W, 3]) -> (tgt [B, M], valid [B, M])
+    w_pin: Tensor | None = None,  # [B, W] bool: poses to pin besides pose 0
+    eval_only: bool = False,  # one match + one Hessian, no GN step
+    ltf_segs: Tensor | None = None,  # [S, 4] world vector map -> LTF factors
+    need_hessian: bool = True,  # False: skip the final Hessian
+    gates=None,          # (t2, min_cos) from _match_gates, to reuse
+):
+    """B independent window solves as one problem: `_window_gn` with a
+    leading batch dim on every window tensor (the reference vmaps
+    `_window_gn` over a chunk of windows). The dense window systems are
+    [B, 3W, 3W], factored by one batched Cholesky; a failed factor makes
+    its own window's step NaN and no other's. Returns (poses [B, W, 3],
+    H [B, 3W, 3W]).
+
+    The point lanes keep a [B, W, N] layout: point (i, n) belongs to window
     pose i, so a source-side per-pose value (its pose, cos and sin) is a
-    broadcast of a [W] vector, the same floats as the reference's gather."""
-    W, N, _ = w_pts.shape
+    broadcast of a [B, W] vector, the same floats as the reference's
+    gather."""
+    Bw, W, N, _ = w_pts.shape
     M = W * N
     dev, dtype = w_pts.device, w_pts.dtype
-    flat_pts = w_pts.reshape(M, 2)
-    flat_nrm = w_nrm.reshape(M, 2)
-    flat_mask = w_mask.reshape(M)
+    flat_pts = w_pts.reshape(Bw, M, 2)
+    flat_nrm = w_nrm.reshape(Bw, M, 2)
+    flat_mask = w_mask.reshape(Bw, M)
     wi = torch.arange(W, device=dev)
     pose_of = wi[:, None].expand(W, N).reshape(M)
     t2, min_cos = gates if gates is not None else _match_gates(o, dev)
     pair_ok = _pair_mask(flat_mask, pose_of) if match_fn is None else None
     wgt = o.point_correlation_factor / o.laser_std_dev
-    pin = torch.zeros(W, dtype=torch.bool, device=dev) if w_pin is None \
-        else w_pin.clone()
-    pin[0] = True
-    pin3 = pin[:, None].expand(W, 3).reshape(3 * W)
+    pin = torch.zeros((Bw, W), dtype=torch.bool, device=dev) \
+        if w_pin is None else w_pin.clone()
+    pin[:, 0] = True
+    pin3 = pin[:, :, None].expand(Bw, W, 3).reshape(Bw, 3 * W)
     free3 = ~pin3
-    free_2d = free3[:, None] & free3[None, :]
-    pin_diag = torch.diag(pin3.to(dtype))
+    free_2d = free3[:, :, None] & free3[:, None, :]
+    pin_diag = torch.diag_embed(pin3.to(dtype))
     n3 = 3 * W
-    eye_n3 = torch.eye(n3, dtype=dtype, device=dev)
-    spx, spy = w_pts[..., 0], w_pts[..., 1]          # [W, N]
+    eye_n3 = torch.eye(n3, dtype=dtype, device=dev).expand(Bw, n3, n3)
+    spx, spy = w_pts[..., 0], w_pts[..., 1]          # [B, W, N]
     snx, sny = w_nrm[..., 0], w_nrm[..., 1]
-    z1 = torch.zeros((1, 3, 3), dtype=dtype, device=dev)
+    z1 = torch.zeros((Bw, 1, 3, 3), dtype=dtype, device=dev)
     # odometry factor constants, fixed over the window solve
-    B = w_axis * w_isig[:, :2, None]
-    isa = w_isig[:, 2]
+    Bo = w_axis * w_isig[..., :2, None]
+    isa = w_isig[..., 2]
     zc = torch.zeros_like(w_d)
-    cv3 = w_chain_valid[:, None, None]
+    cv3 = w_chain_valid[..., None, None]
 
     def match(poses):
         if match_fn is not None:
@@ -218,50 +264,52 @@ def _window_gn(
                                    pose_of, t2, min_cos, pair_ok)
 
     def odometry(poses):
-        """The chain factors: (diag [W, 3, 3], upper [W-1, 3, 3], g [W, 3])."""
-        p0, p1 = poses[:-1], poses[1:]
-        v = rotate(-p0[:, 2], p1[:, :2] - p0[:, :2])
-        u = (w_axis * v[:, None, :]).sum(-1)
+        """The chain factors: (diag [B, W, 3, 3], upper [B, W-1, 3, 3],
+        g [B, W, 3])."""
+        p0, p1 = poses[:, :-1], poses[:, 1:]
+        v = rotate(-p0[..., 2], p1[..., :2] - p0[..., :2])
+        u = (w_axis * v[..., None, :]).sum(-1)
         r_o = torch.stack([
-            (u[:, 0] - w_d) * w_isig[:, 0],
-            u[:, 1] * w_isig[:, 1],
-            angle_mod(p1[:, 2] - p0[:, 2] - w_rot) * w_isig[:, 2],
-        ], -1) * w_chain_valid[:, None]
-        c, s = torch.cos(-p0[:, 2]), torch.sin(-p0[:, 2])
+            (u[..., 0] - w_d) * w_isig[..., 0],
+            u[..., 1] * w_isig[..., 1],
+            angle_mod(p1[..., 2] - p0[..., 2] - w_rot) * w_isig[..., 2],
+        ], -1) * w_chain_valid[..., None]
+        c, s = torch.cos(-p0[..., 2]), torch.sin(-p0[..., 2])
         Rn = torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2)
-        ARot = B @ Rn
-        dv = torch.stack([v[:, 1], -v[:, 0]], -1)
-        du = (B * dv[:, None, :]).sum(-1)
-        last2 = torch.stack([zc, zc, isa], -1)[:, None, :]
+        ARot = Bo @ Rn
+        dv = torch.stack([v[..., 1], -v[..., 0]], -1)
+        du = (Bo * dv[..., None, :]).sum(-1)
+        last2 = torch.stack([zc, zc, isa], -1)[..., None, :]
         J2 = torch.cat([torch.cat([ARot, torch.zeros_like(du)[..., None]], -1),
-                        last2], dim=1) * cv3
+                        last2], dim=-2) * cv3
         J1 = torch.cat([torch.cat([-ARot, du[..., None]], -1),
-                        -last2], dim=1) * cv3
+                        -last2], dim=-2) * cv3
         J1T = J1.transpose(-1, -2)
         J2T = J2.transpose(-1, -2)
-        diag_odo = (torch.cat([J1T @ J1, z1], 0)
-                    + torch.cat([z1, J2T @ J2], 0))
-        g = torch.zeros((W, 3), dtype=dtype, device=dev)
-        g[:-1] += (J1T @ r_o[..., None])[..., 0]
-        g[1:] += (J2T @ r_o[..., None])[..., 0]
+        diag_odo = (torch.cat([J1T @ J1, z1], 1)
+                    + torch.cat([z1, J2T @ J2], 1))
+        g = torch.zeros((Bw, W, 3), dtype=dtype, device=dev)
+        g[:, :-1] += (J1T @ r_o[..., None])[..., 0]
+        g[:, 1:] += (J2T @ r_o[..., None])[..., 0]
         return diag_odo, J1T @ J2, g
 
     def system(poses, rnd):
-        """The window's GN system (H [3W, 3W], g [3W]) at `poses`, with the
-        round's matches `rnd`."""
+        """The windows' GN systems (H [B, 3W, 3W], g [B, 3W]) at `poses`,
+        with the round's matches `rnd`."""
         t_pose, oh_tT, tpx, tpy, tnx, tny, vm, ltf_idx, ltf_valid = rnd
         diag_odo, U_odo, g = odometry(poses)
 
-        # symmetric point-to-plane STF residuals/jacobians, [W, N] lanes
-        cW, sW = torch.cos(poses[:, 2]), torch.sin(poses[:, 2])
-        cs_, ss_ = cW[:, None], sW[:, None]
-        qt = torch.stack([poses[:, 0], poses[:, 1], cW, sW], -1)[t_pose]
+        # symmetric point-to-plane STF residuals/jacobians, [B, W, N] lanes
+        cW, sW = torch.cos(poses[..., 2]), torch.sin(poses[..., 2])
+        cs_, ss_ = cW[..., None], sW[..., None]
+        qt = torch.stack([poses[..., 0], poses[..., 1], cW, sW], -1).gather(
+            1, t_pose.reshape(Bw, M, 1).expand(Bw, M, 4)).reshape(Bw, W, N, 4)
         qtx, qty, ct_, st_ = qt.unbind(-1)
         rsx = cs_ * spx - ss_ * spy          # R(th_s) sp
         rsy = ss_ * spx + cs_ * spy
         rtx = ct_ * tpx - st_ * tpy
         rty = st_ * tpx + ct_ * tpy
-        spwx, spwy = rsx + poses[:, 0, None], rsy + poses[:, 1, None]
+        spwx, spwy = rsx + poses[..., 0, None], rsy + poses[..., 1, None]
         tpwx, tpwy = rtx + qtx, rty + qty
         snwx = cs_ * snx - ss_ * sny
         snwy = ss_ * snx + cs_ * sny
@@ -277,7 +325,7 @@ def _window_gn(
         dsn_dp = -snwy * dpx + snwx * dpy
         dtn_dp = -tnwy * dpx + tnwx * dpy
         # rows of j0 = d(r0, r1)/d(pose_s) and j1 = d(r0, r1)/d(pose_t)
-        # as [W, N, 3]: a / a1 are j0's rows, b / b1 are j1's
+        # as [B, W, N, 3]: a / a1 are j0's rows, b / b1 are j1's
         a = torch.stack([-vm * snwx, -vm * snwy, vm * (dsn_dp - snw_dsp)], -1)
         a1 = torch.stack([-vm * tnwx, -vm * tnwy, -vm * tnw_dsp], -1)
         b = torch.stack([vm * snwx, vm * snwy, vm * snw_dtp], -1)
@@ -286,13 +334,13 @@ def _window_gn(
         def outer(x, y, x1, y1):
             # entry p*3+q: x[p] y[q] + x1[p] y1[q]
             return (x[..., :, None] * y[..., None, :]
-                    + x1[..., :, None] * y1[..., None, :]).reshape(W, N, 9)
+                    + x1[..., :, None] * y1[..., None, :]).reshape(Bw, W, N, 9)
 
         # STF reductions: the source side is a sum over each pose's N
-        # lanes; the target side contracts the one-hot [W, M] of the
+        # lanes; the target side contracts the one-hot [B, W, M] of the
         # matched poses in full f32 (TF32 is off package-wide)
-        X1 = outer(b, b, b1, b1).reshape(M, 9)
-        D_st = (outer(a, a, a1, a1).sum(1) + oh_tT @ X1).reshape(W, 3, 3)
+        X1 = outer(b, b, b1, b1).reshape(Bw, M, 9)
+        D_st = (outer(a, a, a1, a1).sum(2) + oh_tT @ X1).reshape(Bw, W, 3, 3)
 
         if ltf_segs is not None:
             # unary point-to-line LTF factors: r = n . (world - a_seg),
@@ -306,61 +354,64 @@ def _window_gn(
             rl = (nx * (spwx - sa[..., 0]) + ny * (spwy - sa[..., 1])) * wl
             jrow = torch.stack([nx * wl, ny * wl,
                                 (nx * (-rsy) + ny * rsx) * wl], -1)
-            XL = (jrow[..., :, None] * jrow[..., None, :]).reshape(W, N, 9)
-            D_st = D_st + XL.sum(1).reshape(W, 3, 3)
-            g = g + (jrow * rl[..., None]).sum(1)
+            XL = (jrow[..., :, None] * jrow[..., None, :]).reshape(Bw, W, N, 9)
+            D_st = D_st + XL.sum(2).reshape(Bw, W, 3, 3)
+            g = g + (jrow * rl[..., None]).sum(2)
 
         # Cst[i, j] = sum_n [t_pose(i, n) = j] X2[i, n, :]: a batched matmul
-        # over the source pose
-        Cst = torch.bmm(oh_tT.reshape(W, W, N).transpose(0, 1),
-                        outer(a, b, a1, b1)).reshape(W, W, 3, 3)
-        Hb = Cst + Cst.permute(1, 0, 3, 2)              # + (t, s) term
-        Hb[wi, wi] += D_st + diag_odo
-        Hb[wi[:-1], wi[1:]] += U_odo
-        Hb[wi[1:], wi[:-1]] += U_odo.transpose(-1, -2)
-        H = Hb.permute(0, 2, 1, 3).reshape(n3, n3)
+        # over the source pose (for B = 1 a strided view, no copy)
+        Cst = torch.matmul(oh_tT.reshape(Bw, W, W, N).transpose(1, 2),
+                           outer(a, b, a1, b1)).reshape(Bw, W, W, 3, 3)
+        Hb = Cst + Cst.permute(0, 2, 1, 4, 3)           # + (t, s) term
+        Hb[:, wi, wi] += D_st + diag_odo
+        Hb[:, wi[:-1], wi[1:]] += U_odo
+        Hb[:, wi[1:], wi[:-1]] += U_odo.transpose(-1, -2)
+        H = Hb.permute(0, 1, 3, 2, 4).reshape(Bw, n3, n3)
         ga = a * r0[..., None] + a1 * r1[..., None]
         gb = b * r0[..., None] + b1 * r1[..., None]
-        g = g + ga.sum(1) + oh_tT @ gb.reshape(M, 3)
+        g = g + ga.sum(2) + oh_tT @ gb.reshape(Bw, M, 3)
 
         # pin the window-first pose and any caller-pinned pose: zero rows
         # and columns, identity diagonal, zero gradient
         H = torch.where(free_2d, H, 0.0) + pin_diag
-        g = torch.where(free3, g.reshape(n3), 0.0)
+        g = torch.where(free3, g.reshape(Bw, n3), 0.0)
         return H, g
 
     def gn_step(poses, rnd):
         H, g = system(poses, rnd)
-        diag = torch.clamp(torch.diagonal(H), 1e-6, 1e32)
-        Hd = H + o.damping * torch.diag(diag)
+        diag = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), 1e-6, 1e32)
+        Hd = H + o.damping * torch.diag_embed(diag)
         # SPD by construction (normal matrix + damping + identity rows of
         # pinned poses); a failed factor becomes NaN, as jnp's does
         L, info = torch.linalg.cholesky_ex(Hd)
-        L = torch.where(info == 0, L, torch.nan)
-        step = torch.cholesky_solve(-g[:, None], L).reshape(W, 3)
+        L = torch.where((info == 0)[:, None, None], L, torch.nan)
+        step = torch.cholesky_solve(-g[..., None], L).reshape(Bw, W, 3)
         return poses + step
 
     def gn_round(poses, n_iter, want_hessian):
         tgt, valid = match(poses)
+        tgt = tgt.long()
         ltf_idx = ltf_valid = None
         if ltf_segs is not None:
             # classify long-term features: points the vector map explains
             # become point-to-line factors and stop being STF sources
             from ...ops.ltf import match_segments
 
-            q_ = poses[pose_of]
-            world = rotate(q_[:, 2], flat_pts) + q_[:, :2]
+            q_ = poses[:, pose_of]
+            world = rotate(q_[..., 2], flat_pts) + q_[..., :2]
             ltf_idx, ltf_valid = match_segments(
                 ltf_segs, world, flat_mask, o.map_match_threshold)
             valid = valid & ~ltf_valid
-            ltf_idx = ltf_idx.long().reshape(W, N)
-            ltf_valid = ltf_valid.reshape(W, N)
+            ltf_idx = ltf_idx.long().reshape(Bw, W, N)
+            ltf_valid = ltf_valid.reshape(Bw, W, N)
         # what the round's matches fix for all of its GN steps
-        t_pose = pose_of[tgt].reshape(W, N)
-        tp, tn = flat_pts[tgt].reshape(W, N, 2), flat_nrm[tgt].reshape(W, N, 2)
-        rnd = (t_pose, (wi[:, None] == t_pose.reshape(1, M)).to(dtype),
+        t_pose = pose_of[tgt].reshape(Bw, W, N)
+        tgt2 = tgt[..., None].expand(Bw, M, 2)
+        tp = flat_pts.gather(1, tgt2).reshape(Bw, W, N, 2)
+        tn = flat_nrm.gather(1, tgt2).reshape(Bw, W, N, 2)
+        rnd = (t_pose, (wi[:, None] == t_pose.reshape(Bw, 1, M)).to(dtype),
                tp[..., 0], tp[..., 1], tn[..., 0], tn[..., 1],
-               valid.reshape(W, N).to(dtype) * wgt, ltf_idx, ltf_valid)
+               valid.reshape(Bw, W, N).to(dtype) * wgt, ltf_idx, ltf_valid)
         for _ in range(n_iter):
             poses = gn_step(poses, rnd)
         if not want_hessian:

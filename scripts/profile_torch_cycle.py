@@ -28,7 +28,10 @@ solver). Then the EnML sweep on chip_smoke.py's reference-scale map (1078
 nodes): wall ms a node over 64 full windows, the node's stages (the window
 match, the Cholesky factor and solve, the covariance inverse, the rest: the
 window systems' assembly) timed on their own, and a profiler window over 8
-nodes; `--enml-only` runs this part alone. Needs one CUDA device; imports
+nodes; then the checkerboard localizer on the same map at W = 10 and W =
+80 (wall, its stage split: set-up, matches, batched GN steps, carry and
+scatter, covariance pass; a profiler window); `--enml-only` runs this part
+alone. Needs one CUDA device; imports
 nothing of JAX.
 """
 
@@ -435,6 +438,48 @@ def enml_profile(torch, repeat):
     timer.report("enml stage split over 16 nodes", total,
                  "(window systems, set-up)")
     device_profile(torch, lambda: sweep(64, 8), "profiled enml, 8 nodes")
+    checkerboard_profile(torch, st, repeat)
+
+
+def checkerboard_profile(torch, st, repeat):
+    """The checkerboard localizer on the reference-scale map at chip_smoke's
+    two configurations: wall, the stage split (window set-up, matches, the
+    batched GN steps, the SE(2) carry and scatter, the covariance pass with
+    its own matches; synchronised at every boundary) and a profiler
+    window."""
+    from chip_smoke import CB_SCALE
+    from hitl_slam_torch.models.enml import localizer as L
+    from hitl_slam_torch.models.enml import parallel_localizer as CB
+
+    args = (st.points, st.normals, st.point_mask, st.poses)
+    P, N = st.points.shape[:2]
+    for name, okw, chunk in CB_SCALE:
+        o = L.EnmlOptions(**okw)
+
+        def run(stage_ms=None):
+            return CB.checkerboard_localize(*args, o, chunk=chunk,
+                                            stage_ms=stage_ms)
+
+        run()
+        for r in range(repeat):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            print(f"checkerboard {name} {r}: {P} nodes x {N} padded points, "
+                  f"{chunk} windows a batch, {ms:.1f} ms ({ms / P:.3f} ms a "
+                  f"node)")
+        stages = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(stages)
+        total = (time.perf_counter() - t0) * 1e3
+        print(f"checkerboard {name} stage split (synchronised), "
+              f"{total:.1f} ms:")
+        for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
+            print(f"  {k:14s} {v:10.2f} ms  {100 * v / total:5.1f} %")
+        device_profile(torch, run, f"profiled checkerboard {name}")
 
 
 def main() -> int:

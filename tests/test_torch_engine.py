@@ -801,4 +801,10 @@ def test_bench_prints_one_json_line(tmp_path, capsys):
     for k in ("sdf_ms", "filter_ms", "ransac_ms", "merge_ms"):
         assert lt[k] >= 0
     assert lt["sdf_ms"] + lt["ransac_ms"] <= lt["wall_ms"]
+    cb = out["enml_checkerboard"]
+    assert cb["scans"] == 160 and cb["nodes"] == 128
+    stages = ("setup_ms", "match_ms", "gn_ms", "carry_scatter_ms",
+              "covariance_ms")
+    assert all(cb[k] > 0 for k in stages)
+    assert sum(cb[k] for k in stages) <= cb["wall_ms"] * 1.01
     assert bench.main(["--device", "cpu", "--replays", "0"]) == 2

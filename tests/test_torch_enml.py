@@ -419,7 +419,8 @@ def test_localize_and_save_files_read_by_reference(small, tmp_path):
     """The port's .stfs.covars, .poses and .stfs of the first 12 nodes: the
     reference's load_stfs_covars reads the port's file to the port
     reader's arrays and to the returned poses and covariances at the file's
-    precision; parallel_windows raises (the checkerboard is not ported)."""
+    precision; with parallel_windows (the checkerboard) too, and that mode
+    refuses an LTF vector map, as the reference's does."""
     from hitl_slam_torch.io import stfs as ts
     from hitl_slam_torch.models.enml.driver import localize_and_save
     from hitl_slam_tpu.io import stfs as js
@@ -443,9 +444,14 @@ def test_localize_and_save_files_read_by_reference(small, tmp_path):
                                atol=1e-6)
     lines = open(prefix + ".stfs").read().splitlines()
     assert len(lines) == 2 + sum(len(p) for p in pcs)
-    with pytest.raises(NotImplementedError, match="checkerboard"):
+    cb_poses, cb_covs = localize_and_save(poses, pcs, ncs, prefix,
+                                          parallel_windows=True, device="cpu")
+    jd = js.load_stfs_covars(prefix + ".stfs.covars")
+    np.testing.assert_allclose(jd.poses, cb_poses, atol=1e-4)
+    np.testing.assert_allclose(jd.covariances, cb_covs, atol=1e-6)
+    with pytest.raises(ValueError, match="parallel_windows"):
         localize_and_save(poses, pcs, ncs, prefix, parallel_windows=True,
-                          device="cpu")
+                          ltf_segs=np.zeros((1, 4), np.float32), device="cpu")
 
 
 def test_cli_enml_matches_reference(tmp_path, capsys):

@@ -170,3 +170,43 @@ def procrustes_error(poses, gt_poses) -> float:
         Vt[-1] *= -1
         R = (U @ Vt).T
     return float(np.linalg.norm((a - ca) @ R.T + cb - b, axis=1).mean())
+
+
+def _rot(th):
+    c, s = np.cos(th), np.sin(th)
+    return np.array([[c, -s], [s, c]])
+
+
+def _seg_dist(a, b, pts):
+    ab = b - a
+    t = np.clip(((pts - a) @ ab) / max(ab @ ab, 1e-12), 0.0, 1.0)
+    proj = a + t[:, None] * ab
+    return np.linalg.norm(pts - proj, axis=1)
+
+
+def synth_wall_correction(poses, pcs, walls, late, early,
+                           capture=0.35, min_pts=40):
+    """[4, 2] selection from a localized map (tests/test_enml_session.py):
+    the wall both pose ranges observe best, the LATE range's observed
+    segment first (corrected) and the EARLY range's second (anchor)."""
+    from hitl_slam_torch.io.figure8 import fit_clicked_segment
+
+    def range_pts_near(idx, wall):
+        a, b = np.asarray(wall[:2]), np.asarray(wall[2:])
+        out = []
+        for i in idx:
+            w = pcs[i] @ _rot(poses[i, 2]).T + poses[i, :2]
+            out.append(w[_seg_dist(a, b, w) < capture])
+        return np.concatenate(out) if out else np.zeros((0, 2))
+
+    best, best_n = None, -1
+    for wall in walls:
+        lp = range_pts_near(late, wall)
+        ep = range_pts_near(early, wall)
+        n = min(len(lp), len(ep))
+        if n > best_n:
+            best, best_n = (lp, ep), n
+    lp, ep = best
+    assert best_n >= min_pts, f"only {best_n} shared wall points"
+    return np.concatenate([fit_clicked_segment(lp),
+                           fit_clicked_segment(ep)], axis=0)
