@@ -16,7 +16,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      session (both tolerances of tests/test_golden.py), replay_log and
      run_queue of the 1024-pose golden session; each run's kernel launch
      counts are zeroed just before it and checked just after
-     (em_scan = 2 x cycles, bcr = LM iterations);
+     (em_scan = 2 x cycles, bcr = LM iterations), and the run_queue's
+     repaired map is phase 15's;
   5. the post-human STF refine on the repaired 1024-pose map:
      post_optimize(matcher="auto") (accepted, cost not increased, finite,
      pose 0 unmoved, matches found, a second run bit-equal, undo() back to
@@ -65,13 +66,28 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      a correction drawn and run, saved, shut down): the saved poses and the
      launches equal replay_log's; skipped, and said so, without
      `websockets`; then one `{"enml": {...}}` line for phases 10-14;
- 15. times at the main path's shapes: each kernel by CUDA events (host
+ 15. the replica batch (BASELINE config #5 at the bench's size): 32
+     perturbed replicas of the repaired 1024-pose golden_large map by
+     make_perturbed_replicas (seed 0), solved by batched_solve with 20 LM
+     iterations on the card: costs finite and not up, the batched BCR
+     route launched once a step (and nothing else), 4 replicas chosen by a
+     seed equal to their lone solves (iterations, accept sequence, poses
+     within 1e-5), the batched wall at or below 32 lone solves' one after
+     another; then the batched kernel against lone launches (bit-equal) and
+     its twin (BCR_RTOL) on the first step's systems and at n = 64, 1024,
+     16384 (B = 32) and 32768 (B = 8, the levels route), with its times,
+     bound and the dense batched torch.linalg.solve; repair_step on the
+     small golden map's first correction against the CPU; the native
+     libraries built, and their parses equal the Python paths (both golden
+     maps, phase 10's bag); then one `{"replicas": {...}}` line;
+ 16. times at the main path's shapes: each kernel by CUDA events (host
      overhead included) and by torch.profiler (its own device time), its
      plain version, its bound from the shapes, and for BCR
      torch.linalg.solve on the dense system; BCR also at n = 64, 16384
      and 32768;
- 16. a `{"kernels": [...]}` line with launches, agreement, times and bounds;
- 17. the last line: {"ok": true, "device": {...}}.
+ 17. a `{"kernels": [...]}` line with launches, agreement, times and bounds
+     (the batched route's launches from phase 15);
+ 18. the last line: {"ok": true, "device": {...}}.
 
 scripts/compare_checkouts.py times two checkouts' kernels and replays
 against each other on one card with the helpers here.
@@ -427,6 +443,7 @@ def _reset_counts():
 
     E.launches.count = 0
     B.launches.count = 0
+    B.batched_launches.count = 0
 
 
 def _read_counts():
@@ -488,10 +505,12 @@ def run_main_path(torch, name, data, entries, capacity, expected, tols,
         f"{[round(w, 3) for w in walls]}{' (chain mean)' if fused else ''}, "
         f"LM iterations {iters}, launches em_scan={n_em} bcr={n_bcr}, "
         f"pose error {'; '.join(errs)}")
-    return n_em, n_bcr
+    return n_em, n_bcr, eng
 
 
 def phase_main(torch, small, small_log, large, large_log):
+    """The golden replays; returns the launch totals and the state the
+    golden_large run_queue leaves (the repaired 1024-pose map)."""
     import numpy as np
 
     exp_small = [np.loadtxt(os.path.join(DATA, "golden_expected_poses.txt")),
@@ -506,10 +525,10 @@ def phase_main(torch, small, small_log, large, large_log):
         ("golden_large run_queue", large, large_log, 16384, exp_large,
          [LOOSE], True),
     ):
-        n_em, n_bcr = run_main_path(torch, *args)
+        n_em, n_bcr, eng = run_main_path(torch, *args)
         totals[0] += n_em
         totals[1] += n_bcr
-    return totals
+    return totals, eng.state
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1809,6 +1828,312 @@ def phase_gui(torch, smi, small, small_log, tmp):
 
 # ---------------------------------------------------------------- phase 15
 
+# the replica run (BASELINE config #5 at the reference bench's size): 32
+# perturbed replicas of the repaired 1024-pose map, 20 LM iterations
+REPLICAS = 32
+REPLICA_ITERS = 20
+# a replica's lone solve on the card against its column of the batch: the
+# same operations, but a [B, P] cost sum may reduce in another order than a
+# [P] one on the card, so poses agree to round-off, not to the bit
+REPLICA_POSE_TOL = 1e-5
+# batch sizes and pose counts of the batched kernel's checks and times:
+# (n, B); n = 32768 takes the levels route
+BATCHED_BCR = ((64, 32), (1024, 32), (16384, 32), (32768, 8))
+
+
+def _replica_lone(reps, tb, r, config):
+    """Replica r's lone solve on the card, with its accept sequence."""
+    from hitl_slam_torch.parallel.replicas import replica_table
+    from hitl_slam_torch.solver import joint, lm
+
+    acc = []
+    res = lm.solve(joint.build_problem(reps[r], replica_table(tb, r)),
+                   reps[r], config, accepts=acc)
+    return res, [bool(a) for a in acc]
+
+
+def _batched_bcr_checks(torch, first_step):
+    """The batched route against lone launches (bit-equal) and its plain
+    twin (BCR_RTOL), on the replica run's first-step systems and on
+    _spd_system batches; its times at each size. Returns (worst error
+    against the twin, {n: times})."""
+    import numpy as np
+
+    from hitl_slam_torch.solver import bcr_kernel as B, tridiag
+
+    worst, times = 0.0, {}
+    cases = [("replicas' first step", *first_step)]
+    for n, nb in BATCHED_BCR:
+        sys_ = [_spd_system(n, seed=1000 * n + i) for i in range(nb)]
+        cases.append((f"spd n={n} B={nb}", *(
+            torch.as_tensor(np.stack([s[k] for s in sys_]),
+                            dtype=torch.float32, device=DEVICE)
+            for k in range(3))))
+    for what, D, U, b in cases:
+        nb, n = D.shape[0], D.shape[1]
+        xb = B.bcr_solve_cuda_batched(D, U, b)
+        lone = torch.stack([B.bcr_solve_cuda(D[i], U[i], b[i])
+                            for i in range(nb)])
+        twin = tridiag.bcr_solve(D, U, b)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(xb).all()), f"{what}: non-finite")
+        check(torch.equal(xb, lone),
+              f"{what}: batched x differs from lone launches by "
+              f"{float((xb - lone).abs().max()):.3e}")
+        scale = max(1.0, float(xb.abs().max()))
+        err = float((xb - twin).abs().max())
+        check(err <= BCR_RTOL * scale,
+              f"{what}: batched kernel vs twin {err:.3e} > "
+              f"{BCR_RTOL * scale:.3e}")
+        worst = max(worst, err)
+        plan = B.launch_plan(n)
+        log(f"[replicas] {what}: {plan.route} of {plan.blocks} x {nb}, "
+            f"each x bit-equal to a lone launch, max|batched-plain| "
+            f"{err:.3e} (max|x| {scale:.3f})")
+        if not what.startswith("spd") or n == 32768:
+            continue
+        fn = lambda: B.bcr_solve_cuda_batched(D, U, b)   # noqa: E731
+        ms = time_cuda(fn, 50)
+        per_launch, dev_ms, _ = device_ms(fn, "bcr_")
+        plain_ms = time_cuda(lambda: tridiag.bcr_solve(D, U, b), 5)
+        lone_ms = time_cuda(lambda: [B.bcr_solve_cuda(D[i], U[i], b[i])
+                                     for i in range(nb)], 10)
+        work = bcr_work(n)
+        bound_ms, bound_by = bound(nb * work[0], nb * work[1])
+        t = dict(B=nb, n=n, ms=ms, device_ms=dev_ms,
+                 device_ms_per_launch=per_launch, plain_ms=plain_ms,
+                 lone_launches_ms=lone_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=None)
+        if n == 1024:
+            dense = [_dense_system(torch, D[i], U[i], b[i]) for i in range(nb)]
+            H = torch.stack([h for h, _ in dense])
+            rhs = torch.stack([r for _, r in dense])
+            del dense
+            t["library_ms"] = time_cuda(lambda: torch.linalg.solve(H, rhs),
+                                        3, warmup=1)
+            del H, rhs
+        times[n] = t
+        log(f"[time] bcr batched B={nb} n={n}: events {ms:.5f} ms, device "
+            f"{dev_ms:.5f} ms a call ({per_launch:.5f} a launch), {nb} lone "
+            f"launches {lone_ms:.5f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.6f} ms ({bound_by})"
+            + (f", dense torch.linalg.solve [{nb}, {3 * n}, {3 * n}] "
+               f"{t['library_ms']:.3f} ms" if t["library_ms"] else ""))
+    return worst, times
+
+
+def _repair_on_card(torch, small, small_log):
+    """repair_step on the small golden map's first logged correction, the
+    selection refit and counted on the card and ordered by the host's
+    order_and_filter; poses against the same step on the CPU."""
+    import numpy as np
+
+    from hitl_slam_torch.core.state import make_map_state
+    from hitl_slam_torch.models.hitl import em_input as EI
+    from hitl_slam_torch.models.hitl.repair import repair_step
+    from hitl_slam_torch.solver import bcr_kernel as B
+    from hitl_slam_torch.solver.lm import LMConfig
+
+    entry = small_log[0]
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        st = make_map_state(small.poses, small.covariances, small.point_clouds,
+                            small.normal_clouds, dev, constraint_capacity=256)
+        world = st.world_points()
+        raw = torch.as_tensor(np.asarray(entry.points, np.float32),
+                              device=dev)
+        ok = EI.verify_input(world, st.point_mask, raw)
+        check(bool(ok.all()), f"repair_step on {dev}: clicks not verified")
+        refit = EI.endpoint_adjust_batch(
+            world, st.point_mask, torch.stack([raw[0:2], raw[2:4]])
+        ).reshape(4, 2)
+        c1, c2 = EI.observation_counts(world, st.point_mask, refit)
+        o = EI.order_and_filter(c1.cpu().numpy(), c2.cpu().numpy(),
+                                refit.cpu().numpy())
+        check(o.valid, f"repair_step on {dev}: ordering invalid")
+        corr, anch = o.corrected_poses, o.anchor_poses
+        breaks = np.nonzero(np.diff(corr) > 1)[0]
+        group = corr[:breaks[0] + 1] if len(breaks) else corr
+        gmask = np.zeros(len(small.poses), bool)
+        gmask[group] = True
+        pad = lambda ix: np.concatenate(   # noqa: E731
+            [ix[:64], np.full(64 - min(len(ix), 64), -1)]).astype(np.int32)
+        T = lambda a: torch.as_tensor(a, device=dev)   # noqa: E731
+        _reset_counts()
+        res = repair_step(st.poses, st.covariances, st.constraints,
+                          int(entry.correction_type),
+                          T(o.selected_points.astype(np.float32)), T(gmask),
+                          int(group[-1]), T(pad(anch)), T(pad(corr)),
+                          o.backprop_start, o.backprop_end, 0,
+                          lm_config=LMConfig(max_iterations=20))
+        iters = int(res.lm.iterations)
+        if dev == DEVICE:
+            check(B.launches.count == iters,
+                  f"repair_step: bcr launches {B.launches.count} != LM "
+                  f"iterations {iters}")
+        out[dev] = (res.poses.cpu().numpy(), iters,
+                    int(res.num_new_constraints))
+    dxy, dth = pose_errors(out[DEVICE][0], out["cpu"][0])
+    check(dxy <= LOOSE[0] and dth <= LOOSE[1],
+          f"repair_step: card vs CPU {dxy:.3e} m / {dth:.3e} rad")
+    log(f"[replicas] repair_step on the golden map's first correction: "
+        f"LM iterations {out[DEVICE][1]} (CPU {out['cpu'][1]}), "
+        f"{out[DEVICE][2]} rows, card vs CPU {dxy:.3e} m / {dth:.3e} rad")
+    return dict(lm_iterations=out[DEVICE][1], card_vs_cpu=[dxy, dth])
+
+
+def _native_on_card_host(bag, tmp):
+    """The native host libraries build on this machine, and their parses
+    equal the Python paths: both golden maps, and phase 10's bag."""
+    import gzip
+
+    import numpy as np
+
+    from hitl_slam_torch import native
+    from hitl_slam_torch.io import rosbag, stfs
+
+    check(native.available() and native.bag_available(),
+          "native: a library did not build")
+    plain = os.path.join(tmp, "golden_large.stfs.covars")
+    with gzip.open(os.path.join(DATA, "golden_large.stfs.covars.gz")) as f, \
+            open(plain, "wb") as g:
+        g.write(f.read())
+    for path in (os.path.join(DATA, "golden.stfs.covars"), plain):
+        check(native.parse_stfs_file(path) is not None,
+              f"native: {path} fell back")
+        a = stfs.load_stfs_covars(path, use_native=True)
+        b = stfs.load_stfs_covars(path, use_native=False)
+        same = (np.array_equal(a.poses, b.poses)
+                and np.array_equal(a.covariances, b.covariances)
+                and all(np.array_equal(x, y) for x, y in
+                        zip(a.point_clouds, b.point_clouds)))
+        check(same, f"native: {path} parses differently")
+    nat = list(rosbag.read_messages(bag, use_native=True))
+    py = list(rosbag.read_messages(bag, use_native=False))
+    check(len(nat) == len(py) > 0 and all(
+        (x.topic, x.time, x.raw) == (y.topic, y.time, y.raw)
+        for x, y in zip(nat, py)), "native: the bag reads differently")
+    log(f"[native] both libraries built; golden maps parse equal; the bag's "
+        f"{len(nat)} messages equal")
+    return dict(stfs=True, bag_messages=len(nat))
+
+
+def phase_replicas(torch, smi, repaired, small, small_log, bag, tmp):
+    """The replica batch on the card (the slice's main path), the batched
+    kernel against lone launches and its twin, repair_step, and the native
+    libraries. Returns the `replicas` record, the batched launches and the
+    batched route's worst error and times."""
+    import numpy as np
+
+    from hitl_slam_torch.parallel.replicas import (batched_solve,
+                                                   build_problems,
+                                                   make_perturbed_replicas)
+    from hitl_slam_torch.solver import bcr_kernel as B, lm
+    from hitl_slam_torch.solver.lm import LMConfig
+
+    config = LMConfig(max_iterations=REPLICA_ITERS)
+    poses = repaired.poses.cpu().numpy()
+    reps, tb = make_perturbed_replicas(poses, repaired.constraints, REPLICAS,
+                                       seed=0)
+    P = poses.shape[0]
+    check(reps.device.type == torch.device(DEVICE).type
+          and reps.shape == (REPLICAS, P, 3),
+          f"replicas: {tuple(reps.shape)} on {reps.device}")
+    batched_solve(reps, tb, config, device=DEVICE)    # warm-up
+    torch.cuda.synchronize()
+    # ---- 1. the replica batch: the slice's main path ----
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = batched_solve(reps, tb, config, device=DEVICE)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    n_em, n_lone = _read_counts()
+    n_batched = B.batched_launches.count
+    iters = out.iterations.cpu().numpy()
+    c0, c1 = out.initial_cost.cpu().numpy(), out.final_cost.cpu().numpy()
+    steps = int(iters.max())
+    check(np.isfinite(c1).all() and (c1 <= c0).all(),
+          f"replicas: a cost went up or is not finite: {c0} -> {c1}")
+    check(n_batched == steps and n_lone == 0 and n_em == 0,
+          f"replicas: batched bcr launches {n_batched} != {steps} steps "
+          f"(lone {n_lone}, em_scan {n_em})")
+    check(np.isfinite(out.poses.cpu().numpy()).all(), "replicas: poses")
+    # ---- each of 4 replicas against its lone solve ----
+    picks = sorted(np.random.default_rng(0).choice(REPLICAS, 4,
+                                                   replace=False).tolist())
+    prob_b = build_problems(reps, tb)
+    acc_b = []
+    ref = lm.solve_batched(prob_b, reps, config, accepts=acc_b)
+    acc_b = torch.stack(acc_b).cpu().numpy()
+    check(torch.equal(ref.iterations, out.iterations),
+          "replicas: a second batched solve gave other iteration counts")
+    worst_pose = 0.0
+    for r in picks:
+        lone, acc = _replica_lone(reps, tb, r, config)
+        k = int(lone.iterations)
+        check(k == int(iters[r]) and acc == acc_b[:k, r].tolist(),
+              f"replica {r}: lone {k} iterations {acc}, batched "
+              f"{int(iters[r])} {acc_b[:, r].tolist()}")
+        dxy, dth = pose_errors(lone.poses.cpu().numpy(),
+                               out.poses[r].cpu().numpy())
+        check(max(dxy, dth) <= REPLICA_POSE_TOL,
+              f"replica {r}: lone vs batched {dxy:.3e} m / {dth:.3e} rad")
+        worst_pose = max(worst_pose, dxy, dth)
+    # ---- the same 32 solves one after another ----
+    def lone_all():
+        for r in range(REPLICAS):
+            _replica_lone(reps, tb, r, config)
+
+    lone_all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lone_all()
+    torch.cuda.synchronize()
+    lone_ms = (time.perf_counter() - t0) * 1e3
+    check(wall_ms <= lone_ms,
+          f"replicas: batched {wall_ms:.1f} ms above {REPLICAS} lone solves "
+          f"{lone_ms:.1f} ms")
+    dev_ms, ops = _device_only_profile(torch, lambda: batched_solve(
+        reps, tb, config, device=DEVICE))
+    rec = dict(B=REPLICAS, n=P, max_iterations=REPLICA_ITERS,
+               wall_ms=wall_ms, lone_wall_ms=lone_ms,
+               solves_per_s=REPLICAS / wall_ms * 1e3,
+               iterations=dict(min=int(iters.min()),
+                               median=float(np.median(iters)),
+                               max=int(iters.max())),
+               steps=steps, launches_bcr_batched=n_batched,
+               device_ms=dev_ms, device_ops=ops,
+               busy_share=dev_ms / wall_ms,
+               sampled=picks, lone_vs_batched=worst_pose,
+               cost_initial_mean=float(c0.mean()),
+               cost_final_mean=float(c1.mean()))
+    log(f"[replicas] B={REPLICAS} n={P}: batched {wall_ms:.2f} ms "
+        f"({rec['solves_per_s']:.1f} solves/s), {REPLICAS} lone solves "
+        f"{lone_ms:.2f} ms; iterations min/median/max "
+        f"{int(iters.min())}/{float(np.median(iters))}/{int(iters.max())}; "
+        f"batched bcr launches {n_batched} = steps; replicas {picks} equal "
+        f"their lone solves (<= {worst_pose:.3e}); device {dev_ms:.2f} ms in "
+        f"{ops} operations, busy {100 * dev_ms / wall_ms:.1f} % ({smi})")
+    # ---- 2. the batched kernel on the first step's systems and others ----
+    first = []
+
+    def record(D, U, b):
+        first.append((D.clone(), U.clone(), b.clone()))
+        return B.bcr_solve_cuda_batched(D, U, b)
+
+    lm.solve_batched(prob_b, reps, LMConfig(max_iterations=1),
+                     linear_solver=record)
+    err, times = _batched_bcr_checks(torch, first[0])
+    # ---- 3. repair_step on the card ----
+    rec["repair_step"] = _repair_on_card(torch, small, small_log)
+    # ---- 4. the native libraries ----
+    rec["native"] = _native_on_card_host(bag, tmp)
+    rec["card"] = smi
+    return rec, n_batched, err, times
+
+
+# ---------------------------------------------------------------- phase 16
+
 def phase_times(torch, state, log_entries):
     """Each kernel at the main path's shapes (em_scan on the golden_large
     map, BCR at its 1024 poses), beside its plain version, its bound and
@@ -1912,7 +2237,8 @@ def main() -> int:
     # ---- 3. bcr kernel vs plain vs f64 ----
     bcr_err = phase_bcr(torch)
     # ---- 4. the main path ----
-    n_em, n_bcr = phase_main(torch, small, small_log, large, large_log)
+    (n_em, n_bcr), repaired = phase_main(torch, small, small_log, large,
+                                         large_log)
     check(n_em > 0 and n_bcr > 0, "a kernel was not launched on the main path")
     # ---- 5. the refine ----
     phase_refine(torch, large, large_log, 16384)
@@ -1942,13 +2268,17 @@ def main() -> int:
         enml["gui"], g_em, g_bcr = phase_gui(torch, smi, small, small_log,
                                              tmp)
         n_em, n_bcr = n_em + g_em, n_bcr + g_bcr
+        print(json.dumps({"enml": enml}), flush=True)
+        # ---- 15. the replica batch, repair_step, the native libraries ----
+        replicas, n_batched, batched_err, batched_times = phase_replicas(
+            torch, smi, repaired, small, small_log, bag, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(json.dumps({"enml": enml}), flush=True)
+    print(json.dumps({"replicas": replicas}), flush=True)
     log(smi)
-    # ---- 15. times ----
+    # ---- 16. times ----
     times = phase_times(torch, state, large_log)
-    # ---- 16. kernels line ----
+    # ---- 17. kernels line ----
     kernels = [
         {"name": "em_scan", "route": "cuda",
          "source": "hitl_slam_torch/csrc/em_scan.cu",
@@ -1958,10 +2288,18 @@ def main() -> int:
          "source": "hitl_slam_torch/csrc/bcr.cu",
          "replaces": "hitl_slam_tpu/solver/pallas_bcr.py:94",
          "launches": n_bcr, "max_abs_err": bcr_err, **times["bcr_solve"]},
+        {"name": "bcr_solve_batched", "route": "cuda",
+         "source": "hitl_slam_torch/csrc/bcr.cu",
+         "replaces": "hitl_slam_tpu/solver/pallas_bcr.py:94",
+         "launches": n_batched, "max_abs_err": batched_err,
+         **{k: v for k, v in batched_times[1024].items()
+            if k not in ("B", "n")},
+         "at": f"B={REPLICAS}, n=1024",
+         "n64": batched_times[64], "n16384": batched_times[16384]},
     ]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    # ---- 17. contract line ----
+    # ---- 18. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -15,13 +15,18 @@ Layout mirrors hitl_slam_tpu so each counterpart sits at the same path:
   ops/       geometry, factor residuals, the em_scan kernel wrapper, the
              refine's matchers, RANSAC segments, the correlative scan
              matcher, rasterization, the truncated SDF, the LTF map factors
-  solver/    block-tridiagonal solve, normal equations, Levenberg-Marquardt,
-             the refine's dense and matrix-free solvers
-  models/    the HitL correction cycle, its session engine, the refine and
-             the auto-proposed corrections; the LTVM map curator; EnML:
+  solver/    block-tridiagonal solves, normal equations, Levenberg-Marquardt
+             (lone and batched), the refine's dense and matrix-free solvers
+  models/    the HitL correction cycle and its repair step, its session
+             engine, the refine and the auto-proposed corrections; the
+             LTVM map curator; EnML:
              the sequential and checkerboard batch localizers, the online
              localizer, the interactive session with loop corrections, and
              their driver
+  parallel/  the replica batch: perturbed copies of a map solved by one
+             batched LM
+  native/    the C++ .stfs.covars parser and bag record scanner (host
+             code, built by g++ at first use; the Python paths otherwise)
   gui/       draw lists, the display builders, the vector-map and graph
              files, the live scan view, the websocket bridge and the viewer
              assets (host numpy, json and asyncio)

@@ -17,8 +17,13 @@ the number of proposals) and one LTVM curation of the repaired map (wall ms
 of curate, split into SDF, filter, RANSAC and the host merge, and the number
 of vectors), and the checkerboard EnML localizer on a figure-8 stream
 (160 scans: wall ms and its stages, matches, batched GN steps, carry and
-scatter, covariance pass). Correctness fields are against those files; nothing of JAX
-is imported. Runs on the card unless --device says otherwise.
+scatter, covariance pass). Then the replica batch of BASELINE config #5 on
+the repaired map (--replicas perturbed copies, 20 LM iterations): the wall
+ms of batched_solve with the batched BCR kernel and with its plain batched
+twin, solves/s, the per-replica iteration counts, and the wall of the same
+solves run one after another. Correctness fields are against those files;
+nothing of JAX is imported. Runs on the card unless --device says
+otherwise.
 """
 
 from __future__ import annotations
@@ -146,6 +151,58 @@ def checkerboard_split(sync, device) -> dict:
             **{f"{k}_ms": v for k, v in stages.items()}}
 
 
+def replica_split(sync, state, num_replicas: int) -> dict:
+    """BASELINE config #5 on `state` (the repaired map): `num_replicas`
+    perturbed copies (make_perturbed_replicas, seed 0), LMConfig(
+    max_iterations=20), each timed warm (the second of two calls): the
+    batched solve with the device's default linear solver (the batched BCR
+    kernel on the card), with the plain batched BCR, and the same solves
+    one after another."""
+    import numpy as np
+    import torch
+
+    from .parallel.replicas import (build_problems, make_perturbed_replicas,
+                                    replica_table)
+    from .solver import joint, lm, tridiag
+
+    config = lm.LMConfig(max_iterations=20)
+    reps, tb = make_perturbed_replicas(state.poses.cpu().numpy(),
+                                       state.constraints, num_replicas)
+
+    def timed(fn):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    out, kernel_ms = timed(lambda: lm.solve_batched(
+        build_problems(reps, tb), reps, config))
+    twin, twin_ms = timed(lambda: lm.solve_batched(
+        build_problems(reps, tb), reps, config,
+        linear_solver=tridiag.bcr_solve))
+
+    def lone_all():
+        return [lm.solve(joint.build_problem(reps[r], replica_table(tb, r)),
+                         reps[r], config) for r in range(num_replicas)]
+
+    lone, lone_ms = timed(lone_all)
+    iters = out.iterations.cpu().numpy()
+    return {
+        "replicas": num_replicas, "poses": int(reps.shape[1]),
+        "max_iterations": config.max_iterations,
+        "wall_ms": kernel_ms, "solves_per_s": num_replicas / kernel_ms * 1e3,
+        "twin_wall_ms": twin_ms, "lone_wall_ms": lone_ms,
+        "iterations": iters.tolist(),
+        "iterations_equal_lone": bool(np.array_equal(
+            iters, [int(r.iterations) for r in lone])),
+        "twin_iterations_equal": bool(torch.equal(out.iterations,
+                                                  twin.iterations)),
+        "cost_not_up": bool((out.final_cost <= out.initial_cost).all()),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="hitl-slam-torch-bench", description=__doc__,
@@ -155,6 +212,8 @@ def main(argv=None) -> int:
     ap.add_argument("--replays", type=int, default=10,
                     help="timed replays of the session (after one warm-up)")
     ap.add_argument("--refine-iterations", type=int, default=30)
+    ap.add_argument("--replicas", type=int, default=32,
+                    help="perturbed replicas of the batched solve (0: skip)")
     ap.add_argument("--data", default=DATA,
                     help="directory holding golden_large.* (default: "
                          "tests/data of the checkout)")
@@ -250,6 +309,8 @@ def main(argv=None) -> int:
     curate_ms = (time.perf_counter() - t0) * 1e3
 
     enml = checkerboard_split(sync, device)
+    replicas = (replica_split(sync, repaired, args.replicas)
+                if args.replicas > 0 else None)
 
     result = {
         **device_facts(torch, device),
@@ -282,6 +343,7 @@ def main(argv=None) -> int:
         "ltvm_curate": {"wall_ms": curate_ms, **curate_split,
                         "vectors": len(vectors)},
         "enml_checkerboard": enml,
+        "replica_batch": replicas,
     }
     print(json.dumps(result))
     return 0

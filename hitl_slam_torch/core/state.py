@@ -37,6 +37,25 @@ class CorrectionType(enum.IntEnum):
     PARALLEL = 6       # CTRL + SHIFT
 
 
+CORRECTION_TYPE_NAMES = {
+    CorrectionType.UNKNOWN: "Unknown",
+    CorrectionType.POINT: "Point",
+    CorrectionType.LINE_SEGMENT: "LineSegment",
+    CorrectionType.CORNER: "Corner",
+    CorrectionType.COLINEAR: "Colinear",
+    CorrectionType.PERPENDICULAR: "Perpendicular",
+    CorrectionType.PARALLEL: "Parallel",
+}
+
+# residuals a constraint of each type adds to the joint solve
+RESIDUALS_PER_TYPE = {
+    CorrectionType.LINE_SEGMENT: 3,
+    CorrectionType.COLINEAR: 2,
+    CorrectionType.PERPENDICULAR: 1,
+    CorrectionType.PARALLEL: 1,
+}
+
+
 @dataclass(frozen=True)
 class ConstraintTable:
     """Struct-of-arrays HumanConstraint store with static capacity; `active`

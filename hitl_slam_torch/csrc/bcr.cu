@@ -50,6 +50,14 @@
 //     cluster of 16 then solves the 16384 lanes left (every 2^top-th lane)
 //     as above, and one launch a top level back-substitutes its odd lanes.
 // Up to 16384 poses no device memory holds intermediate state.
+//
+// Batched route (hitl_bcr_solve_batched): B systems of the same n, stacked
+// in D, U, b, x (and the state), solved by the same launches with gridDim.y
+// = B. Block (i, r) offsets every pointer by system r's strides (9n, 9(n-1),
+// 3n, 3n, and m * kPlanes in the state) and then runs the arithmetic of
+// block i of a lone solve, so each system's x is bit-equal to a lone launch
+// on it. A cluster spans gridDim.x only: it never holds two systems. The
+// lone entry hitl_bcr_solve is the batched one at B = 1.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -321,12 +329,20 @@ __device__ __forceinline__ void back_substitute(const Ln& ln, int o, int h,
   st<3>(ln, p, kB, so, t3);
 }
 
+// p advanced to system blockIdx.y of a batch whose systems are `stride`
+// floats apart.
+template <class T>
+__device__ __forceinline__ T* of_system(T* p, size_t stride) {
+  return p == nullptr ? p : p + blockIdx.y * stride;
+}
+
 // The solve of m lanes in shared memory: one block (kCluster = false) or
 // one block of a cluster of m / lanes blocks; block `rank` owns lanes
 // [rank * lanes, (rank + 1) * lanes). Its lane g is lane g << top of the
 // padded system: with top = 0 it reads D, U, b; with top > 0 the top levels
 // have already run in `state` (device memory), which it reads the lanes
 // from and writes their x back to, for the top levels' back-substitution.
+// blockIdx.y picks the system of a batch.
 template <bool kCluster>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 bcr_kernel(const float* __restrict__ Din, const float* __restrict__ Uin,
@@ -334,6 +350,11 @@ bcr_kernel(const float* __restrict__ Din, const float* __restrict__ Uin,
            float* __restrict__ state, int n, int m, int log2_lanes,
            int top) {
   extern __shared__ float sm[];
+  Din = of_system(Din, 9 * static_cast<size_t>(n));
+  Uin = of_system(Uin, 9 * static_cast<size_t>(n - 1));
+  bin = of_system(bin, 3 * static_cast<size_t>(n));
+  xout = of_system(xout, 3 * static_cast<size_t>(n));
+  state = of_system(state, (static_cast<size_t>(m) << top) * kPlanes);
   const int lanes = 1 << log2_lanes;
   int rank = 0;
   if constexpr (kCluster) rank = static_cast<int>(cg::this_cluster().block_rank());
@@ -408,11 +429,16 @@ enum LevelStep { kGather, kEliminate, kAbsorb, kBack };
 // One step of a top level of an m-lane system in device memory, one thread
 // a lane: gather (every lane, from D, U, b), eliminate the odd lanes of
 // level k, absorb them into the even lanes, or back-substitute the odd
-// lanes (and write their x).
+// lanes (and write their x). blockIdx.y picks the system of a batch.
 __global__ void __launch_bounds__(kLevelThreads)
 bcr_level(const float* __restrict__ Din, const float* __restrict__ Uin,
           const float* __restrict__ bin, float* __restrict__ xout,
           float* __restrict__ state, int n, int m, int k, int step) {
+  Din = of_system(Din, 9 * static_cast<size_t>(n));
+  Uin = of_system(Uin, 9 * static_cast<size_t>(n - 1));
+  bin = of_system(bin, 3 * static_cast<size_t>(n));
+  xout = of_system(xout, 3 * static_cast<size_t>(n));
+  state = of_system(state, static_cast<size_t>(m) * kPlanes);
   const DeviceLanes ln{state};
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int h = 1 << (k - 1);
@@ -437,7 +463,7 @@ bcr_level(const float* __restrict__ Din, const float* __restrict__ Uin,
 struct Args {
   const float *D, *U, *b;
   float *x, *state;
-  int n, m, log2_lanes, top, threads, smem;
+  int batch, n, m, log2_lanes, top, threads, smem;
   cudaStream_t stream;
 };
 
@@ -462,13 +488,13 @@ cudaError_t launch_shared(const Args& a) {
   }
   const int tail = a.m >> a.top;
   if constexpr (!kCluster) {
-    kernel<<<1, a.threads, a.smem, a.stream>>>(a.D, a.U, a.b, a.x, a.state,
-                                               a.n, tail, a.log2_lanes, a.top);
+    kernel<<<dim3(1, a.batch, 1), a.threads, a.smem, a.stream>>>(
+        a.D, a.U, a.b, a.x, a.state, a.n, tail, a.log2_lanes, a.top);
     return cudaGetLastError();
   } else {
     const int blocks = tail >> a.log2_lanes;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(blocks, 1, 1);
+    cfg.gridDim = dim3(blocks, a.batch, 1);
     cfg.blockDim = dim3(a.threads, 1, 1);
     cfg.dynamicSmemBytes = a.smem;
     cfg.stream = a.stream;
@@ -489,8 +515,8 @@ cudaError_t launch_shared(const Args& a) {
 cudaError_t launch_level(const Args& a, int k, int step) {
   const int count = step == kGather ? a.m : a.m >> k;
   const int blocks = (count + kLevelThreads - 1) / kLevelThreads;
-  bcr_level<<<blocks, kLevelThreads, 0, a.stream>>>(a.D, a.U, a.b, a.x,
-                                                    a.state, a.n, a.m, k, step);
+  bcr_level<<<dim3(blocks, a.batch, 1), kLevelThreads, 0, a.stream>>>(
+      a.D, a.U, a.b, a.x, a.state, a.n, a.m, k, step);
   return cudaGetLastError();
 }
 
@@ -511,29 +537,42 @@ cudaError_t solve(const Args& a) {
 
 }  // namespace
 
-// Solve with the launch plan the wrapper computed (solver/bcr_kernel.py::
-// launch_plan): m = next_pow2(n) lanes, of which the top `top` levels run
-// in `state` (kPlanes floats a lane of device memory; null when top = 0);
-// the m >> top lanes left are solved in shared memory, 2^log2_lanes of them
-// per block, in (m >> top) / 2^log2_lanes blocks (a cluster when more than
-// one), `threads` threads and `smem` bytes of dynamic shared memory per
-// block. Returns a CUDA error code; a plan outside the routes is refused
-// with cudaErrorInvalidValue.
-extern "C" int hitl_bcr_solve(const void* D, const void* U, const void* b,
-                              void* x, void* state, int n, int m,
-                              int log2_lanes, int top, int threads, int smem,
-                              void* stream) {
+// Solve B systems of n poses, stacked in D [B, n, 3, 3], U [B, n-1, 3, 3],
+// b [B, n, 3] -> x [B, n, 3], with the launch plan the wrapper computed
+// (solver/bcr_kernel.py::launch_plan): m = next_pow2(n) lanes a system, of
+// which the top `top` levels run in `state` (kPlanes floats a lane of
+// device memory, B * m lanes; null when top = 0); the m >> top lanes left
+// are solved in shared memory, 2^log2_lanes of them per block, in
+// (m >> top) / 2^log2_lanes blocks a system (a cluster when more than one),
+// `threads` threads and `smem` bytes of dynamic shared memory per block.
+// Returns a CUDA error code; a plan outside the routes, or B outside
+// [1, 65535] (gridDim.y), is refused with cudaErrorInvalidValue.
+extern "C" int hitl_bcr_solve_batched(const void* D, const void* U,
+                                      const void* b, void* x, void* state,
+                                      int batch, int n, int m,
+                                      int log2_lanes, int top, int threads,
+                                      int smem, void* stream) {
   const int lanes = log2_lanes >= 0 && log2_lanes < 31 ? 1 << log2_lanes : 0;
   const int tail = top >= 0 && top < 31 ? m >> top : 0;
-  if (n < 1 || m < n || m > kMaxLanes || (m & (m - 1)) != 0 || tail < 1 ||
-      lanes < 1 || lanes > kMaxLanesPerBlock || tail % lanes != 0 ||
+  if (batch < 1 || batch > 65535 || n < 1 || m < n || m > kMaxLanes ||
+      (m & (m - 1)) != 0 || tail < 1 || lanes < 1 ||
+      lanes > kMaxLanesPerBlock || tail % lanes != 0 ||
       tail / lanes > kMaxCluster ||
       (top > 0 && (tail != kMaxSharedLanes || state == nullptr)) ||
       threads < 1 || threads > kMaxThreads || smem != kPlanes * kStride * 4)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(D), static_cast<const float*>(U),
                static_cast<const float*>(b), static_cast<float*>(x),
-               static_cast<float*>(state), n, m, log2_lanes, top, threads,
-               smem, static_cast<cudaStream_t>(stream)};
+               static_cast<float*>(state), batch, n, m, log2_lanes, top,
+               threads, smem, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(solve(a));
+}
+
+// One system: the batched entry at B = 1.
+extern "C" int hitl_bcr_solve(const void* D, const void* U, const void* b,
+                              void* x, void* state, int n, int m,
+                              int log2_lanes, int top, int threads, int smem,
+                              void* stream) {
+  return hitl_bcr_solve_batched(D, U, b, x, state, 1, n, m, log2_lanes, top,
+                                threads, smem, stream);
 }

@@ -1,8 +1,6 @@
 """LZ4 Frame codec for rosbag chunks (roslz4 wire format).
 
-Port of hitl_slam_tpu/io/lz4frame.py (host only). The reference computes
-xxHash32 with its native C kernel where built; the port has no native
-package yet and always uses the pure-Python `_xxh32_py`.
+Port of hitl_slam_tpu/io/lz4frame.py (host only).
 
 The reference stack records bags with rosbag, whose third chunk compression
 (besides none/bz2) is roslz4 (ros_comm/utilities/roslz4) — the public LZ4
@@ -14,8 +12,8 @@ compression=lz4 (io/rosbag.py::_chunk_payload).
 Block (de)compression calls the system liblz4.so.1 via ctypes
 (LZ4_compress_default / LZ4_decompress_safe[_usingDict]); the frame layer
 is Python (one iteration per 64 KB block — cold path). xxHash32 checksums
-use the pure-Python `_xxh32_py` here (the reference's native C kernel,
-native/bag_scanner.cpp::bag_xxh32, is still to be ported).
+use the native C kernel (native/bag_scanner.cpp::bag_xxh32) with a
+pure-Python fallback (`_xxh32_py`, also the test cross-check).
 
 `decompress` accepts the GENERAL format, not just what roslz4 emits:
 optional content-size field, per-block checksums, stored (uncompressed)
@@ -115,9 +113,10 @@ def _xxh32_py(data: bytes, seed: int = 0) -> int:
 
 
 def xxh32(data: bytes, seed: int = 0) -> int:
-    # the reference tries its native kernel first (reference `native/`,
-    # still to come in the port)
-    return _xxh32_py(data, seed)
+    from .. import native
+
+    v = native.xxh32(data, seed)
+    return _xxh32_py(data, seed) if v is None else v
 
 
 # ---------------------------------------------------------------------------

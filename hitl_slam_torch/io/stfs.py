@@ -1,8 +1,8 @@
 """Reader for the `.stfs.covars` pose-graph text format, and the writers
 of the results, `.stfs`, odometry and test-set files. Host numpy only.
 
-Port of hitl_slam_tpu/io/stfs.py (the numpy parser and the .stfs.covars
-writer; the optional native parser is not carried over). Format: a map-name
+Port of hitl_slam_tpu/io/stfs.py (the numpy parser, the native parser of
+native/ where it builds, and the .stfs.covars writer). Format: a map-name
 line, a timestamp line, then one CSV row per lidar point with 16 fields:
 
   pose_x, pose_y, pose_theta, obs_x, obs_y, normal_x, normal_y, cov(9 row-major)
@@ -52,7 +52,16 @@ def parse_rows(header_and_rows: str) -> tuple[str, float, np.ndarray]:
     return map_name, timestamp, rows
 
 
-def load_stfs_covars(path: str) -> PoseGraphData:
+def load_stfs_covars(path: str, use_native: bool = True) -> PoseGraphData:
+    """Read a .stfs.covars file (gzip-compressed when its name ends in .gz),
+    with the native parser where it builds (not for .gz), else the numpy
+    one; both give the same rows in f64."""
+    if use_native and not path.endswith(".gz"):
+        from .. import native
+
+        parsed = native.parse_stfs_file(path)
+        if parsed is not None:
+            return _group_rows(*parsed)
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rt") as f:
         text = f.read()

@@ -20,14 +20,14 @@ import torch
 
 from ...core.state import ConstraintTable, CorrectionType
 from ...ops.em_scan import em_scan
-from ...ops.geometry import angle_mod, pose_to_world
+from ...ops.geometry import pose_to_world
 from ...solver.joint import build_problem
 from ...solver.lm import LMConfig, solve as lm_solve
 from . import em_input
 from .backprop import backprop
 from .explicit import apply_explicit, constraint_deltas
 from .ordering import MIN_POSE_INLIERS, order_on_device
-from .repair import _scatter_constraints
+from .repair import _scatter_constraints, _wrap_theta
 
 Tensor = torch.Tensor
 
@@ -48,10 +48,6 @@ class CycleOutput:
     pre_solve_poses: Tensor
 
 
-def _wrap_theta(poses: Tensor) -> Tensor:
-    return torch.cat([poses[:, :2], angle_mod(poses[:, 2:3])], dim=1)
-
-
 def cycle_step(
     points: Tensor,        # [P,N,2] robot frame
     point_mask: Tensor,    # [P,N]
@@ -62,8 +58,8 @@ def cycle_step(
     sel_raw: Tensor,       # [4,2] clicked points, world frame
     write_offset,          # int or scalar int tensor
     lm_config: LMConfig = LMConfig(),
-    mu0: Tensor | None = None,             # warm-start damping
     odom_inv_sigma: Tensor | None = None,  # [P-1,3] loop-closure weighting
+    mu0: Tensor | None = None,             # warm-start damping
 ) -> CycleOutput:
     ctype = int(ctype)
     world = pose_to_world(poses[:, None, :], points)
@@ -152,8 +148,8 @@ def queue_chain(
     sels: Tensor,          # [K,4,2] per-cycle clicked points (world frame)
     n0,                    # int or scalar int tensor: table write cursor
     lm_config: LMConfig = LMConfig(),
-    warm_start_mu: bool = False,
     odom_inv_sigma: Tensor | None = None,
+    warm_start_mu: bool = False,
 ):
     """K correction cycles in sequence, carried on the device.
 

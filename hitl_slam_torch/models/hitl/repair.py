@@ -1,20 +1,40 @@
-"""Writing a correction's new constraint rows into the fixed-capacity table.
+"""The repair step after EM: explicit correction -> new constraint rows ->
+covariance backprop -> angle wrap -> joint LM solve.
 
-Port of hitl_slam_tpu/models/hitl/repair.py::_scatter_constraints: valid
-(anchor, corrected) pairs land in consecutive slots from `write_offset`
-(slot = offset + cumsum(valid) - 1); invalid pairs, and valid ones past the
-capacity, all go to the dump slot cap-1, which is then deactivated. Several
-rows writing the dump slot leave its payload order-dependent; only its
-`active` bit is defined.
+Port of hitl_slam_tpu/models/hitl/repair.py (`RepairOutput`, `repair_step`,
+`_scatter_constraints`). New constraint rows: valid (anchor, corrected)
+pairs land in consecutive slots from `write_offset` (slot = offset +
+cumsum(valid) - 1); invalid pairs, and valid ones past the capacity, all go
+to the dump slot cap-1, which is then deactivated. Several rows writing the
+dump slot leave its payload order-dependent; only its `active` bit is
+defined.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from ...core.state import ConstraintTable
+from ...ops.geometry import angle_mod
+from ...solver.joint import build_problem
+from ...solver.lm import LMConfig, LMResult, solve as lm_solve
+from .backprop import backprop
+from .explicit import apply_explicit, constraint_deltas
 
 Tensor = torch.Tensor
+
+
+@dataclass(frozen=True)
+class RepairOutput:
+    poses: Tensor
+    covariances: Tensor
+    constraints: ConstraintTable
+    num_new_constraints: Tensor  # scalar int32
+    lm: LMResult
+    correction: Tensor           # [3] explicit-stage correction fed to backprop
+    pre_solve_poses: Tensor      # [P,3] post-backprop, pre-LM poses
 
 
 def _scatter_constraints(
@@ -58,3 +78,51 @@ def _scatter_constraints(
         active=active,
     )
     return new, torch.sum(v).to(torch.int32)
+
+
+def _wrap_theta(poses: Tensor) -> Tensor:
+    return torch.cat([poses[:, :2], angle_mod(poses[:, 2:3])], dim=1)
+
+
+def repair_step(
+    poses: Tensor,
+    covariances: Tensor,
+    constraints: ConstraintTable,
+    ctype: int,            # CorrectionType value
+    sel: Tensor,           # [4,2] refit + reordered selected points
+    group_mask: Tensor,    # [P] bool, first contiguous corrected group
+    last_pose,             # int or scalar int tensor
+    anchor_idx: Tensor,    # [MA] int (pad -1)
+    corr_idx: Tensor,      # [MC] int (pad -1)
+    bp_min,                # int or scalar int tensor
+    bp_max,                # int or scalar int tensor
+    write_offset,          # int or scalar int tensor: next free table slot
+    lm_config: LMConfig = LMConfig(),
+) -> RepairOutput:
+    """One correction after EM and ordering, on the device: the explicit
+    rigid correction (with the tail carry), the constraint targets from the
+    corrected poses and their rows in the table, the covariance-weighted
+    backprop over the open window, the angle wrap, and the joint LM solve
+    (whose poses are wrapped again on the way out)."""
+    ctype = int(ctype)
+    last_pose, bp_min, bp_max = (
+        torch.as_tensor(v, dtype=torch.int32, device=poses.device)
+        for v in (last_pose, bp_min, bp_max))
+    poses1, C = apply_explicit(poses, ctype, sel, group_mask, last_pose)
+    dpar, dperp, dth, pen, valid = constraint_deltas(
+        poses1, sel, anchor_idx, corr_idx)
+    table, n_new = _scatter_constraints(
+        constraints, ctype, anchor_idx, corr_idx,
+        dpar, dperp, dth, pen, valid, write_offset)
+    poses2, cov2 = backprop(poses1, covariances, C, bp_min, bp_max)
+    poses2 = _wrap_theta(poses2)
+    lm = lm_solve(build_problem(poses2, table), poses2, lm_config)
+    return RepairOutput(
+        poses=_wrap_theta(lm.poses),
+        covariances=cov2,
+        constraints=table,
+        num_new_constraints=n_new,
+        lm=lm,
+        correction=C,
+        pre_solve_poses=poses2,
+    )

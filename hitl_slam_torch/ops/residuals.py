@@ -1,7 +1,8 @@
 """Factor residuals + analytic Jacobians for the joint pose-graph solve.
 
-Port of hitl_slam_tpu/ops/residuals.py (odometry factors, human factors and
-the CompactHuman per-pose reduction):
+Port of hitl_slam_tpu/ops/residuals.py (odometry factors, human factors,
+the relative-pose parameterization and the CompactHuman per-pose
+reduction):
 
   - odometry factor constants (axis transform, radial translation, relative
     rotation) are computed from the CURRENT poses when the problem is
@@ -197,6 +198,78 @@ def human_residuals(f: HumanFactors, poses: Tensor) -> Tensor:
 def human_jacobians(f: HumanFactors) -> Tensor:
     """[C, 3, 3] Jacobian wrt the constrained pose: J = -M (constant)."""
     return -f.M
+
+
+@dataclass(frozen=True)
+class RelativePoseFactors:
+    """Chained relative-pose factors (the reference's dormant relative-pose
+    parameterization): a BASE pose plus per-step relative (dx, dy, dtheta)
+    triples, absolute poses their running sums (additive, not on SE(2), as
+    in the reference). Each factor constrains the pair (pose0, pose1) of the
+    summed chain with the odometry factor's radial/tangential/angular error,
+    except that the angular residual is the raw difference (no wrap)."""
+
+    pose0: Tensor      # [K] int pose ids
+    pose1: Tensor      # [K]
+    axis: Tensor       # [K, 2, 2] principal-axis transform rows
+    radial: Tensor     # [K] radial translation target
+    rotation: Tensor   # [K] rotation target
+    inv_sigma: Tensor  # [K, 3]
+
+
+def chain_poses(base_pose: Tensor, rels: Tensor) -> Tensor:
+    """[3], [P-1, 3] -> [P, 3] absolute poses by prefix sum."""
+    return torch.cumsum(torch.cat([base_pose[None], rels], dim=0), dim=0)
+
+
+def perp_rows(v: Tensor) -> Tensor:
+    return torch.stack([-v[..., 1], v[..., 0]], -1)
+
+
+def build_relative_pose_factors(
+    poses: Tensor, pose0: Tensor, pose1: Tensor,
+    radial_std: float = ODOM_RADIAL_STD,
+    tangential_std: float = ODOM_TANGENTIAL_STD,
+    angular_std: float = ODOM_ANGULAR_STD,
+) -> RelativePoseFactors:
+    """Factor constants from the current absolute poses for arbitrary
+    (pose0, pose1) pairs: the chained-relative analogue of
+    build_odometry_factors."""
+    p0, p1 = poses[pose0.long()], poses[pose1.long()]
+    trans = p1[:, :2] - p0[:, :2]
+    norm = norm2(trans)
+    degenerate = norm < _EPS
+    local = rotate(-p0[:, 2], trans)
+    radial_dir = torch.where(
+        degenerate[:, None],
+        torch.stack([torch.cos(p1[:, 2]), torch.sin(p1[:, 2])], -1),
+        local / torch.clamp(norm, min=_EPS)[:, None])
+    axis = torch.stack([radial_dir, perp_rows(radial_dir)], dim=-2)
+    inv_sigma = torch.tensor(
+        [1.0 / radial_std, 1.0 / tangential_std, 1.0 / angular_std],
+        dtype=poses.dtype, device=poses.device).expand(len(p0), 3)
+    return RelativePoseFactors(
+        pose0=pose0, pose1=pose1, axis=axis,
+        radial=torch.where(degenerate, torch.zeros_like(norm), norm),
+        rotation=p1[:, 2] - p0[:, 2],
+        inv_sigma=inv_sigma,
+    )
+
+
+def relative_pose_residuals(f: RelativePoseFactors, base_pose: Tensor,
+                            rels: Tensor) -> Tensor:
+    """[K, 3] residuals over the relative-pose parameterization. They depend
+    on every rel up to each factor's poses (through the prefix sum); the
+    chain Jacobian is autograd's (`torch.func.jacrev`)."""
+    poses = chain_poses(base_pose, rels)
+    p0, p1 = poses[f.pose0.long()], poses[f.pose1.long()]
+    t = rotate(-p0[:, 2], p1[:, :2] - p0[:, :2])
+    u = torch.einsum("kij,kj->ki", f.axis, t)
+    r0 = (u[:, 0] - f.radial) * f.inv_sigma[:, 0]
+    r1 = u[:, 1] * f.inv_sigma[:, 1]
+    # raw (unwrapped) angular difference, as in the reference
+    r2 = (p1[:, 2] - p0[:, 2] - f.rotation) * f.inv_sigma[:, 2]
+    return torch.stack([r0, r1, r2], dim=-1)
 
 
 @dataclass(frozen=True)

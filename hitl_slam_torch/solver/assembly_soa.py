@@ -17,6 +17,11 @@ the factor blocks reduce to
 
 Human factors enter through the CompactHuman per-pose reduction, converted
 to SoA once per solve by `soa_constants`.
+
+Both functions take an optional leading replica dimension (a problem whose
+tensors are stacked [B, ...], poses [B, P, 3]): the pose axis is the last
+one of every lane vector, and each replica goes through the operations it
+would alone (the batched LM of solver/lm.py).
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ Tensor = torch.Tensor
 
 @dataclass(frozen=True)
 class SoaConstants:
-    """Per-solve constants in flat [P]/[F] layout."""
+    """Per-solve constants in flat [..., P]/[..., F] layout."""
 
     ax: Tensor   # [F] radial direction x
     ay: Tensor   # [F] radial direction y
@@ -59,11 +64,11 @@ def soa_constants(problem: JointProblem) -> SoaConstants:
     solve)."""
     od = problem.odom
     ch = problem.compact
-    A = ch.A.reshape(-1, 9).T.contiguous()  # [9, P]
-    c = ch.c.T.contiguous()                 # [3, P]
-    q0 = ch.q0.T.contiguous()
+    A = ch.A.flatten(-2).movedim(-1, 0).contiguous()   # [9, ..., P]
+    c = ch.c.movedim(-1, 0).contiguous()                # [3, ..., P]
+    q0 = ch.q0.movedim(-1, 0).contiguous()
     return SoaConstants(
-        ax=od.axis[:, 0, 0].contiguous(), ay=od.axis[:, 0, 1].contiguous(),
+        ax=od.axis[..., 0, 0].contiguous(), ay=od.axis[..., 0, 1].contiguous(),
         d=od.radial, w=od.rotation,
         A00=A[0], A01=A[1], A02=A[2], A11=A[4], A12=A[5], A22=A[8],
         c0=c[0], c1=c[1], c2=c[2], q00=q0[0], q01=q0[1], q02=q0[2],
@@ -71,18 +76,38 @@ def soa_constants(problem: JointProblem) -> SoaConstants:
     )
 
 
+def _rows(t: Tensor) -> Tensor:
+    """t's values in rows one float apart, so that an elementwise op cannot
+    merge the rows into one run."""
+    buf = t.new_empty((*t.shape[:-1], t.shape[-1] + 1))[..., :-1]
+    return buf.copy_(t)
+
+
+def _angle_mod_rows(a: Tensor) -> Tensor:
+    """angle_mod over [..., F], each row rounded as a lone [F] vector is.
+    The CPU's vector loops run sin, cos and atan2 on a contiguous run in
+    vector code up to its tail and in scalar code after it, which round an
+    ulp apart; a [B, F] batch is one run of B * F lanes, so its rows would
+    meet the tail elsewhere than a lone [F] vector does. On the card every
+    lane runs the same code."""
+    if a.dim() == 1 or a.device.type != "cpu":
+        return angle_mod(a)
+    return torch.atan2(_rows(torch.sin(_rows(a))), _rows(torch.cos(_rows(a))))
+
+
 def normal_equations_soa(problem: JointProblem, sc: SoaConstants,
                          poses: Tensor) -> tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Returns (D [P,3,3], U [P-1,3,3], g [P,3], cost), gauge-fixed at
-    pose 0: its couplings are zeroed and D[0] = I, g[0] = 0."""
+    """Returns (D [...,P,3,3], U [...,P-1,3,3], g [...,P,3], cost [...]),
+    gauge-fixed at pose 0: its couplings are zeroed and D[0] = I, g[0] = 0."""
     dtype, dev = poses.dtype, poses.device
     P = problem.num_poses
+    lead = poses.shape[:-2]
     inv = problem.odom.inv_sigma
-    i0, i1, i2 = inv[:, 0], inv[:, 1], inv[:, 2]
-    pt = poses.T                       # [3, P]
+    i0, i1, i2 = inv[..., 0], inv[..., 1], inv[..., 2]
+    pt = poses.movedim(-1, 0)          # [3, ..., P]
     x, y, th = pt[0], pt[1], pt[2]
-    x0, y0, th0 = x[:-1], y[:-1], th[:-1]
-    x1, y1, th1 = x[1:], y[1:], th[1:]
+    x0, y0, th0 = x[..., :-1], y[..., :-1], th[..., :-1]
+    x1, y1, th1 = x[..., 1:], y[..., 1:], th[..., 1:]
 
     cth, sth = torch.cos(th0), torch.sin(th0)
     dtx, dty = x1 - x0, y1 - y0
@@ -94,7 +119,7 @@ def normal_equations_soa(problem: JointProblem, sc: SoaConstants,
     u1 = -sc.ay * vx + sc.ax * vy
     r0 = (u0 - sc.d) * i0
     r1 = u1 * i1
-    r2 = angle_mod(th1 - th0 - sc.w) * i2
+    r2 = _angle_mod_rows(th1 - th0 - sc.w) * i2
 
     # Jacobian scalars
     p = sc.ax * cth - sc.ay * sth
@@ -123,15 +148,15 @@ def normal_equations_soa(problem: JointProblem, sc: SoaConstants,
     gh0, gh1, gh2 = -(sc.c0 + Ae0), -(sc.c1 + Ae1), -(sc.c2 + Ae2)
     cost_h = 0.5 * (sc.k + torch.sum(e0 * (2.0 * sc.c0 + Ae0)
                                      + e1 * (2.0 * sc.c1 + Ae1)
-                                     + e2 * (2.0 * sc.c2 + Ae2)))
+                                     + e2 * (2.0 * sc.c2 + Ae2), dim=-1))
 
-    z1 = torch.zeros((1,), dtype=dtype, device=dev)
+    z1 = torch.zeros((*lead, 1), dtype=dtype, device=dev)
 
     def padl(a):   # contribution of factor f to pose f+1 (J2 side)
-        return torch.cat([z1, a])
+        return torch.cat([z1, a], -1)
 
     def padr(a):   # contribution of factor f to pose f (J1 side)
-        return torch.cat([a, z1])
+        return torch.cat([a, z1], -1)
 
     D00 = sc.A00 + padr(S00) + padl(S00)
     D01 = sc.A01 + padr(S01) + padl(S01)
@@ -145,31 +170,32 @@ def normal_equations_soa(problem: JointProblem, sc: SoaConstants,
     g2 = gh2 + padr(g2a) + padl(g2b)
 
     # gauge fix pose 0
-    gate = torch.cat([z1, torch.ones((P - 1,), dtype=dtype, device=dev)])
+    z0 = torch.zeros((1,), dtype=dtype, device=dev)
+    gate = torch.cat([z0, torch.ones((P - 1,), dtype=dtype, device=dev)])
     D00 = D00 * gate + (1.0 - gate)
     D11 = D11 * gate + (1.0 - gate)
     D22 = D22 * gate + (1.0 - gate)
     D01, D02, D12 = D01 * gate, D02 * gate, D12 * gate
     g0, g1, g2 = g0 * gate, g1 * gate, g2 * gate
     if P > 2:
-        uz = torch.cat([z1, torch.ones((P - 2,), dtype=dtype, device=dev)])
+        uz = torch.cat([z0, torch.ones((P - 2,), dtype=dtype, device=dev)])
     else:
         uz = torch.zeros((P - 1,), dtype=dtype, device=dev)
 
-    zF = torch.zeros((P - 1,), dtype=dtype, device=dev)
+    zF = torch.zeros((*lead, P - 1), dtype=dtype, device=dev)
 
-    # [3,3,P] stack -> [P,3,3]
+    # [3,3,...,P] stack -> [...,P,3,3]
     D = torch.stack([
         torch.stack([D00, D01, D02]),
         torch.stack([D01, D11, D12]),
         torch.stack([D02, D12, D22]),
-    ]).permute(2, 0, 1).contiguous()
+    ]).movedim((0, 1), (-2, -1)).contiguous()
     U = (torch.stack([
         torch.stack([-S00, -S01, zF]),
         torch.stack([-S01, -S11, zF]),
         torch.stack([t0, t1, -i2sq]),
-    ]) * uz).permute(2, 0, 1).contiguous()
-    g = torch.stack([g0, g1, g2]).T.contiguous()
+    ]) * uz).movedim((0, 1), (-2, -1)).contiguous()
+    g = torch.stack([g0, g1, g2]).movedim(0, -1).contiguous()
 
-    cost = 0.5 * torch.sum(r0 * r0 + r1 * r1 + r2 * r2) + cost_h
+    cost = 0.5 * torch.sum(r0 * r0 + r1 * r1 + r2 * r2, dim=-1) + cost_h
     return D, U, g, cost

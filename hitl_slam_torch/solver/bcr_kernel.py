@@ -12,6 +12,12 @@ of 51 floats in shared memory: up to 1024 lanes in one block, m = 2048 ..
 16384 lanes the top log2(m / 16384) levels run first over device memory (a
 few many-block launches), then the cluster of 16 solves the rest. Above
 2^25 lanes there is no route, and the wrapper raises.
+
+`bcr_solve_cuda_batched` solves B stacked systems of the same n with the
+same route and the same number of launches, the batch in the grid's second
+dimension: each system's x is bit-equal to a lone launch on it. Its plain
+version is tridiag.bcr_solve with a leading batch dimension. One batched
+call counts one launch on `batched_launches`.
 """
 
 from __future__ import annotations
@@ -39,6 +45,9 @@ LANE_FLOATS = 51
 PLANE_STRIDE = MAX_LANES_PER_BLOCK + MAX_LANES_PER_BLOCK // 32
 
 launches = cuda_build.LaunchCounter("bcr_solve")
+batched_launches = cuda_build.LaunchCounter("bcr_solve_batched")
+# gridDim.y of the batched launches
+MAX_BATCH = 65535
 
 
 @dataclass(frozen=True)
@@ -59,7 +68,8 @@ class LaunchPlan:
 
     @property
     def state_floats(self) -> int:
-        """Device memory the top levels work in (0 without top levels)."""
+        """Device memory the top levels of one system work in (0 without
+        top levels)."""
         return self.m * LANE_FLOATS if self.top else 0
 
     def lanes(self, block: int) -> range:
@@ -88,32 +98,51 @@ def launch_plan(n: int) -> LaunchPlan:
                       LANE_FLOATS * PLANE_STRIDE * 4)
 
 
-def launch(D: Tensor, U: Tensor, b: Tensor, plan: LaunchPlan) -> Tensor:
-    """One solve with `plan` on validated CUDA tensors."""
-    x = torch.empty((plan.n, 3), dtype=torch.float32, device=D.device)
-    state = (torch.empty((plan.state_floats,), dtype=torch.float32,
-                         device=D.device) if plan.top else None)
-    code = cuda_build.library().hitl_bcr_solve(
-        D.data_ptr(), U.data_ptr(), b.data_ptr(), x.data_ptr(),
-        None if state is None else state.data_ptr(), plan.n, plan.m,
-        plan.lanes_per_block.bit_length() - 1, plan.top, plan.threads,
-        plan.smem_bytes, torch.cuda.current_stream(D.device).cuda_stream)
-    cuda_build.check(code, "bcr_solve")
-    launches.count += 1
+def launch(D: Tensor, U: Tensor, b: Tensor, plan: LaunchPlan,
+           batch: int | None = None) -> Tensor:
+    """One solve with `plan` on validated CUDA tensors: of one system, or
+    with `batch` of that many stacked systems (the batched entry)."""
+    lead = () if batch is None else (batch,)
+    x = torch.empty((*lead, plan.n, 3), dtype=torch.float32, device=D.device)
+    state = (torch.empty(((batch or 1) * plan.state_floats,),
+                         dtype=torch.float32, device=D.device)
+             if plan.top else None)
+    args = (plan.n, plan.m, plan.lanes_per_block.bit_length() - 1, plan.top,
+            plan.threads, plan.smem_bytes,
+            torch.cuda.current_stream(D.device).cuda_stream)
+    ptrs = (D.data_ptr(), U.data_ptr(), b.data_ptr(), x.data_ptr(),
+            None if state is None else state.data_ptr())
+    lib = cuda_build.library()
+    if batch is None:
+        code = lib.hitl_bcr_solve(*ptrs, *args)
+        cuda_build.check(code, "bcr_solve")
+        launches.count += 1
+    else:
+        code = lib.hitl_bcr_solve_batched(*ptrs, batch, *args)
+        cuda_build.check(code, "bcr_solve_batched")
+        batched_launches.count += 1
     return x
 
 
-def check_inputs(D: Tensor, U: Tensor, b: Tensor) -> int:
-    """Validate the kernel's inputs; return n."""
-    n = D.shape[0]
+def check_inputs(D: Tensor, U: Tensor, b: Tensor,
+                 batched: bool = False) -> tuple[int, ...]:
+    """Validate the kernel's inputs; return n, or (B, n) when `batched`."""
+    what = "bcr_solve_batched" if batched else "bcr_solve"
     dev = D.device
     if dev.type != "cuda":
-        raise ValueError(f"bcr_solve_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"{what}_cuda needs CUDA tensors, got {dev}")
+    if D.dim() != (4 if batched else 3):
+        raise ValueError(f"{what}: D must be {'[B, ' if batched else '['}"
+                         f"n, 3, 3], got {tuple(D.shape)}")
+    lead = tuple(D.shape[:-3])
+    n = D.shape[-3]
+    if batched and not 1 <= lead[0] <= MAX_BATCH:
+        raise ValueError(f"{what}: B = {lead[0]} outside [1, {MAX_BATCH}]")
     f32 = torch.float32
-    cuda_build.require("bcr_solve", "D", D, (n, 3, 3), f32, dev)
-    cuda_build.require("bcr_solve", "U", U, (max(n - 1, 0), 3, 3), f32, dev)
-    cuda_build.require("bcr_solve", "b", b, (n, 3), f32, dev)
-    return n
+    cuda_build.require(what, "D", D, (*lead, n, 3, 3), f32, dev)
+    cuda_build.require(what, "U", U, (*lead, max(n - 1, 0), 3, 3), f32, dev)
+    cuda_build.require(what, "b", b, (*lead, n, 3), f32, dev)
+    return (*lead, n) if batched else n
 
 
 def bcr_solve_cuda(D: Tensor, U: Tensor, b: Tensor) -> Tensor:
@@ -121,11 +150,22 @@ def bcr_solve_cuda(D: Tensor, U: Tensor, b: Tensor) -> Tensor:
     return launch(D, U, b, launch_plan(check_inputs(D, U, b)))
 
 
+def bcr_solve_cuda_batched(D: Tensor, U: Tensor, b: Tensor) -> Tensor:
+    """Launch the kernel once for B stacked systems: D [B,n,3,3],
+    U [B,n-1,3,3], b [B,n,3] f32 CUDA -> x [B,n,3]."""
+    batch, n = check_inputs(D, U, b, batched=True)
+    return launch(D, U, b, launch_plan(n), batch)
+
+
 def bcr_solve(D: Tensor, U: Tensor, b: Tensor) -> Tensor:
-    """Same signature and semantics as tridiag.bcr_solve: the kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    """Same signature and semantics as tridiag.bcr_solve, one system or a
+    batch [B, n, ...]: the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
     if D.device.type == "cpu":
         return tridiag.bcr_solve(D, U, b)
     if D.device.type == "cuda":
-        return bcr_solve_cuda(D.contiguous(), U.contiguous(), b.contiguous())
+        D, U, b = D.contiguous(), U.contiguous(), b.contiguous()
+        if D.dim() == 4:
+            return bcr_solve_cuda_batched(D, U, b)
+        return bcr_solve_cuda(D, U, b)
     raise ValueError(f"bcr_solve: unsupported device {D.device}")

@@ -1,7 +1,9 @@
-"""Joint pose-graph problem: factor constants and cost. Port of
-build_problem and cost in hitl_slam_tpu/solver/joint.py; the normal
-equations LM uses are assembled in assembly_soa.py. Cost convention:
-0.5 * sum(r_i^2).
+"""Joint pose-graph problem: factor constants, cost and the normal
+equations. Port of hitl_slam_tpu/solver/joint.py. `normal_equations` is the
+block-array (AoS) assembly, `lm.solve(use_soa=False)`; LM's default is the
+lane-major assembly of assembly_soa.py. Cost convention: 0.5 * sum(r_i^2).
+The first pose is gauge-fixed: its couplings are zeroed and its diagonal
+block pinned to the identity.
 """
 
 from __future__ import annotations
@@ -31,9 +33,11 @@ class JointProblem:
 
 
 def build_problem(poses: Tensor, table: ConstraintTable,
+                  use_onehot: bool = True,
                   odom_inv_sigma: Tensor | None = None) -> JointProblem:
     """`odom_inv_sigma` [P-1, 3] replaces the fixed odometry noise by
-    per-factor inverse standard deviations."""
+    per-factor inverse standard deviations. `use_onehot=False` reduces the
+    human table to poses by index_add_ at every size."""
     P = poses.shape[0]
     human = res.build_human_factors(poses, table)
     C = human.pose_idx.shape[0]
@@ -41,7 +45,7 @@ def build_problem(poses: Tensor, table: ConstraintTable,
     # the dense selector makes the table -> pose reduction a matmul with a
     # fixed sum order (index_add_ on CUDA sums with atomics); past the
     # budget the selector's memory outweighs that
-    if P * C <= ONEHOT_BUDGET:
+    if use_onehot and P * C <= ONEHOT_BUDGET:
         onehot = (human.pose_idx.long()[:, None]
                   == torch.arange(P, device=poses.device)[None, :]
                   ).to(poses.dtype)
@@ -59,3 +63,28 @@ def cost(problem: JointProblem, poses: Tensor) -> Tensor:
     _, _, c_h = res.compact_human_terms(problem.compact, poses)
     return 0.5 * torch.sum(r_o * r_o) + c_h
 
+
+
+def normal_equations(problem: JointProblem, poses: Tensor
+                     ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """H (block-tridiagonal: D [P,3,3], U [P-1,3,3]), the gradient g = J^T r
+    [P,3] and the cost, from the factors' Jacobian blocks, gauge-fixed at
+    pose 0: its couplings are zeroed and D[0] = I, g[0] = 0."""
+    r_o = res.odometry_residuals(problem.odom, poses)        # [F,3]
+    J1, J2 = res.odometry_jacobians(problem.odom, poses)     # [F,3,3] each
+    J1T, J2T = J1.transpose(-1, -2), J2.transpose(-1, -2)
+    A_h, g_h, c_h = res.compact_human_terms(problem.compact, poses)
+    D = A_h.clone()
+    D[:-1] += J1T @ J1
+    D[1:] += J2T @ J2
+    U = J1T @ J2                                             # couples (i-1, i)
+    g = g_h.clone()
+    g[:-1] += (J1T @ r_o[..., None])[..., 0]
+    g[1:] += (J2T @ r_o[..., None])[..., 0]
+
+    # gauge fix pose 0
+    D[0] = torch.eye(3, dtype=poses.dtype, device=poses.device)
+    U[0] = 0.0
+    g[0] = 0.0
+    c = 0.5 * torch.sum(r_o * r_o) + c_h
+    return D, U, g, c

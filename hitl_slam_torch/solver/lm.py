@@ -13,9 +13,20 @@ Each iteration does one residual+Jacobian pass at the trial point. The
 on-device `lax.while_loop` of the reference becomes a Python loop that reads
 one flag (`done`) from the device per iteration.
 
+`solve_batched` is the LM of B independent problems stacked on a leading
+replica dimension, what the reference computes as a `vmap` of `solve`
+(parallel/replicas.py): every replica keeps its own damping, iteration count
+and exit, and a step updates the state of the replicas that are still
+active (not done, under the iteration cap) only. The whole batch stays in
+every step, so one batched linear solve runs a step; the loop reads one flag
+(any replica active) per step.
+
 Default linear solver: the CUDA block-cyclic-reduction kernel for CUDA
-tensors, its plain torch version for CPU tensors (solver/bcr_kernel.py),
-at every pose count.
+tensors (its batched route for `solve_batched`), its plain torch version for
+CPU tensors (solver/bcr_kernel.py), at every pose count.
+
+The reference's `solve_jit` is `jax.jit` of `solve`; the port has no
+compilation step to wrap, so it has no counterpart of that name.
 """
 
 from __future__ import annotations
@@ -26,19 +37,22 @@ from typing import Callable
 import torch
 
 from .assembly_soa import normal_equations_soa, soa_constants
-from .joint import JointProblem
+from .joint import JointProblem, normal_equations
 
 Tensor = torch.Tensor
 
 
-def _default_linear_solver(device) -> Callable[[Tensor, Tensor, Tensor], Tensor]:
+def _default_linear_solver(device, batched: bool = False
+                           ) -> Callable[[Tensor, Tensor, Tensor], Tensor]:
     """The block-tridiagonal solver LM uses on `device`: the CUDA kernel
-    on a CUDA device, the plain version on the CPU."""
+    (its batched route for stacked systems) on a CUDA device, the plain
+    version on the CPU."""
     from . import bcr_kernel, tridiag
 
     kind = torch.device(device).type
     if kind == "cuda":
-        return bcr_kernel.bcr_solve_cuda
+        return (bcr_kernel.bcr_solve_cuda_batched if batched
+                else bcr_kernel.bcr_solve_cuda)
     if kind == "cpu":
         return tridiag.bcr_solve
     raise ValueError(f"no block-tridiagonal solver for device {device}")
@@ -69,20 +83,31 @@ def _scalar(v: float, like: Tensor) -> Tensor:
     return torch.tensor(v, dtype=like.dtype, device=like.device)
 
 
+def _assembler(problem: JointProblem, use_soa: bool):
+    """x -> (D, U, g, cost): the lane-major assembly, or the block-array
+    one of joint.normal_equations."""
+    if not use_soa:
+        return lambda x: normal_equations(problem, x)
+    sc = soa_constants(problem)
+    return lambda x: normal_equations_soa(problem, sc, x)
+
+
 def solve(
     problem: JointProblem,
     poses0: Tensor,
     config: LMConfig = LMConfig(),
     linear_solver: Callable[[Tensor, Tensor, Tensor], Tensor] | None = None,
+    use_soa: bool = True,
     mu0: Tensor | None = None,
+    *,
+    accepts: list | None = None,
 ) -> LMResult:
-    """Run LM from poses0."""
+    """Run LM from poses0. `use_soa=False` assembles with
+    joint.normal_equations. A list passed as `accepts` receives each
+    iteration's accept flag (a bool tensor; no host read)."""
     if linear_solver is None:
         linear_solver = _default_linear_solver(poses0.device)
-    sc = soa_constants(problem)
-
-    def assemble(x):
-        return normal_equations_soa(problem, sc, x)
+    assemble = _assembler(problem, use_soa)
 
     D, U, g, c = assemble(poses0)
     c0 = c
@@ -110,6 +135,8 @@ def solve(
         rho = (c - c_new) / torch.clamp(pred, min=1e-30)
 
         accept = (rho > 0) & torch.isfinite(c_new)
+        if accepts is not None:
+            accepts.append(accept)
         x = torch.where(accept, x_new, x)
         D = torch.where(accept, D_new, D)
         U = torch.where(accept, U_new, U)
@@ -140,3 +167,86 @@ def solve(
         iterations=torch.tensor(it, dtype=torch.int32, device=poses0.device),
         converged=done, final_mu=mu,
     )
+
+
+def solve_batched(
+    problem_b: JointProblem,
+    poses0_b: Tensor,
+    config: LMConfig = LMConfig(),
+    linear_solver: Callable[[Tensor, Tensor, Tensor], Tensor] | None = None,
+    *,
+    accepts: list | None = None,
+) -> LMResult:
+    """LM of B problems at once: `problem_b` holds B problems stacked on a
+    leading dimension (every tensor [B, ...]), poses0_b is [B, P, 3]. Each
+    replica goes through `solve`'s iteration with its own mu, nu, count and
+    exit; a step changes only the replicas still active, as a `vmap` of the
+    reference's `lax.while_loop` does. Returns an LMResult of [B] (and
+    [B, P, 3]) tensors. A list passed as `accepts` receives each step's
+    [B] accept flags, False where a replica was not active, so replica r's
+    accept sequence is the first iterations[r] entries of its column."""
+    if linear_solver is None:
+        linear_solver = _default_linear_solver(poses0_b.device, batched=True)
+    assemble = _assembler(problem_b, True)
+    B = poses0_b.shape[0]
+    dev = poses0_b.device
+
+    def full(v: float) -> Tensor:
+        return torch.full((B,), v, dtype=poses0_b.dtype, device=dev)
+
+    def rows(m: Tensor, t: Tensor) -> Tensor:
+        return m.reshape(B, *([1] * (t.dim() - 1)))
+
+    D, U, g, c = assemble(poses0_b)
+    c0 = c
+    x = poses0_b
+    mu, nu = full(config.initial_mu), full(2.0)
+    two = _scalar(2.0, poses0_b)
+    third = _scalar(1.0 / 3.0, poses0_b)
+    it = torch.zeros((B,), dtype=torch.int32, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    active = ~done & (it < config.max_iterations)
+    while bool(active.any()):
+        diag = torch.clamp(torch.diagonal(D, dim1=-2, dim2=-1),
+                           config.min_diagonal, config.max_diagonal)
+        D_damped = D + rows(mu, D) * torch.diag_embed(diag)
+        step = linear_solver(D_damped, U, -g)
+        x_new = x + step
+        D_new, U_new, g_new, c_new = assemble(x_new)
+
+        # model decrease L(0) - L(step) in the MNT form, per replica
+        pred = 0.5 * torch.sum(
+            (step * (rows(mu, step) * diag * step - g)).flatten(-2), dim=-1)
+        rho = (c - c_new) / torch.clamp(pred, min=1e-30)
+
+        accept = (rho > 0) & torch.isfinite(c_new)
+        acc = accept & active          # adopt the trial point
+        if accepts is not None:
+            accepts.append(acc)
+        x = torch.where(rows(acc, x), x_new, x)
+        D = torch.where(rows(acc, D), D_new, D)
+        U = torch.where(rows(acc, U), U_new, U)
+        g = torch.where(rows(acc, g), g_new, g)
+        c_next = torch.where(accept, c_new, c)
+
+        t = 2.0 * rho - 1.0
+        factor = torch.maximum(third, 1.0 - t * (t * t))
+        mu_next = torch.clamp(torch.where(accept, mu * factor, mu * nu),
+                              1e-32, 1e32)
+        nu_next = torch.where(accept, two, nu * 2.0)
+
+        fdone = accept & (torch.abs(c - c_new)
+                          <= config.function_tolerance * c)
+        xnorm = torch.sqrt(torch.sum((x * x).flatten(-2), dim=-1))
+        sdone = (torch.sqrt(torch.sum((step * step).flatten(-2), dim=-1))
+                 <= config.parameter_tolerance
+                 * (xnorm + config.parameter_tolerance))
+        mdone = mu_next >= config.mu_collapse
+        c = torch.where(active, c_next, c)
+        mu = torch.where(active, mu_next, mu)
+        nu = torch.where(active, nu_next, nu)
+        done = torch.where(active, done | fdone | sdone | mdone, done)
+        it = torch.where(active, it + 1, it)
+        active = ~done & (it < config.max_iterations)
+    return LMResult(poses=x, final_cost=c, initial_cost=c0, iterations=it,
+                    converged=done, final_mu=mu)

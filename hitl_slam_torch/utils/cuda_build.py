@@ -148,6 +148,9 @@ def library() -> ctypes.CDLL:
         lib.hitl_bcr_solve.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i,
                                        vp]
         lib.hitl_bcr_solve.restype = i
+        lib.hitl_bcr_solve_batched.argtypes = [vp, vp, vp, vp, vp, i, i, i,
+                                               i, i, i, i, vp]
+        lib.hitl_bcr_solve_batched.restype = i
         lib.hitl_cuda_error_string.argtypes = [i]
         lib.hitl_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

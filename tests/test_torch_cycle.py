@@ -286,3 +286,91 @@ def test_queue_chain_matches(tiny, warm):
     np.testing.assert_allclose(n(gp), np.asarray(jp), atol=1e-4)
     np.testing.assert_allclose(n(gc), np.asarray(jc), rtol=1e-5, atol=1e-9)
     _check_table(gt, np_fields(jt))
+
+
+# ------------------------------------------------------------ repair_step
+
+def _repair_args(sel_ordered):
+    """repair_step's ordering inputs from an OrderedSelection: the first
+    contiguous run of corrected poses and its last pose, the index lists
+    padded with -1 to 64."""
+    corr, anch = sel_ordered.corrected_poses, sel_ordered.anchor_poses
+    breaks = np.nonzero(np.diff(corr) > 1)[0]
+    group = corr[:breaks[0] + 1] if len(breaks) else corr
+
+    def pad(ix):
+        out = np.full(64, -1, np.int32)
+        out[:min(len(ix), 64)] = ix[:64]
+        return out
+
+    return group, int(group[-1]), pad(anch), pad(corr)
+
+
+def test_repair_step_matches_jax():
+    """repair_step on the small golden map's first logged correction: the
+    refit by endpoint_adjust_batch, counts by observation_counts, ordering
+    by order_and_filter, then the step with LMConfig(max_iterations=6) on
+    both packages. Ints exact; poses to f32 round-off (1e-4 m / rad)."""
+    import os
+
+    from hitl_slam_torch.core.state import make_map_state as tmake
+    from hitl_slam_torch.io import logs, stfs
+    from hitl_slam_torch.models.hitl import em_input as TE
+    from hitl_slam_torch.models.hitl.repair import repair_step
+    from hitl_slam_torch.solver.lm import LMConfig as TCfg
+    from hitl_slam_tpu.core.state import ConstraintTable, make_map_state
+    from hitl_slam_tpu.models.hitl import em_input as JE
+    from hitl_slam_tpu.models.hitl.repair import repair_step as jrepair
+    from hitl_slam_tpu.solver.lm import LMConfig as JCfg
+
+    data_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    data = stfs.load_stfs_covars(os.path.join(data_dir, "golden.stfs.covars"))
+    entry = logs.load_log(os.path.join(data_dir, "golden.log"))[0]
+    jst = make_map_state(data.poses, data.covariances, data.point_clouds,
+                         data.normal_clouds, constraint_capacity=256)
+    tst = tmake(data.poses, data.covariances, data.point_clouds,
+                data.normal_clouds, "cpu", constraint_capacity=256)
+    world = np.asarray(jst.world_points())
+    mask = np.asarray(jst.point_mask)
+    raw = np.asarray(entry.points, np.float32)
+    segs = JE.endpoint_adjust_batch(jnp.asarray(world), jnp.asarray(mask),
+                                    jnp.asarray(np.stack([raw[0:2],
+                                                          raw[2:4]])))
+    refit = np.asarray(segs).reshape(4, 2)
+    c1, c2 = (np.asarray(c) for c in JE.observation_counts(
+        jnp.asarray(world), jnp.asarray(mask), jnp.asarray(refit)))
+    o = TE.order_and_filter(c1, c2, refit)
+    assert o.valid
+    group, last, anch, corr = _repair_args(o)
+    P = len(data.poses)
+    gmask = np.zeros(P, bool)
+    gmask[group] = True
+    ctype = int(entry.correction_type)
+    args = (o.selected_points.astype(np.float32), gmask, last, anch, corr,
+            o.backprop_start, o.backprop_end, 0)
+    got = repair_step(tst.poses, tst.covariances, tst.constraints, ctype,
+                      t(args[0]), t(gmask), last, t(anch), t(corr),
+                      args[5], args[6], 0, lm_config=TCfg(max_iterations=6))
+    ref = jrepair(jst.poses, jst.covariances, jst.constraints,
+                  jnp.asarray(ctype, jnp.int32), jnp.asarray(args[0]),
+                  jnp.asarray(gmask), jnp.asarray(last, jnp.int32),
+                  jnp.asarray(anch), jnp.asarray(corr),
+                  jnp.asarray(args[5], jnp.int32),
+                  jnp.asarray(args[6], jnp.int32), jnp.asarray(0, jnp.int32),
+                  lm_config=JCfg(max_iterations=6))
+    assert int(got.num_new_constraints) == int(ref.num_new_constraints) > 0
+    assert int(got.lm.iterations) == int(ref.lm.iterations)
+    np.testing.assert_allclose(n(got.correction), np.asarray(ref.correction),
+                               atol=1e-5)
+    for k in ("pre_solve_poses", "poses"):
+        np.testing.assert_allclose(n(getattr(got, k)),
+                                   np.asarray(getattr(ref, k)), atol=1e-4,
+                                   err_msg=k)
+    np.testing.assert_allclose(n(got.covariances), np.asarray(ref.covariances),
+                               rtol=1e-5, atol=1e-9)
+    # the optimum's cost is ~1e-9: an absolute floor, as in
+    # test_cycle_step_matches
+    np.testing.assert_allclose(float(got.lm.final_cost),
+                               float(ref.lm.final_cost), rtol=1e-4, atol=1e-7)
+    _check_table(got.constraints, np_fields(ref.constraints))
+    assert isinstance(ref.constraints, ConstraintTable)

@@ -202,3 +202,94 @@ def test_order_on_device_matches_jax(kind, rng):
                 if field.endswith("idx") or field in ("last_pose", "bp_min",
                                                       "bp_max"):
                     assert a.dtype == np.int32, field
+
+
+# ------------------------------------------------------------ host twins
+
+@pytest.fixture(scope="module")
+def fig8_64():
+    """A 64-pose figure-8 map (world points and mask) and a selection
+    synthesized on it, the last third against the first."""
+    from hitl_slam_tpu.core.state import make_map_state
+    from hitl_slam_tpu.io.figure8 import generate_figure8, synthesize_correction
+
+    m = generate_figure8(num_poses=64, num_rays=64, seed=5,
+                         drift_theta_bias=8e-4)
+    st = make_map_state(m.poses, m.covariances, m.point_clouds,
+                        m.normal_clouds, constraint_capacity=16)
+    sel = synthesize_correction(m, range(64 - 64 // 3, 64), range(0, 64 // 3),
+                                (1, 0.0), (1, 0.0), min_points=5)
+    return (np.asarray(st.world_points()), np.asarray(st.point_mask),
+            np.asarray(sel, np.float32))
+
+
+def test_verify_input_matches_jax(fig8_64):
+    """The 0.05 m proximity check: the synthesized clicks (on the map),
+    clicks moved off it, and one exactly at a map point."""
+    from hitl_slam_torch.models.hitl.em_input import verify_input
+    from hitl_slam_tpu.models.hitl.em_input import verify_input as jverify
+
+    world, mask, sel = fig8_64
+    off = sel + np.array([[0.0, 0.0], [0.3, 0.0], [0.0, 0.049], [5.0, 5.0]],
+                         np.float32)
+    exact = np.stack([world[3, 0], sel[1], world[40, 2], sel[3]])
+    for s in (sel, off, exact.astype(np.float32)):
+        got = n(verify_input(t(world), t(mask), t(s)))
+        ref = np.asarray(jverify(jnp.asarray(world), jnp.asarray(mask),
+                                 jnp.asarray(s)))
+        assert got.dtype == ref.dtype and np.array_equal(got, ref)
+    assert n(verify_input(t(world), t(mask), t(sel))).all()
+
+
+def test_endpoint_adjust_and_observation_counts_match_jax(fig8_64):
+    """endpoint_adjust (one segment) and the per-pose inlier counts of the
+    refit selection: counts exactly the JAX function's (its sqrt against
+    0.03 m, not em_scan's squared compare)."""
+    from hitl_slam_torch.models.hitl import em_input as TE
+    from hitl_slam_tpu.models.hitl import em_input as JE
+
+    world, mask, sel = fig8_64
+    jw, jm = jnp.asarray(world), jnp.asarray(mask)
+    refit = []
+    for seg in (sel[0:2], sel[2:4]):
+        got = n(TE.endpoint_adjust(t(world), t(mask), t(seg)))
+        ref = np.asarray(JE.endpoint_adjust(jw, jm, jnp.asarray(seg)))
+        # as test_endpoint_adjust_batch_matches_jax
+        np.testing.assert_allclose(got, ref, atol=1e-4)
+        refit.append(ref)
+    refit = np.concatenate(refit).astype(np.float32)
+    got = TE.observation_counts(t(world), t(mask), t(refit))
+    ref = JE.observation_counts(jw, jm, jnp.asarray(refit))
+    for g, r in zip(got, ref):
+        assert n(g).dtype == np.asarray(r).dtype
+        np.testing.assert_array_equal(n(g), np.asarray(r))
+    assert n(got[0]).max() > TE.MIN_POSE_INLIERS
+
+
+@pytest.mark.parametrize("kind", ["map", "good", "swapped", "overlap_partial",
+                                  "overlap_complete", "interleaved", "empty",
+                                  "point_gate"])
+def test_order_and_filter_matches_jax(kind, fig8_64, rng):
+    """The host ordering on the figure-8's counts and on the random count
+    patterns of test_order_on_device_matches_jax: every field exact."""
+    from hitl_slam_torch.models.hitl.em_input import order_and_filter
+    from hitl_slam_tpu.models.hitl import em_input as JE
+
+    world, mask, sel = fig8_64
+    if kind == "map":
+        counts = [JE.observation_counts(jnp.asarray(world), jnp.asarray(mask),
+                                        jnp.asarray(sel))]
+        counts = [tuple(np.asarray(c) for c in counts[0])]
+    else:
+        counts = [_random_counts(rng, 128, kind) for _ in range(4)]
+    for c1, c2 in counts:
+        got = order_and_filter(c1, c2, sel)
+        ref = JE.order_and_filter(c1, c2, sel)
+        assert got.valid == ref.valid
+        assert (got.backprop_start, got.backprop_end) == (
+            ref.backprop_start, ref.backprop_end)
+        for field in ("corrected_poses", "anchor_poses", "selected_points"):
+            a, b = getattr(got, field), getattr(ref, field)
+            assert a.dtype == b.dtype and np.array_equal(a, b), field
+    if kind in ("map", "good", "swapped"):
+        assert got.valid

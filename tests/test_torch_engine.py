@@ -268,6 +268,109 @@ def test_engine_public_names_cover_the_reference():
         assert got == want_params, (name, got, want_params)
 
 
+def test_signatures_follow_the_reference():
+    """cycle_step, queue_chain, build_problem, lm.solve and
+    load_stfs_covars take the reference's parameters in the reference's
+    order; lm.solve may add only the keyword-only `accepts` after them."""
+    import inspect
+
+    from hitl_slam_torch.io import stfs
+    from hitl_slam_torch.models.hitl import cycle
+    from hitl_slam_torch.solver import joint, lm
+    from hitl_slam_tpu.io import stfs as jstfs
+    from hitl_slam_tpu.models.hitl import cycle as jcycle
+    from hitl_slam_tpu.solver import joint as jjoint, lm as jlm
+
+    def params(f):
+        f = getattr(f, "__wrapped__", f)
+        return [p for p in inspect.signature(f).parameters
+                if p != "accepts"]
+
+    for got, want in ((cycle.cycle_step, jcycle.cycle_step),
+                      (cycle.queue_chain, jcycle.queue_chain),
+                      (joint.build_problem, jjoint.build_problem),
+                      (lm.solve, jlm.solve),
+                      (stfs.load_stfs_covars, jstfs.load_stfs_covars)):
+        assert params(got) == params(want), got.__name__
+    assert (inspect.signature(lm.solve).parameters["accepts"].kind
+            is inspect.Parameter.KEYWORD_ONLY)
+
+
+# what the port leaves to its multi-device slice, and what has no
+# counterpart in torch: the device mesh, the sharded LM, the replicas'
+# placement on a mesh, the numpy/scipy baselines, and jax.jit of lm.solve
+NAMES_LEFT = {
+    "parallel/mesh": None, "parallel/sharded_solver": None,
+    "baselines/cpu_lm": None, "baselines/cpu_refine": None,
+    "baselines/__init__": None,
+    "parallel/replicas": {"shard_replicas"},
+    "solver/lm": {"solve_jit"},
+}
+# the two TPU kernels' modules, ported under other names; in them the
+# Pallas entry and the Pallas grid tile have CUDA counterparts of other names
+RENAMED = {"ops/pallas_em": "ops/em_scan",
+           "solver/pallas_bcr": "solver/bcr_kernel"}
+RENAMED_NAMES = {"bcr_solve_pallas": "bcr_solve_cuda",
+                 "POSE_TILE": "launch_plan"}
+
+
+def _public_names(path):
+    """Top-level public names a module defines (read from its source: the
+    reference's modules import jax when imported)."""
+    import ast
+
+    tree = ast.parse(open(path).read())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef,
+                             ast.AsyncFunctionDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {tg.id for tg in node.targets
+                      if isinstance(tg, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            names.add(node.target.id)
+    return {k for k in names if not k.startswith("_")}
+
+
+def test_every_reference_module_has_its_names_in_the_port():
+    """Every module of hitl_slam_tpu/ has a counterpart in hitl_slam_torch/
+    that defines each of its public top-level names (functions, classes,
+    constants), but for the multi-device names, the baselines and
+    solve_jit (NAMES_LEFT)."""
+    import glob
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ref_root = os.path.join(repo, "hitl_slam_tpu")
+    port_root = os.path.join(repo, "hitl_slam_torch")
+    missing = {}
+    for path in sorted(glob.glob(os.path.join(ref_root, "**", "*.py"),
+                                 recursive=True)):
+        rel = os.path.relpath(path, ref_root)[:-3]
+        left = NAMES_LEFT.get(rel, set())
+        if left is None:
+            continue
+        port = os.path.join(port_root, RENAMED.get(rel, rel) + ".py")
+        # the reference's type alias Array (jax.Array) is the port's Tensor
+        want = {RENAMED_NAMES.get(k, k)
+                for k in _public_names(path) - left - {"Array"}}
+        if not os.path.exists(port):
+            missing[rel] = "no module"
+            continue
+        gap = want - _public_names(port)
+        if gap:
+            missing[rel] = sorted(gap)
+    assert missing == {}, missing
+    # the allowlist names only what is still missing
+    for rel, left in NAMES_LEFT.items():
+        port = os.path.join(port_root, rel + ".py")
+        if left is None:
+            assert not os.path.exists(port), rel
+        else:
+            assert not (left & _public_names(port)), rel
+
+
 def test_run_queue_chain_capacity():
     """run_queue takes the reference's chain_capacity in second position
     and chunks the queue by it: chains of one give the poses of one chain

@@ -86,6 +86,29 @@ def test_bcr_kernel_route_boundaries(cuda_device, num):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("num,batch", [(1, 3), (64, 32), (1024, 32),
+                                       (2049, 4), (16384, 4), (32768, 2)])
+def test_bcr_batched_route_equals_lone_launches(cuda_device, num, batch):
+    """The batched route on every route (one block, clusters, top levels in
+    device memory): each system's x bit-equal to a lone launch on it, one
+    batched launch counted, and within the bound of the batched twin."""
+    from hitl_slam_torch.solver import bcr_kernel, tridiag
+
+    systems = [_spd_system(num, 100 * num + i, cuda_device)
+               for i in range(batch)]
+    D, U, b = (torch.stack([s[k] for s in systems]) for k in range(3))
+    before = bcr_kernel.batched_launches.count
+    xb = bcr_kernel.bcr_solve(D, U, b)
+    assert bcr_kernel.batched_launches.count == before + 1
+    lone = torch.stack([bcr_kernel.bcr_solve_cuda(*s) for s in systems])
+    xt = tridiag.bcr_solve(D, U, b)
+    torch.cuda.synchronize()
+    assert torch.equal(xb, lone)
+    scale = max(1.0, float(xt.abs().max()))
+    assert float((xb - xt).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
 def test_em_scan_kernel_matches_plain(cuda_device, golden_large):
     """Exact counts and bit-equal minima on the 1024-pose map, for both
     logged selections, a POINT selection at 0.05 m, a P that is not a

@@ -341,6 +341,10 @@ def test_lm_parity(kind):
     """The tests/test_lm.py problems: equal iteration counts, an equal
     accept/reject sequence and the same final cost. The JAX solve runs with
     jit disabled so its per-iteration solver calls can be recorded."""
+    _lm_parity(kind, use_soa=True)
+
+
+def _lm_parity(kind, use_soa):
     from hitl_slam_torch.core.state import table_from_numpy
     from hitl_slam_torch.solver import joint as TJ, lm as TL, tridiag as TT
     from hitl_slam_tpu.solver import joint as JJ, lm as JL
@@ -352,12 +356,12 @@ def test_lm_parity(kind):
     with jax.disable_jit():
         jres = JL.solve(JJ.build_problem(jnp.asarray(poses), _jax_table(tab)),
                         jnp.asarray(poses), JL.LMConfig(max_iterations=iters),
-                        linear_solver=jrec)
+                        linear_solver=jrec, use_soa=use_soa)
         jres = jax.tree_util.tree_map(np.asarray, jres)
     trec = _Recorder(TT.bcr_solve, n)
     config = TL.LMConfig(max_iterations=iters)
     tres = TL.solve(TJ.build_problem(t(poses), table_from_numpy(tab, "cpu")),
-                    t(poses), config, linear_solver=trec)
+                    t(poses), config, linear_solver=trec, use_soa=use_soa)
     t_acc = trec.accepts(poses, n(tres.poses))
     j_acc = jrec.accepts(poses, jres.poses)
     if int(tres.iterations) != int(jres.iterations) or t_acc != j_acc:
@@ -411,3 +415,107 @@ def test_lm_mu_warm_start_clip():
         torch.testing.assert_close(got, torch.tensor(want, dtype=torch.float32)
                                    * diag, rtol=1e-4,
                                    atol=4 * 1.2e-7 * float(diag.max()))
+
+
+# ------------------------------------------------------------ leftovers
+
+@pytest.mark.parametrize("num", [1, 2, 31, 32, 33, 100])
+def test_thomas_and_schur_match_jax(num):
+    """thomas_solve and schur_solve(chunk=16) against the JAX functions and
+    an f64 direct solve (below 2 * chunk poses schur_solve is bcr_solve)."""
+    from hitl_slam_torch.solver import tridiag as TT
+    from hitl_slam_tpu.solver import tridiag as JT
+
+    D, U, b = (a.astype(np.float32) for a in
+               random_spd_tridiag(np.random.default_rng(100 + num), num))
+    x64 = banded_solve_f64(*(a.astype(np.float64) for a in (D, U, b)))
+    scale = max(1.0, float(np.abs(x64).max()))
+    for tf, jf in ((TT.thomas_solve, JT.thomas_solve),
+                   (TT.schur_solve, JT.schur_solve)):
+        got = n(tf(t(D), t(U), t(b)))
+        ref = np.asarray(jf(jnp.asarray(D), jnp.asarray(U), jnp.asarray(b)))
+        # f32 eliminations of systems with cond(H) < ~20: within ~1e-6 of
+        # f64 each; 1e-5 leaves an order of magnitude
+        assert np.abs(got - ref).max() <= 1e-5 * scale, tf.__name__
+        assert np.abs(got - x64).max() <= 1e-5 * scale, tf.__name__
+
+
+def test_normal_equations_aos_matches_jax_and_soa():
+    """joint.normal_equations (the block-array assembly) against the JAX
+    function and the port's own SoA assembly, at the build poses and off
+    them; build_problem(use_onehot=False) reduces the table by index_add_
+    to the same compact terms."""
+    from hitl_slam_torch.core.state import table_from_numpy
+    from hitl_slam_torch.solver import assembly_soa as TS, joint as TJ
+    from hitl_slam_tpu.solver import joint as JJ
+
+    jp, tp, poses, poses1 = _problem_pair(seed=9)
+    sc = TS.soa_constants(tp)
+    for p in (poses, poses1):
+        got = TJ.normal_equations(tp, t(p))
+        ref = JJ.normal_equations(jp, jnp.asarray(p))
+        soa = TS.normal_equations_soa(tp, sc, t(p))
+        for i, name in enumerate(("D", "U", "g", "cost")):
+            scale = max(1.0, float(np.abs(np.asarray(ref[i])).max()))
+            # entries reach 1/sigma^2 = 1e4: f32 reassociation and ~1 ulp
+            # trig differences stay below 1e-5 of the largest entry
+            for want in (np.asarray(ref[i]), n(soa[i])):
+                np.testing.assert_allclose(n(got[i]), want, rtol=1e-5,
+                                           atol=1e-5 * scale, err_msg=name)
+    rng = np.random.default_rng(9)          # _problem_pair's draws
+    _chain(rng, 40)
+    tab = _table_arrays(rng, 32, 40, 18)
+    scat = TJ.build_problem(t(poses), table_from_numpy(tab, "cpu"),
+                            use_onehot=False)
+    assert scat.num_poses == tp.num_poses
+    np.testing.assert_allclose(n(scat.compact.A), n(tp.compact.A),
+                               rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["pulls", "COLINEAR", "PARALLEL"])
+def test_lm_aos_parity(kind):
+    """lm.solve(use_soa=False), the block-array assembly, against the JAX
+    solve(use_soa=False) on the tests/test_lm.py problems, as
+    test_lm_parity holds the SoA solves."""
+    _lm_parity(kind, use_soa=False)
+
+
+def test_relative_pose_factors_match_jax():
+    """The relative-pose parameterization: chain_poses, the factor
+    constants (a degenerate pair included), perp_rows, the residuals, and
+    the chain Jacobian by torch.func.jacrev against jax.jacfwd."""
+    from hitl_slam_torch.ops import residuals as TR
+    from hitl_slam_tpu.ops import residuals as JR
+
+    rng = np.random.default_rng(4)
+    base = np.array([0.5, -0.2, 0.3], np.float32)
+    rels = rng.normal(0, 0.3, (15, 3)).astype(np.float32)
+    rels[7, :2] = 0.0                                   # a still step
+    pose0 = np.array([0, 3, 7, 2, 10], np.int32)
+    pose1 = np.array([1, 9, 8, 14, 15], np.int32)
+    j_poses = JR.chain_poses(jnp.asarray(base), jnp.asarray(rels))
+    t_poses = TR.chain_poses(t(base), t(rels))
+    np.testing.assert_allclose(n(t_poses), np.asarray(j_poses), atol=1e-6)
+    jf = JR.build_relative_pose_factors(j_poses, jnp.asarray(pose0),
+                                        jnp.asarray(pose1))
+    tf = TR.build_relative_pose_factors(t_poses, t(pose0), t(pose1))
+    for name in ("axis", "radial", "rotation", "inv_sigma"):
+        np.testing.assert_allclose(n(getattr(tf, name)),
+                                   np.asarray(getattr(jf, name)),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+    v = rng.normal(size=(6, 2)).astype(np.float32)
+    assert np.array_equal(n(TR.perp_rows(t(v))),
+                          np.asarray(JR.perp_rows(jnp.asarray(v))))
+    rels1 = (rels + rng.normal(0, 0.02, rels.shape)).astype(np.float32)
+    got = TR.relative_pose_residuals(tf, t(base), t(rels1))
+    ref = JR.relative_pose_residuals(jf, jnp.asarray(base), jnp.asarray(rels1))
+    np.testing.assert_allclose(n(got), np.asarray(ref), rtol=1e-4, atol=1e-4)
+    jac = torch.func.jacrev(
+        lambda r: TR.relative_pose_residuals(tf, t(base), r))(t(rels1))
+    jref = jax.jacfwd(
+        lambda r: JR.relative_pose_residuals(jf, jnp.asarray(base), r))(
+        jnp.asarray(rels1))
+    # entries reach 1/sigma = 100 per metre of lever arm
+    scale = float(np.abs(np.asarray(jref)).max())
+    np.testing.assert_allclose(n(jac), np.asarray(jref), rtol=1e-4,
+                               atol=1e-5 * scale)

@@ -247,7 +247,8 @@ def test_port_imports_no_jax():
         "'models.enml.localizer', 'models.enml.driver', 'gui.map_edit', "
         "'cli_enml', 'models.enml.parallel_localizer', "
         "'models.enml.session', 'models.enml.online', 'gui.server', "
-        "'gui.graph_edit', 'gui.live'):\n"
+        "'gui.graph_edit', 'gui.live', 'parallel', 'parallel.replicas', "
+        "'native', 'models.hitl.repair', 'solver.tridiag'):\n"
         "    assert 'hitl_slam_torch.' + name in names, name\n"
         "print(len(names))\n"
     )
@@ -256,4 +257,18 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 62, out.stdout
+    assert int(out.stdout.strip()) >= 65, out.stdout
+
+
+def test_state_constants_match():
+    """CORRECTION_TYPE_NAMES and RESIDUALS_PER_TYPE: the reference's
+    tables, keyed by the port's CorrectionType."""
+    from hitl_slam_torch.core import state as T
+    from hitl_slam_tpu.core import state as J
+
+    assert {int(k): v for k, v in T.CORRECTION_TYPE_NAMES.items()} == {
+        int(k): v for k, v in J.CORRECTION_TYPE_NAMES.items()}
+    assert {int(k): v for k, v in T.RESIDUALS_PER_TYPE.items()} == {
+        int(k): v for k, v in J.RESIDUALS_PER_TYPE.items()}
+    assert all(isinstance(k, T.CorrectionType)
+               for k in T.RESIDUALS_PER_TYPE)
