@@ -80,14 +80,35 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      small golden map's first correction against the CPU; the native
      libraries built, and their parses equal the Python paths (both golden
      maps, phase 10's bag); then one `{"replicas": {...}}` line;
- 16. times at the main path's shapes: each kernel by CUDA events (host
+ 16. the mesh: (a) the pose-sharded LM (20 LM iterations) on the repaired
+     1024-pose map of phase 4 on meshes [cuda:0] x 4 and x 8: cost and
+     poses within the reference's criteria of the lone lm.solve, poses
+     within 1e-4 of the same sharded solve on the CPU (an iteration count
+     that differs there, at the cost's f32 floor, is reported with both
+     runs' trial costs), the batched BCR route launched once an iteration
+     and nothing else (counts zeroed just before, read just after), the
+     mesh's collective counter within the reference's volume bounds, and
+     the first iteration's batched systems against lone launches and the
+     twin, with their times, the bound and the dense library solve of the
+     function they compute (d systems, each against 7 right-hand sides);
+     then the same on replica 0 of phase 15, whose LM ends on real
+     decreases, with the card's iteration count equal to the CPU's;
+     (b) the same at 16384 poses (a seeded
+     chain, d = 8) with both costs against the f64 cpu_lm_solve; (c)
+     phase 15's replicas placed on a [cuda:0] x 4 replica mesh, bit-equal
+     to phase 15's batch; (d) the checkerboard's mesh branch on
+     [cuda:0] x 4: the test-size stream within 1e-4 of mesh=None, the
+     scale map at W = 10 with wall, ms a node and peak memory; (e) the
+     sharded LM one partition a card where the machine has several cards
+     (said when it does not run); then one `{"mesh": {...}}` line;
+ 17. times at the main path's shapes: each kernel by CUDA events (host
      overhead included) and by torch.profiler (its own device time), its
      plain version, its bound from the shapes, and for BCR
      torch.linalg.solve on the dense system; BCR also at n = 64, 16384
      and 32768;
- 17. a `{"kernels": [...]}` line with launches, agreement, times and bounds
-     (the batched route's launches from phase 15);
- 18. the last line: {"ok": true, "device": {...}}.
+ 18. a `{"kernels": [...]}` line with launches, agreement, times and bounds
+     (the batched route's launches from phases 15 and 16);
+ 19. the last line: {"ok": true, "device": {...}}.
 
 scripts/compare_checkouts.py times two checkouts' kernels and replays
 against each other on one card with the helpers here.
@@ -225,15 +246,21 @@ def em_scan_work(mask) -> tuple[int, int]:
     return bytes_moved, flops
 
 
-def bcr_work(n: int) -> tuple[int, int]:
-    """(bytes, flops) of one n-pose solve: D, U, b read once, x written
-    once; cyclic reduction of the n-pose system eliminates n - 1 lanes, each
-    with one 3x3 adjugate inverse (42 operations), its products Dinv L,
-    Dinv U, Dinv b (105), its even neighbour's update (four 3x3 products,
-    two matrix-vector products, 24 subtractions, 18 negations: 252) and its
-    back-substitution (51); the root adds an inverse and one product."""
-    bytes_moved = 4 * (9 * n + 9 * (n - 1) + 3 * n + 3 * n)
-    flops = (n - 1) * (42 + 105 + 252 + 51) + 42 + 15
+def bcr_work(n: int, systems: int = 1, rhs: int = 1) -> tuple[int, int]:
+    """(bytes, flops) of `systems` n-pose systems, each solved against `rhs`
+    right-hand sides: D, U read once a system, b read and x written once a
+    right-hand side. Cyclic reduction of an n-pose system eliminates n - 1
+    lanes. The factorization, once a system, does a lane's 3x3 adjugate
+    inverse (42 operations), its products Dinv L, Dinv U (90) and its even
+    neighbour's matrix update (four 3x3 products, 18 subtractions, 18
+    negations: 216), and at the root one more inverse (42); each
+    right-hand side does a lane's Dinv b (15), its neighbour's vector update
+    (two matrix-vector products, 6 subtractions: 36) and its
+    back-substitution (51), and at the root one product (15)."""
+    bytes_moved = 4 * (systems * (9 * n + 9 * (n - 1))
+                       + systems * rhs * (3 * n + 3 * n))
+    flops = (systems * ((n - 1) * (42 + 90 + 216) + 42)
+             + systems * rhs * ((n - 1) * (15 + 36 + 51) + 15))
     return bytes_moved, flops
 
 
@@ -1839,6 +1866,8 @@ REPLICA_POSE_TOL = 1e-5
 # batch sizes and pose counts of the batched kernel's checks and times:
 # (n, B); n = 32768 takes the levels route
 BATCHED_BCR = ((64, 32), (1024, 32), (16384, 32), (32768, 8))
+# the largest dense [systems, 3n, 3n] matrix the library comparison builds
+DENSE_MAX_BYTES = 2 << 30
 
 
 def _replica_lone(reps, tb, r, config):
@@ -1852,14 +1881,77 @@ def _replica_lone(reps, tb, r, config):
     return res, [bool(a) for a in acc]
 
 
-def _batched_bcr_checks(torch, first_step):
-    """The batched route against lone launches (bit-equal) and its plain
-    twin (BCR_RTOL), on the replica run's first-step systems and on
-    _spd_system batches; its times at each size. Returns (worst error
-    against the twin, {n: times})."""
-    import numpy as np
-
+def _batched_case(torch, what, D, U, b, timed: bool, rhs: int = 1):
+    """The batched route on stacked systems (D, U, b) against lone launches
+    (bit-equal) and its plain twin (BCR_RTOL). Systems come in runs of
+    `rhs` that share D and U (the SPIKE's local solves: one system of a
+    partition against its 7 right-hand sides), so the function computed is
+    B / rhs systems each against `rhs` right-hand sides: its bound counts
+    each D and U once, and the library call solves it as one dense
+    [B / rhs, 3n, 3n] system against `rhs` columns, where that fits in
+    DENSE_MAX_BYTES. Returns (error against the twin, and where `timed`
+    its times: events, profiler device ms, the plain twin, the same
+    systems as lone launches, the bound and the dense library solve)."""
     from hitl_slam_torch.solver import bcr_kernel as B, tridiag
+
+    nb, n = D.shape[0], D.shape[1]
+    check(nb % rhs == 0 and torch.equal(D[::rhs].repeat_interleave(rhs, 0), D)
+          and torch.equal(U[::rhs].repeat_interleave(rhs, 0), U),
+          f"{what}: the systems do not come in runs of {rhs} sharing D, U")
+    xb = B.bcr_solve_cuda_batched(D, U, b)
+    lone = torch.stack([B.bcr_solve_cuda(D[i], U[i], b[i])
+                        for i in range(nb)])
+    twin = tridiag.bcr_solve(D, U, b)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(xb).all()), f"{what}: non-finite")
+    check(torch.equal(xb, lone),
+          f"{what}: batched x differs from lone launches by "
+          f"{float((xb - lone).abs().max()):.3e}")
+    scale = max(1.0, float(xb.abs().max()))
+    err = float((xb - twin).abs().max())
+    check(err <= BCR_RTOL * scale,
+          f"{what}: batched kernel vs twin {err:.3e} > {BCR_RTOL * scale:.3e}")
+    plan = B.launch_plan(n)
+    log(f"[bcr batched] {what}: {plan.route} of {plan.blocks} x {nb}, each "
+        f"x bit-equal to a lone launch, max|batched-plain| {err:.3e} "
+        f"(max|x| {scale:.3f})")
+    if not timed:
+        return err, None
+    fn = lambda: B.bcr_solve_cuda_batched(D, U, b)   # noqa: E731
+    ms = time_cuda(fn, 50)
+    per_launch, dev_ms, _ = device_ms(fn, "bcr_")
+    plain_ms = time_cuda(lambda: tridiag.bcr_solve(D, U, b), 5)
+    lone_ms = time_cuda(lambda: [B.bcr_solve_cuda(D[i], U[i], b[i])
+                                 for i in range(nb)], 10)
+    ns = nb // rhs
+    bound_ms, bound_by = bound(*bcr_work(n, ns, rhs))
+    t = dict(B=nb, n=n, systems=ns, rhs=rhs, ms=ms, device_ms=dev_ms,
+             device_ms_per_launch=per_launch, plain_ms=plain_ms,
+             lone_launches_ms=lone_ms, bound_ms=bound_ms, bound_by=bound_by,
+             library_ms=None)
+    if ns * (3 * n) ** 2 * 4 <= DENSE_MAX_BYTES:
+        dense = [_dense_system(torch, D[i], U[i], b[i])
+                 for i in range(0, nb, rhs)]
+        H = torch.stack([h for h, _ in dense])
+        del dense
+        cols = b.reshape(ns, rhs, 3 * n).transpose(1, 2).contiguous()
+        t["library_ms"] = time_cuda(lambda: torch.linalg.solve(H, cols), 3,
+                                    warmup=1)
+        del H, cols
+    log(f"[time] bcr batched B={nb} n={n} ({what}; {ns} systems x {rhs} "
+        f"right-hand side{'s' if rhs > 1 else ''}): events {ms:.5f} ms, device {dev_ms:.5f} ms a "
+        f"call ({per_launch:.5f} a launch), {nb} lone launches {lone_ms:.5f} "
+        f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})"
+        + (f", dense torch.linalg.solve [{ns}, {3 * n}, {3 * n}] x {rhs} "
+           f"columns {t['library_ms']:.3f} ms" if t["library_ms"] else ""))
+    return err, t
+
+
+def _batched_bcr_checks(torch, first_step):
+    """The batched route against lone launches and its twin on the replica
+    run's first-step systems and on _spd_system batches; its times at each
+    size but 32768. Returns (worst error against the twin, {n: times})."""
+    import numpy as np
 
     worst, times = 0.0, {}
     cases = [("replicas' first step", *first_step)]
@@ -1870,55 +1962,12 @@ def _batched_bcr_checks(torch, first_step):
                             dtype=torch.float32, device=DEVICE)
             for k in range(3))))
     for what, D, U, b in cases:
-        nb, n = D.shape[0], D.shape[1]
-        xb = B.bcr_solve_cuda_batched(D, U, b)
-        lone = torch.stack([B.bcr_solve_cuda(D[i], U[i], b[i])
-                            for i in range(nb)])
-        twin = tridiag.bcr_solve(D, U, b)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(xb).all()), f"{what}: non-finite")
-        check(torch.equal(xb, lone),
-              f"{what}: batched x differs from lone launches by "
-              f"{float((xb - lone).abs().max()):.3e}")
-        scale = max(1.0, float(xb.abs().max()))
-        err = float((xb - twin).abs().max())
-        check(err <= BCR_RTOL * scale,
-              f"{what}: batched kernel vs twin {err:.3e} > "
-              f"{BCR_RTOL * scale:.3e}")
+        n = D.shape[1]
+        err, t = _batched_case(torch, what, D, U, b,
+                               what.startswith("spd") and n != 32768)
         worst = max(worst, err)
-        plan = B.launch_plan(n)
-        log(f"[replicas] {what}: {plan.route} of {plan.blocks} x {nb}, "
-            f"each x bit-equal to a lone launch, max|batched-plain| "
-            f"{err:.3e} (max|x| {scale:.3f})")
-        if not what.startswith("spd") or n == 32768:
-            continue
-        fn = lambda: B.bcr_solve_cuda_batched(D, U, b)   # noqa: E731
-        ms = time_cuda(fn, 50)
-        per_launch, dev_ms, _ = device_ms(fn, "bcr_")
-        plain_ms = time_cuda(lambda: tridiag.bcr_solve(D, U, b), 5)
-        lone_ms = time_cuda(lambda: [B.bcr_solve_cuda(D[i], U[i], b[i])
-                                     for i in range(nb)], 10)
-        work = bcr_work(n)
-        bound_ms, bound_by = bound(nb * work[0], nb * work[1])
-        t = dict(B=nb, n=n, ms=ms, device_ms=dev_ms,
-                 device_ms_per_launch=per_launch, plain_ms=plain_ms,
-                 lone_launches_ms=lone_ms, bound_ms=bound_ms,
-                 bound_by=bound_by, library_ms=None)
-        if n == 1024:
-            dense = [_dense_system(torch, D[i], U[i], b[i]) for i in range(nb)]
-            H = torch.stack([h for h, _ in dense])
-            rhs = torch.stack([r for _, r in dense])
-            del dense
-            t["library_ms"] = time_cuda(lambda: torch.linalg.solve(H, rhs),
-                                        3, warmup=1)
-            del H, rhs
-        times[n] = t
-        log(f"[time] bcr batched B={nb} n={n}: events {ms:.5f} ms, device "
-            f"{dev_ms:.5f} ms a call ({per_launch:.5f} a launch), {nb} lone "
-            f"launches {lone_ms:.5f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.6f} ms ({bound_by})"
-            + (f", dense torch.linalg.solve [{nb}, {3 * n}, {3 * n}] "
-               f"{t['library_ms']:.3f} ms" if t["library_ms"] else ""))
+        if t is not None:
+            times[n] = t
     return worst, times
 
 
@@ -2021,8 +2070,8 @@ def _native_on_card_host(bag, tmp):
 def phase_replicas(torch, smi, repaired, small, small_log, bag, tmp):
     """The replica batch on the card (the slice's main path), the batched
     kernel against lone launches and its twin, repair_step, and the native
-    libraries. Returns the `replicas` record, the batched launches and the
-    batched route's worst error and times."""
+    libraries. Returns the `replicas` record, the batched launches, the
+    batched route's worst error and times, and the batch's LMResult."""
     import numpy as np
 
     from hitl_slam_torch.parallel.replicas import (batched_solve,
@@ -2129,10 +2178,448 @@ def phase_replicas(torch, smi, repaired, small, small_log, bag, tmp):
     # ---- 4. the native libraries ----
     rec["native"] = _native_on_card_host(bag, tmp)
     rec["card"] = smi
-    return rec, n_batched, err, times
+    return rec, n_batched, err, times, out
 
 
 # ---------------------------------------------------------------- phase 16
+
+# the sharded LM on the repaired 1024-pose map: partitions of the meshes
+# [cuda:0] x d, and the reference's criteria against the lone solve
+# (tests/test_parallel.py): cost <= 1.05 x + 1e-4, poses within 2e-2
+MESH_PARTITIONS = (4, 8)
+MESH_ITERS = 20
+MESH_COST_FACTOR, MESH_COST_ABS, MESH_POSE_TOL = 1.05, 1e-4, 2e-2
+# the same sharded solve on the CPU: poses within this, final cost within
+# this relative (f32 round-off of the card's reductions, sin/cos and LU
+# against the CPU's). On the repaired map the LM ends at the f32 noise floor
+# of the cost (accepts of a decrease below the cost's resolution), so its
+# iteration count is decided by round-off, for the lone lm.solve as well
+# (9 iterations on an H100, 11 on its host's CPU): a differing count there
+# is reported with its input, the lone solve's counts and both runs' trial
+# costs, and the count is held on the next input
+MESH_CPU_POSE_TOL, MESH_CPU_COST_RTOL = 1e-4, 1e-5
+# the iteration count, card against CPU, on an input whose LM ends on real
+# decreases: this replica of phase 15 (the repaired map perturbed, seed 0).
+# On the CPU its sharded LM ends after 6 accepts at d = 4 and 8, in f32 as
+# in f64, the last two decreases 7.9e-6 and 3.6e-7 of the cost, either
+# side of the 1e-6 function tolerance. Its poses are held to a looser bound
+# than the repaired map's: f32 round-off puts the CPU's f32 solve 1.7e-4
+# from its f64 solve on this input
+MESH_COUNT_REPLICA, MESH_COUNT_POSE_TOL = 0, 1e-3
+# the collective volume bounds of tests/test_parallel.py, a partition an
+# iteration: gathered floats (the reduced coefficients and the sums), and
+# the floats of one shift
+MESH_GATHER_MAX, MESH_SHIFT_MAX = 64, 16
+# the long chain: tests/test_parallel.py's generators at 16384 poses, seed 0
+MESH_CHAIN_POSES, MESH_CHAIN_PARTITIONS = 16384, 8
+# the checkerboard's mesh branch against mesh=None on the test-size stream
+# (tests/test_parallel.py's tolerance) and its replica entries
+MESH_CB_TOL, MESH_CB_ENTRIES = 1e-4, 4
+# the replica batch on a replica mesh of this many entries
+MESH_REPLICA_ENTRIES = 4
+
+
+def _on(value, device):
+    """A (nested) dataclass of tensors with every tensor on `device`."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    if dataclasses.is_dataclass(value):
+        return type(value)(**{f.name: _on(getattr(value, f.name), device)
+                              for f in dataclasses.fields(value)})
+    return value
+
+
+def _sharded_run(torch, mesh, problem, poses, config):
+    """One sharded solve on the card, its counts zeroed just before and read
+    just after: (result, wall ms, batched BCR launches, lone BCR and
+    em_scan launches, collective counts)."""
+    from hitl_slam_torch.parallel import mesh as M
+    from hitl_slam_torch.parallel.sharded_solver import sharded_lm_solve
+    from hitl_slam_torch.solver import bcr_kernel as B
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    M.collectives.reset()
+    t0 = time.perf_counter()
+    res = sharded_lm_solve(mesh, problem, poses, config)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    c = M.collectives
+    return (res, wall, B.batched_launches.count, _read_counts(),
+            dict(calls=dict(c.calls), floats=dict(c.floats),
+                 largest=dict(c.largest)))
+
+
+def _trial_costs(mesh, problem, poses, config) -> list[float]:
+    """The global cost of a sharded solve at its start and at each trial
+    point, in order (a trial is accepted where its cost is below the
+    current one): read through a spy on the solver's assembly."""
+    from hitl_slam_torch.parallel import sharded_solver as S
+
+    seen, real = [], S._local_assemble
+
+    def spy(*args):
+        out = real(*args)
+        seen.append(out[3][0])
+        return out
+
+    S._local_assemble = spy
+    try:
+        S.sharded_lm_solve(mesh, problem, poses, config)
+    finally:
+        S._local_assemble = real
+    return [float(c) for c in seen]
+
+
+def _check_sharded(name, res, lone, n_batched, others, coll,
+                   converged=True, groups=1):
+    """The reference's criteria against the lone solve (its pose criterion
+    only where both solves converge within the iteration cap), one batched
+    BCR launch a device group an iteration and nothing else, and the
+    collective volume."""
+    it = int(res.iterations)
+    cost, lone_cost = float(res.final_cost), float(lone.final_cost)
+    dpose = float((res.poses - lone.poses).abs().max())
+    import torch
+
+    check(bool(torch.isfinite(res.poses).all()), f"{name}: poses not finite")
+    check(cost <= lone_cost * MESH_COST_FACTOR + MESH_COST_ABS,
+          f"{name}: cost {cost:.6e} above the lone solve's {lone_cost:.6e}"
+          f" x {MESH_COST_FACTOR} + {MESH_COST_ABS}")
+    check(dpose <= MESH_POSE_TOL or not converged,
+          f"{name}: poses {dpose:.3e} from the lone solve's")
+    check(cost <= float(res.initial_cost), f"{name}: the cost went up")
+    check(n_batched == it * groups and others == (0, 0),
+          f"{name}: batched bcr launches {n_batched} != {it} iterations x "
+          f"{groups} device groups (em_scan, lone bcr: {others})")
+    gathered = (coll["floats"]["gather"] + coll["floats"]["sum"]) / max(it, 1)
+    check(gathered <= MESH_GATHER_MAX
+          and coll["largest"]["shift"] <= MESH_SHIFT_MAX,
+          f"{name}: collective volume {gathered} gathered floats a partition "
+          f"an iteration, {coll['largest']['shift']} a shift")
+    return dict(iterations=it, final_cost=cost, lone_final_cost=lone_cost,
+                initial_cost=float(res.initial_cost),
+                pose_diff_lone=dpose, launches_bcr_batched=n_batched,
+                gathered_floats_per_iteration=gathered,
+                largest_shift_floats=coll["largest"]["shift"],
+                collectives=coll)
+
+
+def _np_table(table) -> dict:
+    """The f64 baselines' table dict of a ConstraintTable."""
+    from hitl_slam_torch.core.state import table_to_numpy
+
+    t = table_to_numpy(table)
+    return dict(ctype=t["ctype"], constrained=t["constrained"],
+                anchor=t["anchor"], dpar=t["delta_parallel"],
+                dperp=t["delta_perpendicular"], dth=t["delta_angle"],
+                pen=t["penalty_dir"], active=t["active"])
+
+
+def _sharded_over_cards(torch, repaired, config):
+    """Phase 16 (e): the sharded LM on the repaired map with one partition a
+    card (make_mesh's default devices), against the lone solve on card 0,
+    where the machine has several cards that divide the poses; else None,
+    and said so."""
+    from hitl_slam_torch.parallel import sharded_solver as S
+    from hitl_slam_torch.parallel.mesh import make_mesh
+    from hitl_slam_torch.solver import joint, lm
+
+    k = torch.cuda.device_count()
+    if k < 2 or repaired.num_poses % k:
+        log(f"[mesh] did not run: one partition a card needs more than one "
+            f"card dividing {repaired.num_poses} poses; this machine has {k}")
+        return None
+    mesh = make_mesh(1, k)
+    problem = joint.build_problem(repaired.poses, repaired.constraints)
+    lone = lm.solve(problem, repaired.poses, config)
+    S.sharded_lm_solve(mesh, problem, repaired.poses, config)    # warm-up
+    res, wall, nb, others, coll = _sharded_run(
+        torch, mesh, problem, repaired.poses, config)
+    rec = _check_sharded(f"sharded over {k} cards", res, lone, nb, others,
+                         coll, groups=k)
+    rec.update(wall_ms=wall, cards=k, devices=[
+        torch.cuda.get_device_name(i) for i in range(k)])
+    log(f"[mesh] ran: sharded LM one partition a card over {k} cards: "
+        f"{rec['iterations']} iterations in {wall:.2f} ms, cost "
+        f"{rec['final_cost']:.6e} (lone {rec['lone_final_cost']:.6e}), poses "
+        f"{rec['pose_diff_lone']:.3e} from the lone solve's, batched bcr "
+        f"launches {nb} (one a card an iteration, B = 7)")
+    return rec
+
+
+def phase_mesh(torch, smi, repaired, stream, scale, replica_out):
+    """The multi-device layer on the card: the sharded LM at full width on
+    meshes that repeat the card, its BCR systems against the kernel's plain
+    version, the 16384-pose chain against the f64 baseline, the replica
+    batch placed on a replica mesh, the checkerboard's mesh branch, and
+    the same sharded LM one partition a card where there are several.
+    Returns the `mesh` record, the batched BCR launches of the sharded
+    runs, the worst error against the twin and the times at the sharded
+    shapes."""
+    import numpy as np
+
+    from hitl_slam_torch.baselines.cpu_lm import cpu_lm_solve
+    from hitl_slam_torch.bench import seeded_chain
+    from hitl_slam_torch.models.enml import localizer as L
+    from hitl_slam_torch.models.enml import parallel_localizer as CB
+    from hitl_slam_torch.models.enml.driver import consistency_metric
+    from hitl_slam_torch.parallel import sharded_solver as S
+    from hitl_slam_torch.parallel.mesh import make_mesh
+    from hitl_slam_torch.parallel.replicas import (batched_solve,
+                                                   make_perturbed_replicas,
+                                                   replica_table,
+                                                   shard_replicas)
+    from hitl_slam_torch.solver import bcr_kernel as B, joint, lm
+    from hitl_slam_torch.solver.lm import LMConfig
+
+    card = torch.device(DEVICE, 0)
+    config = LMConfig(max_iterations=MESH_ITERS)
+    out = {"card": smi, "device_count": torch.cuda.device_count()}
+    n_sharded, worst, times = 0, 0.0, {}
+
+    def lone_solve(problem, poses):
+        lm.solve(problem, poses, config)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = lm.solve(problem, poses, config)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def record_systems(mesh, problem, poses):
+        """The first iteration's batched BCR systems of a sharded solve."""
+        seen, real = [], B.bcr_solve
+
+        def spy(D, U, b):
+            seen.append((D.contiguous().clone(), U.contiguous().clone(),
+                         b.contiguous().clone()))
+            return real(D, U, b)
+
+        B.bcr_solve = spy
+        try:
+            S.sharded_lm_solve(mesh, problem, poses, LMConfig(
+                max_iterations=1))
+        finally:
+            B.bcr_solve = real
+        return seen[0]
+
+    # ---- (a) the repaired 1024-pose map on [cuda:0] x d ----
+    poses = repaired.poses
+    problem = joint.build_problem(poses, repaired.constraints)
+    lone, lone_ms = lone_solve(problem, poses)
+    # the CPU solves the card's problem: the same input floats
+    cpu_problem = _on(problem, "cpu")
+    out["map"] = {"poses": int(poses.shape[0]), "lone_wall_ms": lone_ms,
+                  "lone_iterations": int(lone.iterations)}
+    cpu_lone = int(lm.solve(cpu_problem, poses.cpu(), config).iterations)
+    out["map"]["lone_cpu_iterations"] = cpu_lone
+    for d in MESH_PARTITIONS:
+        mesh = make_mesh(1, d, [card] * d)
+        cpu_mesh = make_mesh(1, d, [torch.device("cpu")] * d)
+        S.sharded_lm_solve(mesh, problem, poses, config)      # warm-up
+        res, wall, nb, others, coll = _sharded_run(torch, mesh, problem,
+                                                   poses, config)
+        rec = _check_sharded(f"sharded d={d}", res, lone, nb, others, coll)
+        n_sharded += nb
+        cpu = S.sharded_lm_solve(cpu_mesh, cpu_problem, poses.cpu(), config)
+        dcpu = float((res.poses.cpu() - cpu.poses).abs().max())
+        dcost = abs(float(cpu.final_cost) - rec["final_cost"]) / max(
+            abs(float(cpu.final_cost)), 1e-30)
+        check(dcpu <= MESH_CPU_POSE_TOL and dcost <= MESH_CPU_COST_RTOL,
+              f"sharded d={d}: card poses {dcpu:.3e} and cost {dcost:.3e} "
+              f"(relative) from the CPU's")
+        dev_ms, ops = _device_only_profile(
+            torch, lambda: S.sharded_lm_solve(mesh, problem, poses, config))
+        rec.update(wall_ms=wall, card_vs_cpu=dcpu, card_vs_cpu_cost=dcost,
+                   device_ms=dev_ms, device_ops=ops, busy_share=dev_ms / wall,
+                   launches_per_iteration=ops / rec["iterations"],
+                   cpu_iterations=int(cpu.iterations))
+        if int(cpu.iterations) != rec["iterations"]:
+            rec["iteration_flip"] = dict(
+                input="the repaired golden_large map of phase 4",
+                lone_card=int(lone.iterations), lone_cpu=cpu_lone,
+                trial_costs_card=_trial_costs(mesh, problem, poses, config),
+                trial_costs_cpu=_trial_costs(cpu_mesh, cpu_problem,
+                                             poses.cpu(), config))
+            f = rec["iteration_flip"]
+            log(f"[mesh] FLIP sharded d={d}: {rec['iterations']} iterations "
+                f"on the card, {int(cpu.iterations)} on the CPU, on "
+                f"{f['input']}; trial costs on the card "
+                f"{[f'{c:.9e}' for c in f['trial_costs_card']]}, on the CPU "
+                f"{[f'{c:.9e}' for c in f['trial_costs_cpu']]}; the lone "
+                f"lm.solve on the same input: {f['lone_card']} on the card, "
+                f"{f['lone_cpu']} on the CPU")
+        D, U, b = record_systems(mesh, problem, poses)
+        err, t = _batched_case(torch, f"sharded d={d} first step", D, U, b,
+                               timed=True, rhs=7)
+        worst = max(worst, err)
+        times[d] = t
+        rec["bcr_batched"] = t
+        out["map"][f"d{d}"] = rec
+        log(f"[mesh] sharded LM, {poses.shape[0]} poses on [cuda:0] x {d}: "
+            f"{rec['iterations']} iterations in {wall:.2f} ms (lone solve "
+            f"{int(lone.iterations)} in {lone_ms:.2f} ms); cost "
+            f"{rec['final_cost']:.6e} (lone {rec['lone_final_cost']:.6e}), "
+            f"poses {rec['pose_diff_lone']:.3e} from the lone solve's, "
+            f"{dcpu:.3e} from the CPU's ({int(cpu.iterations)} iterations); "
+            f"batched bcr launches {nb} = iterations (B = {7 * d}, n = "
+            f"{poses.shape[0] // d}); {rec['gathered_floats_per_iteration']:.1f}"
+            f" gathered floats a partition an iteration, shifts of at most "
+            f"{rec['largest_shift_floats']}; device {dev_ms:.2f} ms in {ops} "
+            f"operations ({ops / rec['iterations']:.0f} an iteration), busy "
+            f"{100 * dev_ms / wall:.1f} % ({smi})")
+
+    # ---- (a) the iteration count on a replica of phase 15 ----
+    reps, tb = make_perturbed_replicas(repaired.poses.cpu().numpy(),
+                                       repaired.constraints, REPLICAS, seed=0)
+    r = MESH_COUNT_REPLICA
+    rposes = torch.as_tensor(reps[r], device=card)
+    problem = joint.build_problem(rposes, replica_table(tb, r))
+    cpu_problem = _on(problem, "cpu")
+    rlone, _ = lone_solve(problem, rposes)
+    out["replica"] = {"replica": r, "lone_iterations": int(rlone.iterations)}
+    for d in MESH_PARTITIONS:
+        mesh = make_mesh(1, d, [card] * d)
+        res, wall, nb, others, coll = _sharded_run(torch, mesh, problem,
+                                                   rposes, config)
+        rec = _check_sharded(f"replica {r} d={d}", res, rlone, nb, others,
+                             coll)
+        n_sharded += nb
+        cpu = S.sharded_lm_solve(make_mesh(1, d, [torch.device("cpu")] * d),
+                                 cpu_problem, rposes.cpu(), config)
+        dcpu = float((res.poses.cpu() - cpu.poses).abs().max())
+        dcost = abs(float(cpu.final_cost) - rec["final_cost"]) / max(
+            abs(float(cpu.final_cost)), 1e-30)
+        check(int(cpu.iterations) == rec["iterations"]
+              and dcpu <= MESH_COUNT_POSE_TOL and dcost <= MESH_CPU_COST_RTOL,
+              f"replica {r} d={d}: {rec['iterations']} iterations on the "
+              f"card, {int(cpu.iterations)} on the CPU; poses {dcpu:.3e} and "
+              f"cost {dcost:.3e} (relative) from the CPU's")
+        rec.update(wall_ms=wall, cpu_iterations=int(cpu.iterations),
+                   card_vs_cpu=dcpu, card_vs_cpu_cost=dcost)
+        out["replica"][f"d{d}"] = rec
+        log(f"[mesh] sharded LM, replica {r} of phase 15 on [cuda:0] x {d}: "
+            f"{rec['iterations']} iterations on the card = "
+            f"{int(cpu.iterations)} on the CPU (lone solve "
+            f"{int(rlone.iterations)}); cost {rec['final_cost']:.6e} from "
+            f"{rec['initial_cost']:.6e}, {dcost:.3e} (relative) from the "
+            f"CPU's; poses {dcpu:.3e} from the CPU's, "
+            f"{rec['pose_diff_lone']:.3e} from the lone solve's; batched bcr "
+            f"launches {nb}; {wall:.2f} ms")
+
+    # ---- (b) the 16384-pose chain, d = 8, against the f64 baseline ----
+    d = MESH_CHAIN_PARTITIONS
+    chain_np, table = seeded_chain(MESH_CHAIN_POSES, 0, card)
+    chain = torch.as_tensor(chain_np, device=card)
+    problem = joint.build_problem(chain, table)
+    mesh = make_mesh(1, d, [card] * d)
+    lone, lone_ms = lone_solve(problem, chain)
+    S.sharded_lm_solve(mesh, problem, chain, config)          # warm-up
+    res, wall, nb, others, coll = _sharded_run(torch, mesh, problem, chain,
+                                               config)
+    # 20 iterations stop both solves short of the optimum of so long a
+    # chain (on the CPU at 1024 poses: 1.26 m apart after 20 iterations,
+    # 0.021 m after both converged), so their poses are not compared
+    rec = _check_sharded(f"chain d={d}", res, lone, nb, others, coll,
+                         converged=False)
+    n_sharded += nb
+    t0 = time.perf_counter()
+    _, f64_cost, f64_iters = cpu_lm_solve(chain_np, _np_table(table),
+                                          max_iterations=MESH_ITERS)
+    f64_s = time.perf_counter() - t0
+    rel = abs(rec["final_cost"] - f64_cost) / f64_cost
+    lone_rel = abs(rec["lone_final_cost"] - f64_cost) / f64_cost
+    D, U, b = record_systems(mesh, problem, chain)
+    err, t = _batched_case(torch, f"chain d={d} first step", D, U, b,
+                           timed=True, rhs=7)
+    worst = max(worst, err)
+    times["chain"] = t
+    rec.update(poses=MESH_CHAIN_POSES, partitions=d, wall_ms=wall,
+               lone_wall_ms=lone_ms, lone_iterations=int(lone.iterations),
+               f64_cost=float(f64_cost), f64_iterations=int(f64_iters),
+               f64_wall_s=f64_s, cost_rel_f64=rel, lone_cost_rel_f64=lone_rel,
+               bcr_batched=t)
+    out["chain"] = rec
+    log(f"[mesh] sharded LM, {MESH_CHAIN_POSES}-pose chain on [cuda:0] x "
+        f"{d}: {rec['iterations']} iterations in {wall:.2f} ms, lone solve "
+        f"{int(lone.iterations)} in {lone_ms:.2f} ms; cost "
+        f"{rec['final_cost']:.6e}, lone {rec['lone_final_cost']:.6e}, f64 "
+        f"cpu_lm_solve {f64_cost:.6e} ({f64_iters} iterations, {f64_s:.2f} "
+        f"s): relative {rel:.3e} (lone {lone_rel:.3e}); batched bcr launches "
+        f"{nb} (B = {7 * d}, n = {MESH_CHAIN_POSES // d}) ({smi})")
+
+    # ---- (c) the replica batch of phase 15 on a replica mesh ----
+    rmesh = make_mesh(MESH_REPLICA_ENTRIES, 1, [card] * MESH_REPLICA_ENTRIES)
+    _reset_counts()
+    got = batched_solve(*shard_replicas(rmesh, reps, tb),
+                        LMConfig(max_iterations=REPLICA_ITERS), device=DEVICE)
+    torch.cuda.synchronize()
+    same = all(torch.equal(getattr(got, k), getattr(replica_out, k))
+               for k in ("poses", "final_cost", "iterations", "converged"))
+    check(same, "replicas on the replica mesh differ from phase 15's batch")
+    out["replicas"] = dict(entries=MESH_REPLICA_ENTRIES, bit_equal=same,
+                           launches_bcr_batched=B.batched_launches.count)
+    log(f"[mesh] {REPLICAS} replicas placed on [cuda:0] x "
+        f"{MESH_REPLICA_ENTRIES} (replica axis): bit-equal to phase 15's "
+        f"batch")
+
+    # ---- (d) the checkerboard's mesh branch ----
+    o = L.EnmlOptions()
+    st, _, _, _ = _episode_state(stream, DEVICE)
+    args = (st.points, st.normals, st.point_mask, st.poses)
+    cmesh = make_mesh(MESH_CB_ENTRIES, 1, [card] * MESH_CB_ENTRIES)
+    p1, c1 = CB.checkerboard_localize(*args, o)
+    pm, cm = CB.checkerboard_localize(*args, o, mesh=cmesh)
+    _sync()
+    dp = float((pm - p1).abs().max())
+    dc = float((cm - c1).abs().max())
+    check(dp <= MESH_CB_TOL and dc <= MESH_CB_TOL,
+          f"checkerboard mesh branch: {dp:.3e} (poses), {dc:.3e} "
+          f"(covariances) from mesh=None")
+    sst = scale["state"]
+    sargs = (sst.points, sst.normals, sst.point_mask, sst.poses)
+    P = sst.num_poses
+    CB.checkerboard_localize(*(a[:4 * 10] for a in sargs), o, mesh=cmesh)
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ps, cs = CB.checkerboard_localize(*sargs, o, mesh=cmesh)
+    _sync()
+    wall_s = time.perf_counter() - t0
+    peak = _peak_memory_mb(torch)
+    pn, _ = CB.checkerboard_localize(*sargs, o, chunk=16)
+    ps_np = ps.cpu().numpy()
+    check(np.isfinite(ps_np).all() and bool(torch.isfinite(cs).all()),
+          "checkerboard mesh branch, scale map: not finite")
+    sub = slice(0, P, 16)
+    before = consistency_metric(scale["poses0"][sub], scale["pcs"][sub])
+    after = consistency_metric(ps_np[sub], scale["pcs"][sub])
+    check(after <= 1.05 * before,
+          f"checkerboard mesh branch, scale map: consistency {before:.4f} -> "
+          f"{after:.4f}")
+    dscale = float((ps - pn).abs().max())
+    out["checkerboard"] = dict(
+        entries=MESH_CB_ENTRIES, test_size_pose_diff=dp, test_size_cov_diff=dc,
+        scale=dict(nodes=P, W=o.max_history, wall_s=wall_s,
+                   ms_per_node=wall_s * 1e3 / P, peak_mib=peak,
+                   consistency=[before, after], from_chunked=dscale))
+    log(f"[mesh] checkerboard mesh branch on [cuda:0] x {MESH_CB_ENTRIES}: "
+        f"test size {dp:.3e} m / {dc:.3e} (covariances) from mesh=None; "
+        f"scale map ({P} nodes, W = {o.max_history}, every window of a "
+        f"parity in one batch) {wall_s:.3f} s, {wall_s * 1e3 / P:.3f} ms a "
+        f"node, peak memory {peak:.0f} MiB, consistency {before:.4f} -> "
+        f"{after:.4f}, {dscale:.3e} from the chunked run ({smi})")
+
+    # ---- (e) one partition a card, where there are several ----
+    out["cards"] = _sharded_over_cards(torch, repaired, config)
+    return out, n_sharded, worst, times
+
+
+# ---------------------------------------------------------------- phase 17
 
 def phase_times(torch, state, log_entries):
     """Each kernel at the main path's shapes (em_scan on the golden_large
@@ -2258,7 +2745,6 @@ def main() -> int:
         enml, stream, scale, bag = phase_enml(torch, smi, tmp)
         # ---- 11. the checkerboard localizer ----
         enml["checkerboard"] = phase_checkerboard(torch, smi, stream, scale)
-        del scale
         # ---- 12. an interactive EnML session with loop corrections ----
         enml["session"], s_em, s_bcr = phase_session(torch, smi, tmp)
         n_em, n_bcr = n_em + s_em, n_bcr + s_bcr
@@ -2270,15 +2756,20 @@ def main() -> int:
         n_em, n_bcr = n_em + g_em, n_bcr + g_bcr
         print(json.dumps({"enml": enml}), flush=True)
         # ---- 15. the replica batch, repair_step, the native libraries ----
-        replicas, n_batched, batched_err, batched_times = phase_replicas(
-            torch, smi, repaired, small, small_log, bag, tmp)
+        replicas, n_batched, batched_err, batched_times, replica_out = (
+            phase_replicas(torch, smi, repaired, small, small_log, bag, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"replicas": replicas}), flush=True)
+    # ---- 16. the mesh ----
+    mesh, n_sharded, sharded_err, sharded_times = phase_mesh(
+        torch, smi, repaired, stream, scale, replica_out)
+    del scale, replica_out
+    print(json.dumps({"mesh": mesh}), flush=True)
     log(smi)
-    # ---- 16. times ----
+    # ---- 17. times ----
     times = phase_times(torch, state, large_log)
-    # ---- 17. kernels line ----
+    # ---- 18. kernels line ----
     kernels = [
         {"name": "em_scan", "route": "cuda",
          "source": "hitl_slam_torch/csrc/em_scan.cu",
@@ -2291,15 +2782,19 @@ def main() -> int:
         {"name": "bcr_solve_batched", "route": "cuda",
          "source": "hitl_slam_torch/csrc/bcr.cu",
          "replaces": "hitl_slam_tpu/solver/pallas_bcr.py:94",
-         "launches": n_batched, "max_abs_err": batched_err,
+         "launches": n_batched + n_sharded,
+         "launches_replicas": n_batched, "launches_sharded": n_sharded,
+         "max_abs_err": max(batched_err, sharded_err),
          **{k: v for k, v in batched_times[1024].items()
             if k not in ("B", "n")},
          "at": f"B={REPLICAS}, n=1024",
-         "n64": batched_times[64], "n16384": batched_times[16384]},
+         "n64": batched_times[64], "n16384": batched_times[16384],
+         "sharded": {f"d{d}": sharded_times[d] for d in MESH_PARTITIONS}
+         | {"chain": sharded_times["chain"]}},
     ]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    # ---- 18. contract line ----
+    # ---- 19. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -21,9 +21,13 @@ scatter, covariance pass). Then the replica batch of BASELINE config #5 on
 the repaired map (--replicas perturbed copies, 20 LM iterations): the wall
 ms of batched_solve with the batched BCR kernel and with its plain batched
 twin, solves/s, the per-replica iteration counts, and the wall of the same
-solves run one after another. Correctness fields are against those files;
-nothing of JAX is imported. Runs on the card unless --device says
-otherwise.
+solves run one after another. With --sharded D, the pose-sharded LM on a
+mesh of D partitions on the device (20 LM iterations) beside the lone
+lm.solve, each wall ms for the solve alone: on the repaired map (1024 poses)
+and on a seeded chain 16 times as long (16384 poses); and the checkerboard
+localizer's mesh branch (D replica entries) on the same stream, ms a node
+at W = 10. Correctness fields are against those files; nothing of JAX is
+imported. Runs on the card unless --device says otherwise.
 """
 
 from __future__ import annotations
@@ -116,12 +120,12 @@ def refine_split(sync, state, matcher: str, max_iterations: int,
     }
 
 
-def checkerboard_split(sync, device) -> dict:
+def checkerboard_split(sync, device, mesh=None) -> dict:
     """The checkerboard EnML localizer on tests/test_enml.py's figure-8
     stream (160 scans, 240 beams: 128 nodes), warm (the second of two
     calls): wall ms, ms a node, and its stage split (set-up, matches,
     batched GN steps, carry and scatter, covariance pass; synchronised at
-    every boundary)."""
+    every boundary); with `mesh`, its mesh branch."""
     steps = 160
     import numpy as np
 
@@ -139,11 +143,11 @@ def checkerboard_split(sync, device) -> dict:
     st = make_map_state(poses, np.zeros((len(poses), 3, 3), np.float32),
                         pcs, ncs, device)
     args = (st.points, st.normals, st.point_mask, st.poses, EnmlOptions())
-    checkerboard_localize(*args)
+    checkerboard_localize(*args, mesh=mesh)
     stages = {}
     sync()
     t0 = time.perf_counter()
-    checkerboard_localize(*args, stage_ms=stages)
+    checkerboard_localize(*args, mesh=mesh, stage_ms=stages)
     sync()
     wall_ms = (time.perf_counter() - t0) * 1e3
     return {"scans": steps, "nodes": st.num_poses, "wall_ms": wall_ms,
@@ -203,6 +207,83 @@ def replica_split(sync, state, num_replicas: int) -> dict:
     }
 
 
+def seeded_chain(n: int, seed: int, device):
+    """A drifting n-pose chain and a table of 3 LINE_SEGMENT rows, made as
+    tests/test_parallel.py's _chain_poses and _table make theirs (numpy,
+    from `seed`): (poses [n, 3] f32 numpy, ConstraintTable of 16 rows on
+    `device`)."""
+    import numpy as np
+
+    from .core.state import ConstraintTable, CorrectionType, table_from_numpy
+
+    rng = np.random.default_rng(seed)
+    p = np.zeros((n, 3), np.float32)
+    for i in range(1, n):
+        p[i, 2] = p[i - 1, 2] + rng.normal(0, 0.1)
+        step = np.array([np.cos(p[i - 1, 2]), np.sin(p[i - 1, 2])]) * 0.5
+        p[i, :2] = p[i - 1, :2] + step + rng.normal(0, 0.02, 2)
+    t = {k: v.numpy() for k, v in vars(ConstraintTable.empty(16, "cpu")
+                                        ).items()}
+    for i in range(3):
+        t["ctype"][i] = int(CorrectionType.LINE_SEGMENT)
+        t["constrained"][i] = int(rng.integers(n // 2, n))
+        t["anchor"][i] = int(rng.integers(0, n // 4))
+        t["delta_parallel"][i] = float(rng.normal())
+        t["delta_perpendicular"][i] = float(rng.normal())
+        t["delta_angle"][i] = float(rng.normal() * 0.2)
+        t["penalty_dir"][i] = 0.3
+        t["active"][i] = True
+    return p, table_from_numpy(t, device)
+
+
+def sharded_split(sync, state, partitions: int, device) -> dict:
+    """The pose-sharded LM on a mesh of `partitions` entries on `device`,
+    LMConfig(max_iterations=20), beside the lone lm.solve of the same
+    problem (each warm, the solve alone timed): on `state` (the repaired
+    map) and on a seeded chain 16 times as long; then the checkerboard's
+    mesh branch with `partitions` replica entries."""
+    import torch
+
+    from .parallel.mesh import make_mesh
+    from .parallel.sharded_solver import sharded_lm_solve
+    from .solver import joint, lm
+
+    config = lm.LMConfig(max_iterations=20)
+    P = state.num_poses
+    chain, table = seeded_chain(16 * P, 0, device)
+    mesh = make_mesh(1, partitions, [device] * partitions)
+    out = {"partitions": partitions}
+    for name, poses, tab in (
+            ("map", state.poses, state.constraints),
+            ("chain", torch.as_tensor(chain, device=device), table)):
+        problem = joint.build_problem(poses, tab)
+        runs = {}
+        for kind, fn in (
+                ("sharded", lambda: sharded_lm_solve(mesh, problem, poses,
+                                                     config)),
+                ("lone", lambda: lm.solve(problem, poses, config))):
+            fn()
+            sync()
+            t0 = time.perf_counter()
+            res = fn()
+            sync()
+            runs[kind] = (res, (time.perf_counter() - t0) * 1e3)
+        (sh, sh_ms), (lo, lo_ms) = runs["sharded"], runs["lone"]
+        out[name] = {
+            "poses": int(poses.shape[0]), "wall_ms": sh_ms,
+            "lone_wall_ms": lo_ms, "iterations": int(sh.iterations),
+            "lone_iterations": int(lo.iterations),
+            "final_cost": float(sh.final_cost),
+            "lone_final_cost": float(lo.final_cost),
+            "max_pose_diff": float((sh.poses - lo.poses).abs().max()),
+        }
+    cb = checkerboard_split(sync, device, make_mesh(partitions, 1, [
+        device] * partitions))
+    out["checkerboard_mesh"] = {k: cb[k] for k in ("nodes", "wall_ms",
+                                                    "ms_per_node")}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="hitl-slam-torch-bench", description=__doc__,
@@ -214,6 +295,8 @@ def main(argv=None) -> int:
     ap.add_argument("--refine-iterations", type=int, default=30)
     ap.add_argument("--replicas", type=int, default=32,
                     help="perturbed replicas of the batched solve (0: skip)")
+    ap.add_argument("--sharded", type=int, default=0,
+                    help="partitions of the pose-sharded solve (0: skip)")
     ap.add_argument("--data", default=DATA,
                     help="directory holding golden_large.* (default: "
                          "tests/data of the checkout)")
@@ -311,6 +394,8 @@ def main(argv=None) -> int:
     enml = checkerboard_split(sync, device)
     replicas = (replica_split(sync, repaired, args.replicas)
                 if args.replicas > 0 else None)
+    sharded = (sharded_split(sync, repaired, args.sharded, device)
+               if args.sharded > 0 else None)
 
     result = {
         **device_facts(torch, device),
@@ -344,6 +429,7 @@ def main(argv=None) -> int:
                         "vectors": len(vectors)},
         "enml_checkerboard": enml,
         "replica_batch": replicas,
+        "sharded": sharded,
     }
     print(json.dumps(result))
     return 0

@@ -26,6 +26,11 @@ one window after another, feeding precomputed matches to the batched GN
 steps batch well). Both routes run each match round as match -> batched GN
 steps, which is what the reference's vmapped window solve computes.
 
+On a device mesh (`mesh=`), the solve passes take every window of a parity
+as one batch, and each device group of the mesh's first axis solves its
+share of the windows (the reference shards the vmapped window solve over
+that axis).
+
 Covariances: an evaluation pass over the even tiling takes every pose's
 3x3 marginal from its window Hessian at the FINAL estimates, rotated into
 the pose frame; a window's first pose is pinned, so a second pass over the
@@ -46,6 +51,7 @@ import torch
 
 from ...ops.correspond import grid_match
 from ...ops.geometry import angle_mod, rotate
+from ...parallel.mesh import groups_of
 from .localizer import (EnmlOptions, _brute_window_match, _match_gates,
                         _odometry_targets, _pair_mask, window_gn_batched)
 
@@ -218,17 +224,24 @@ class _Tiling:
     any_active: np.ndarray  # [B] host flags
     fill_odd: Tensor     # [Bpad * W] covariance rows of the odd tiling
 
+    @property
+    def n_chunked(self) -> int:
+        """Windows in the chunks of ck that hold the real ones."""
+        return -(-self.B // self.ck) * self.ck
+
 
 def _tiling(parity, half, W, P, chunk, points, normals, point_mask,
-            odo) -> _Tiling:
+            odo, n_shares=1) -> _Tiling:
     first = parity * half
     n_win = -(-(P - first) // W) if P > first else 0
     B = max(n_win, 1)
     starts = first + W * np.arange(B)
     # the batch width is clamped to the real window count: a padding
-    # window costs as much as a real one
+    # window costs as much as a real one; on a mesh the windows also split
+    # into n_shares equal shares
     ck = max(min(chunk, B), 1)
-    Bpad = -(-B // ck) * ck
+    step = math.lcm(ck, n_shares)
+    Bpad = -(-B // step) * step
     starts = np.concatenate([starts, np.full(Bpad - B, P + W)])
     idx = starts[:, None] + np.arange(W)[None, :]
     active = idx < P
@@ -294,22 +307,25 @@ def checkerboard_localize(
     n_passes: int = 2,
     chunk: int = 8,         # windows solved as one batch (memory bound)
     force_grid: bool = False,  # use the grid matcher regardless of size
-    mesh=None,              # the reference's device mesh: not in the port
+    mesh=None,              # parallel.mesh.Mesh: windows over its 1st axis
     stage_ms: dict | None = None,  # receives wall ms per stage (synchronised)
 ) -> tuple[Tensor, Tensor]:
     """Full-trajectory batched sweep. Returns (poses [P, 3], covariances
     [P, 3, 3]) on the inputs' device.
+
+    With a `mesh`, the solve passes take every window of a parity as one
+    batch, padded to a multiple of the mesh's first axis with inactive
+    windows, and each device group of that axis solves its contiguous share
+    with the matcher inside the window solve (the reference's mesh branch:
+    the brute matcher batched, the grid matcher window by window), its
+    results coming back to the inputs' device. The covariance pass is
+    chunked as without a mesh.
 
     `stage_ms`, when given, receives the wall ms of the window set-up
     ("setup"), the matches of the solve passes ("match"), the batched GN
     steps ("gn"), the SE(2) carry and the scatter ("carry_scatter") and the
     covariance pass with its own matches ("covariance"), synchronising the
     device at every boundary."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "checkerboard_localize(mesh=...): the windows sharded over a "
-            "device mesh are not ported (ROADMAP queue 1, item 3: the "
-            "multi-device pieces)")
     o = options
     P, N, _ = points.shape
     W = min(o.max_history, P)
@@ -324,11 +340,13 @@ def checkerboard_localize(
     eye = torch.eye(3, dtype=dtype, device=dev)
 
     odo = _odometry_targets(initial_poses, o)
+    entries = [] if mesh is None else mesh.axis(mesh.axis_names[0])
+    n_shares = max(len(entries), 1)
     tilings = [_tiling(0, half, W, P, chunk, points, normals, point_mask,
-                       odo)]
+                       odo, n_shares)]
     if P > half:
         tilings.append(_tiling(1, half, W, P, chunk, points, normals,
-                               point_mask, odo))
+                               point_mask, odo, n_shares))
     lap("setup")
 
     def match_chunk(tl, sl, wposes):
@@ -352,9 +370,45 @@ def checkerboard_localize(
             match_fn=lambda _p: (tgt, valid), w_pin=tl.pin[sl],
             eval_only=eval_only, need_hessian=eval_only, gates=gates)
 
-    def half_pass(poses, tl):
+    def mesh_solve(poses, tl):
+        """Every window of the tiling, each device group its contiguous
+        share, the matcher inside the window solve."""
+        share = tl.idx.shape[0] // n_shares
         new_w = []
-        for lo in range(0, tl.idx.shape[0], tl.ck):
+        for grp in groups_of(entries):
+            g_dev = grp.device
+            sl = slice(grp.lo * share, grp.hi * share)
+            pts, nrm, msk = (a[sl].to(g_dev) for a in (tl.pts, tl.nrm,
+                                                        tl.mask))
+            w0 = poses.to(g_dev)[tl.idx[sl].to(g_dev)]
+            match_fn = None
+            if use_grid:
+                # padding windows (from tl.B on) match nothing
+                real = min(max(tl.B - sl.start, 0), sl.stop - sl.start)
+
+                def match_fn(wp, pts=pts, nrm=nrm, msk=msk, real=real):
+                    tgt = torch.zeros(wp.shape[0], M, dtype=torch.long,
+                                      device=wp.device)
+                    valid = torch.zeros(wp.shape[0], M, dtype=torch.bool,
+                                        device=wp.device)
+                    for i in range(real):
+                        t_, v_ = _make_match_fn(
+                            pts[i].reshape(M, 2), nrm[i].reshape(M, 2),
+                            msk[i].reshape(M), W, N, o)(wp[i])
+                        tgt[i], valid[i] = t_, v_
+                    return tgt, valid
+            wp = window_gn_batched(
+                w0, pts, nrm, msk, *(c[sl].to(g_dev) for c in tl.chain), o,
+                match_fn=match_fn, w_pin=tl.pin[sl].to(g_dev),
+                need_hessian=False, gates=_match_gates(o, g_dev))[0]
+            new_w.append(torch.where(tl.active[sl, :, None].to(g_dev), wp,
+                                     w0).to(dev))
+        lap("gn")
+        return new_w
+
+    def chunked_solve(poses, tl):
+        new_w = []
+        for lo in range(0, tl.n_chunked, tl.ck):
             sl = slice(lo, lo + tl.ck)
             w0 = poses[tl.idx[sl]]
             wp = w0
@@ -364,6 +418,10 @@ def checkerboard_localize(
                 wp = gn_chunk(tl, sl, wp, tgt, valid)[0]
                 lap("gn")
             new_w.append(torch.where(tl.active[sl, :, None], wp, w0))
+        return new_w
+
+    def half_pass(poses, tl):
+        new_w = (chunked_solve if mesh is None else mesh_solve)(poses, tl)
         new_w = torch.cat(new_w)[:tl.B]                          # [B, W, 3]
 
         # SE(2) carry: boundary correction at each window's last ACTIVE pose
@@ -394,22 +452,23 @@ def checkerboard_localize(
     # odd tiling the even tiling's window-first poses (0, W, 2W, ...) ----
     def eval_tiling(tl):
         covs = []
-        for lo in range(0, tl.idx.shape[0], tl.ck):
+        for lo in range(0, tl.n_chunked, tl.ck):
             sl = slice(lo, lo + tl.ck)
             w0 = poses[tl.idx[sl]]
             tgt, valid = match_chunk(tl, sl, w0)
             np_, H = gn_chunk(tl, sl, w0, tgt, valid, eval_only=True)
             covs.append(window_covariances(H, tl.active[sl], np_[..., 2]))
-        return torch.cat(covs).reshape(-1, 3, 3)                # [Bpad*W]
+        return torch.cat(covs).reshape(-1, 3, 3)         # [n_chunked * W]
 
     even = tilings[0]
     pinned = torch.arange(W, device=dev) == 0
-    rows = torch.where(even.active & ~pinned, even.idx, P).reshape(-1)
+    rows = torch.where(even.active & ~pinned, even.idx, P)[:even.n_chunked]
     covariances = torch.zeros((P + 1, 3, 3), dtype=dtype, device=dev)
-    covariances.index_put_((rows,), eval_tiling(even))
+    covariances.index_put_((rows.reshape(-1),), eval_tiling(even))
     if len(tilings) > 1:
-        covariances.index_put_((tilings[1].fill_odd,),
-                               eval_tiling(tilings[1]))
+        odd = tilings[1]
+        covariances.index_put_((odd.fill_odd[:odd.n_chunked * W],),
+                               eval_tiling(odd))
     covariances = covariances[:P]
     covariances[0] = eye * 1e-6
     lap("covariance")

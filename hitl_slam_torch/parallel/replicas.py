@@ -13,8 +13,12 @@ reduction on the whole batch's footprint (B * P * C <= 384M), because its
 vmap stacks B selectors at once, and takes the scatter route above it. The
 port never holds more than one selector, so each replica takes the lone
 solve's gate (P * C <= ONEHOT_BUDGET), and each replica's reduction order is
-exactly the lone solve's. The reference's `shard_replicas` places the
-replica axis on a device mesh and has no counterpart on one device.
+exactly the lone solve's.
+
+`shard_replicas` places contiguous chunks of the replicas on the mesh's
+'replica' axis (parallel/mesh.py); `batched_solve` of placed replicas runs
+one batched LM a device group and returns the results in replica order. On
+a mesh that repeats one device that is one group, the unsharded call.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 from ..core.state import ConstraintTable
 from ..solver.joint import JointProblem, build_problem
 from ..solver.lm import LMConfig, LMResult, solve_batched
+from . import mesh as M
 
 Tensor = torch.Tensor
 
@@ -95,8 +100,26 @@ def batched_solve(
 ) -> LMResult:
     """Build every replica's problem and run one batched LM over them on
     `device`: an LMResult of [B, P, 3] poses and [B] costs, iteration
-    counts, convergence flags and exit damping."""
+    counts, convergence flags and exit damping. Replicas placed by
+    `shard_replicas` run where they were placed, one batched LM a device
+    group, and come back in replica order on the first group's device."""
+    if isinstance(poses, M.Placed):
+        out = [batched_solve(p, tb, config, grp.device) for p, tb, grp in
+               zip(poses.shares, table.shares, poses.groups)]
+        if len(out) == 1:
+            return out[0]
+        dev = poses.groups[0].device
+        return LMResult(**{f.name: torch.cat([getattr(o, f.name).to(dev)
+                                              for o in out])
+                           for f in fields(LMResult)})
     poses = torch.as_tensor(poses, dtype=torch.float32, device=device)
     table = ConstraintTable(**{f.name: getattr(table, f.name).to(device)
                                for f in fields(table)})
     return solve_batched(build_problems(poses, table), poses, config)
+
+
+def shard_replicas(mesh: M.Mesh, poses_b: Tensor, table_b: ConstraintTable):
+    """Place the replica axis across the mesh's 'replica' axis: B / n_replica
+    contiguous replicas an entry, each device group's on its device."""
+    sh = M.replica_sharding(mesh)
+    return M.device_put(poses_b, sh), M.device_put(table_b, sh)

@@ -113,14 +113,17 @@ def launch(D: Tensor, U: Tensor, b: Tensor, plan: LaunchPlan,
     ptrs = (D.data_ptr(), U.data_ptr(), b.data_ptr(), x.data_ptr(),
             None if state is None else state.data_ptr())
     lib = cuda_build.library()
-    if batch is None:
-        code = lib.hitl_bcr_solve(*ptrs, *args)
-        cuda_build.check(code, "bcr_solve")
-        launches.count += 1
-    else:
-        code = lib.hitl_bcr_solve_batched(*ptrs, batch, *args)
-        cuda_build.check(code, "bcr_solve_batched")
-        batched_launches.count += 1
+    # the launch goes to the current device: the tensors' (a mesh spreads a
+    # solve over several cards)
+    with torch.cuda.device(D.device):
+        if batch is None:
+            code = lib.hitl_bcr_solve(*ptrs, *args)
+            cuda_build.check(code, "bcr_solve")
+            launches.count += 1
+        else:
+            code = lib.hitl_bcr_solve_batched(*ptrs, batch, *args)
+            cuda_build.check(code, "bcr_solve_batched")
+            batched_launches.count += 1
     return x
 
 

@@ -25,8 +25,8 @@ Default linear solver: the CUDA block-cyclic-reduction kernel for CUDA
 tensors (its batched route for `solve_batched`), its plain torch version for
 CPU tensors (solver/bcr_kernel.py), at every pose count.
 
-The reference's `solve_jit` is `jax.jit` of `solve`; the port has no
-compilation step to wrap, so it has no counterpart of that name.
+The reference's `solve_jit` is `jax.jit` of `solve`; the port runs eagerly,
+so its `solve_jit` is `solve`.
 """
 
 from __future__ import annotations
@@ -167,6 +167,13 @@ def solve(
         iterations=torch.tensor(it, dtype=torch.int32, device=poses0.device),
         converged=done, final_mu=mu,
     )
+
+
+def solve_jit(problem: JointProblem, poses0: Tensor,
+              config: LMConfig = LMConfig(),
+              use_soa: bool = True) -> LMResult:
+    """`solve` under the reference's name for its jitted form."""
+    return solve(problem, poses0, config, use_soa=use_soa)
 
 
 def solve_batched(

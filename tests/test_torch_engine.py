@@ -269,43 +269,47 @@ def test_engine_public_names_cover_the_reference():
 
 
 def test_signatures_follow_the_reference():
-    """cycle_step, queue_chain, build_problem, lm.solve and
-    load_stfs_covars take the reference's parameters in the reference's
-    order; lm.solve may add only the keyword-only `accepts` after them."""
+    """cycle_step, queue_chain, build_problem, lm.solve, load_stfs_covars,
+    sharded_lm_solve and checkerboard_localize take the reference's
+    parameters in the reference's order; lm.solve may add only the
+    keyword-only `accepts` after them, checkerboard_localize only
+    `stage_ms`."""
     import inspect
 
     from hitl_slam_torch.io import stfs
+    from hitl_slam_torch.models.enml import parallel_localizer
     from hitl_slam_torch.models.hitl import cycle
+    from hitl_slam_torch.parallel import sharded_solver
     from hitl_slam_torch.solver import joint, lm
     from hitl_slam_tpu.io import stfs as jstfs
+    from hitl_slam_tpu.models.enml import parallel_localizer as jpl
     from hitl_slam_tpu.models.hitl import cycle as jcycle
+    from hitl_slam_tpu.parallel import sharded_solver as jss
     from hitl_slam_tpu.solver import joint as jjoint, lm as jlm
 
     def params(f):
         f = getattr(f, "__wrapped__", f)
         return [p for p in inspect.signature(f).parameters
-                if p != "accepts"]
+                if p not in ("accepts", "stage_ms")]
 
     for got, want in ((cycle.cycle_step, jcycle.cycle_step),
                       (cycle.queue_chain, jcycle.queue_chain),
                       (joint.build_problem, jjoint.build_problem),
                       (lm.solve, jlm.solve),
-                      (stfs.load_stfs_covars, jstfs.load_stfs_covars)):
+                      (stfs.load_stfs_covars, jstfs.load_stfs_covars),
+                      (sharded_solver.sharded_lm_solve, jss.sharded_lm_solve),
+                      (parallel_localizer.checkerboard_localize,
+                       jpl.checkerboard_localize)):
         assert params(got) == params(want), got.__name__
+    assert list(inspect.signature(
+        parallel_localizer.checkerboard_localize).parameters)[-1] == "stage_ms"
     assert (inspect.signature(lm.solve).parameters["accepts"].kind
             is inspect.Parameter.KEYWORD_ONLY)
 
 
-# what the port leaves to its multi-device slice, and what has no
-# counterpart in torch: the device mesh, the sharded LM, the replicas'
-# placement on a mesh, the numpy/scipy baselines, and jax.jit of lm.solve
-NAMES_LEFT = {
-    "parallel/mesh": None, "parallel/sharded_solver": None,
-    "baselines/cpu_lm": None, "baselines/cpu_refine": None,
-    "baselines/__init__": None,
-    "parallel/replicas": {"shard_replicas"},
-    "solver/lm": {"solve_jit"},
-}
+# what the port has yet to port: a module (None) or names of a module;
+# nothing is left
+NAMES_LEFT = {}
 # the two TPU kernels' modules, ported under other names; in them the
 # Pallas entry and the Pallas grid tile have CUDA counterparts of other names
 RENAMED = {"ops/pallas_em": "ops/em_scan",
@@ -337,8 +341,7 @@ def _public_names(path):
 def test_every_reference_module_has_its_names_in_the_port():
     """Every module of hitl_slam_tpu/ has a counterpart in hitl_slam_torch/
     that defines each of its public top-level names (functions, classes,
-    constants), but for the multi-device names, the baselines and
-    solve_jit (NAMES_LEFT)."""
+    constants), but for what NAMES_LEFT lists (now nothing)."""
     import glob
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -876,7 +879,8 @@ def test_bench_prints_one_json_line(tmp_path, capsys):
     shutil.copy(os.path.join(DATA, "golden_expected_poses_tight.txt"),
                 tmp_path / "golden_large_expected_poses.txt")
     assert bench.main(["--device", "cpu", "--replays", "3", "--data",
-                       str(tmp_path), "--refine-iterations", "5"]) == 0
+                       str(tmp_path), "--refine-iterations", "5",
+                       "--sharded", "4"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1
     out = json.loads(lines[0])
@@ -910,4 +914,13 @@ def test_bench_prints_one_json_line(tmp_path, capsys):
               "covariance_ms")
     assert all(cb[k] > 0 for k in stages)
     assert sum(cb[k] for k in stages) <= cb["wall_ms"] * 1.01
+    sh = out["sharded"]
+    assert sh["partitions"] == 4
+    for name, poses in (("map", 64), ("chain", 1024)):
+        r = sh[name]
+        assert r["poses"] == poses and r["wall_ms"] > 0
+        assert r["lone_wall_ms"] > 0 and 0 < r["iterations"] <= 20
+        assert r["final_cost"] <= r["lone_final_cost"] * 1.05 + 1e-4
+    assert sh["checkerboard_mesh"]["nodes"] == 128
+    assert sh["checkerboard_mesh"]["ms_per_node"] > 0
     assert bench.main(["--device", "cpu", "--replays", "0"]) == 2
