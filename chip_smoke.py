@@ -85,12 +85,14 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      poses within the reference's criteria of the lone lm.solve, poses
      within 1e-4 of the same sharded solve on the CPU (an iteration count
      that differs there, at the cost's f32 floor, is reported with both
-     runs' trial costs), the batched BCR route launched once an iteration
-     and nothing else (counts zeroed just before, read just after), the
-     mesh's collective counter within the reference's volume bounds, and
-     the first iteration's batched systems against lone launches and the
-     twin, with their times, the bound and the dense library solve of the
-     function they compute (d systems, each against 7 right-hand sides);
+     runs' trial costs), the multi BCR route launched once an iteration
+     and nothing else, the batched route not at all (counts zeroed just
+     before, read just after), the mesh's collective counter within the
+     reference's volume bounds, and the first iteration's multi call (d
+     systems, each against 7 right-hand sides) with each column against
+     lone launches (bit-equal) and the twin, with its times, the bound,
+     the dense library solve of the same function, and the old call of
+     PR 9 (D and U copied 7 times, the batched route on 7d systems);
      then the same on replica 0 of phase 15, whose LM ends on real
      decreases, with the card's iteration count equal to the CPU's;
      (b) the same at 16384 poses (a seeded
@@ -100,14 +102,18 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      [cuda:0] x 4: the test-size stream within 1e-4 of mesh=None, the
      scale map at W = 10 with wall, ms a node and peak memory; (e) the
      sharded LM one partition a card where the machine has several cards
-     (said when it does not run); then one `{"mesh": {...}}` line;
+     (said when it does not run); then the multi route against lone
+     launches and its twin on S systems x 7 right-hand sides at n = 64,
+     1024, 16384 and 32768 (the last two the levels route), timed but at
+     32768; then one `{"mesh": {...}}` line;
  17. times at the main path's shapes: each kernel by CUDA events (host
      overhead included) and by torch.profiler (its own device time), its
      plain version, its bound from the shapes, and for BCR
      torch.linalg.solve on the dense system; BCR also at n = 64, 16384
      and 32768;
  18. a `{"kernels": [...]}` line with launches, agreement, times and bounds
-     (the batched route's launches from phases 15 and 16);
+     (the batched route's launches from phase 15, the multi route's from
+     phase 16);
  19. the last line: {"ok": true, "device": {...}}.
 
 scripts/compare_checkouts.py times two checkouts' kernels and replays
@@ -471,6 +477,7 @@ def _reset_counts():
     E.launches.count = 0
     B.launches.count = 0
     B.batched_launches.count = 0
+    B.multi_launches.count = 0
 
 
 def _read_counts():
@@ -1881,23 +1888,15 @@ def _replica_lone(reps, tb, r, config):
     return res, [bool(a) for a in acc]
 
 
-def _batched_case(torch, what, D, U, b, timed: bool, rhs: int = 1):
+def _batched_case(torch, what, D, U, b, timed: bool):
     """The batched route on stacked systems (D, U, b) against lone launches
-    (bit-equal) and its plain twin (BCR_RTOL). Systems come in runs of
-    `rhs` that share D and U (the SPIKE's local solves: one system of a
-    partition against its 7 right-hand sides), so the function computed is
-    B / rhs systems each against `rhs` right-hand sides: its bound counts
-    each D and U once, and the library call solves it as one dense
-    [B / rhs, 3n, 3n] system against `rhs` columns, where that fits in
-    DENSE_MAX_BYTES. Returns (error against the twin, and where `timed`
-    its times: events, profiler device ms, the plain twin, the same
-    systems as lone launches, the bound and the dense library solve)."""
+    (bit-equal) and its plain twin (BCR_RTOL). Returns (error against the
+    twin, and where `timed` its times: events, profiler device ms, the
+    plain twin, the same systems as lone launches, the bound and the dense
+    batched library solve where it fits in DENSE_MAX_BYTES)."""
     from hitl_slam_torch.solver import bcr_kernel as B, tridiag
 
     nb, n = D.shape[0], D.shape[1]
-    check(nb % rhs == 0 and torch.equal(D[::rhs].repeat_interleave(rhs, 0), D)
-          and torch.equal(U[::rhs].repeat_interleave(rhs, 0), U),
-          f"{what}: the systems do not come in runs of {rhs} sharing D, U")
     xb = B.bcr_solve_cuda_batched(D, U, b)
     lone = torch.stack([B.bcr_solve_cuda(D[i], U[i], b[i])
                         for i in range(nb)])
@@ -1923,27 +1922,25 @@ def _batched_case(torch, what, D, U, b, timed: bool, rhs: int = 1):
     plain_ms = time_cuda(lambda: tridiag.bcr_solve(D, U, b), 5)
     lone_ms = time_cuda(lambda: [B.bcr_solve_cuda(D[i], U[i], b[i])
                                  for i in range(nb)], 10)
-    ns = nb // rhs
-    bound_ms, bound_by = bound(*bcr_work(n, ns, rhs))
-    t = dict(B=nb, n=n, systems=ns, rhs=rhs, ms=ms, device_ms=dev_ms,
+    bound_ms, bound_by = bound(*bcr_work(n, nb))
+    t = dict(B=nb, n=n, ms=ms, device_ms=dev_ms,
              device_ms_per_launch=per_launch, plain_ms=plain_ms,
              lone_launches_ms=lone_ms, bound_ms=bound_ms, bound_by=bound_by,
              library_ms=None)
-    if ns * (3 * n) ** 2 * 4 <= DENSE_MAX_BYTES:
-        dense = [_dense_system(torch, D[i], U[i], b[i])
-                 for i in range(0, nb, rhs)]
+    if nb * (3 * n) ** 2 * 4 <= DENSE_MAX_BYTES:
+        dense = [_dense_system(torch, D[i], U[i], b[i]) for i in range(nb)]
         H = torch.stack([h for h, _ in dense])
+        cols = torch.stack([c for _, c in dense])
         del dense
-        cols = b.reshape(ns, rhs, 3 * n).transpose(1, 2).contiguous()
         t["library_ms"] = time_cuda(lambda: torch.linalg.solve(H, cols), 3,
                                     warmup=1)
         del H, cols
-    log(f"[time] bcr batched B={nb} n={n} ({what}; {ns} systems x {rhs} "
-        f"right-hand side{'s' if rhs > 1 else ''}): events {ms:.5f} ms, device {dev_ms:.5f} ms a "
-        f"call ({per_launch:.5f} a launch), {nb} lone launches {lone_ms:.5f} "
-        f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})"
-        + (f", dense torch.linalg.solve [{ns}, {3 * n}, {3 * n}] x {rhs} "
-           f"columns {t['library_ms']:.3f} ms" if t["library_ms"] else ""))
+    log(f"[time] bcr batched B={nb} n={n} ({what}): events {ms:.5f} ms, "
+        f"device {dev_ms:.5f} ms a call ({per_launch:.5f} a launch), {nb} "
+        f"lone launches {lone_ms:.5f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by})"
+        + (f", dense torch.linalg.solve [{nb}, {3 * n}, {3 * n}] "
+           f"{t['library_ms']:.3f} ms" if t["library_ms"] else ""))
     return err, t
 
 
@@ -2183,6 +2180,114 @@ def phase_replicas(torch, smi, repaired, small, small_log, bag, tmp):
 
 # ---------------------------------------------------------------- phase 16
 
+# the multi route's checks and times beyond the sharded shapes: (n, S)
+# systems of _spd_system, each against MULTI_RHS right-hand sides; n = 16384
+# and 32768 take the levels route (a cluster holds 8192 lanes at R = 7)
+MULTI_RHS = 7
+MULTI_BCR = ((64, 8), (1024, 8), (16384, 4), (32768, 2))
+
+
+def _multi_case(torch, what, D, U, b, timed: bool):
+    """The multi route on S systems (D [S,n,3,3], U [S,n-1,3,3] as handed,
+    b [S,n,3,R]) against lone launches on each column (bit-equal) and its
+    plain twin (BCR_RTOL). Returns (error against the twin, and where
+    `timed` its times: events, profiler device ms, the plain twin, the
+    bound of the function, the dense library solve [S, 3n, 3n] against R
+    columns where it fits in DENSE_MAX_BYTES, and the old call that PR 9's
+    SPIKE made for the same function: D and U copied R times, the batched
+    route on S * R systems, the right-hand sides permuted)."""
+    from hitl_slam_torch.solver import bcr_kernel as B
+
+    S, n, R = D.shape[0], D.shape[1], b.shape[-1]
+    x = B.bcr_solve_cuda_multi(D, U, b)
+    lone = torch.stack([torch.stack([
+        B.bcr_solve_cuda(D[s], U[s].contiguous(), b[s, :, :, c].contiguous())
+        for c in range(R)], -1) for s in range(S)])
+    twin = B.bcr_solve_multi_reference(D, U, b)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(x).all()), f"{what}: non-finite")
+    scale = max(1.0, float(x.abs().max()))
+    d_lone = float((x - lone).abs().max())
+    check(torch.equal(x, lone),
+          f"{what}: multi x differs from lone launches by {d_lone:.3e} "
+          f"(max|x| {scale:.3f})")
+    err = float((x - twin).abs().max())
+    check(err <= BCR_RTOL * scale,
+          f"{what}: multi kernel vs twin {err:.3e} > {BCR_RTOL * scale:.3e}")
+    plan = B.launch_plan(n, R)
+    log(f"[bcr multi] {what}: S={S} n={n} R={R}, {plan.route} of "
+        f"{plan.blocks} x {S} (top {plan.top}, {plan.lanes_per_block} lanes "
+        f"and {plan.threads} threads a block, {plan.smem_bytes} B shared), "
+        f"each column bit-equal to a lone launch, max|multi-plain| "
+        f"{err:.3e} (max|x| {scale:.3f})")
+    if not timed:
+        return err, None
+
+    def old():
+        x7 = B.bcr_solve_cuda_batched(
+            D[:, None].expand(S, R, n, 3, 3).reshape(S * R, n, 3, 3),
+            U[:, None].expand(S, R, n - 1, 3, 3).reshape(S * R, n - 1, 3, 3),
+            b.permute(0, 3, 1, 2).reshape(S * R, n, 3))
+        return x7.reshape(S, R, n, 3).permute(0, 2, 3, 1)
+
+    fn = lambda: B.bcr_solve_cuda_multi(D, U, b)   # noqa: E731
+    ms = time_cuda(fn, 50)
+    per_launch, dev_ms, _ = device_ms(fn, "bcr_multi")
+    old_ms = time_cuda(old, 50)
+    old_launch, old_kernel_ms, old_all_ms = device_ms(old, "bcr_")
+    plain_ms = time_cuda(lambda: B.bcr_solve_multi_reference(D, U, b), 5)
+    bound_ms, bound_by = bound(*bcr_work(n, S, R))
+    t = dict(S=S, n=n, rhs=R, plan_route=plan.route, blocks=plan.blocks * S,
+             ms=ms, device_ms=dev_ms, device_ms_per_launch=per_launch,
+             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+             library_ms=None,
+             old_copies_call=dict(ms=old_ms, device_ms_per_launch=old_launch,
+                                  kernel_device_ms=old_kernel_ms,
+                                  all_device_ms=old_all_ms, B=S * R))
+    if S * (3 * n) ** 2 * 4 <= DENSE_MAX_BYTES:
+        dense = [_dense_system(torch, D[s], U[s].contiguous(), b[s, :, :, 0])
+                 for s in range(S)]
+        H = torch.stack([h for h, _ in dense])
+        del dense
+        cols = b.reshape(S, 3 * n, R)
+        t["library_ms"] = time_cuda(lambda: torch.linalg.solve(H, cols), 3,
+                                    warmup=1)
+        del H
+    log(f"[time] bcr multi S={S} n={n} R={R} ({what}): events {ms:.5f} ms, "
+        f"device {dev_ms:.5f} ms a call ({per_launch:.5f} a launch), plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})"
+        + (f", dense torch.linalg.solve [{S}, {3 * n}, {3 * n}] x {R} "
+           f"columns {t['library_ms']:.3f} ms" if t["library_ms"] else "")
+        + f"; the old call (copies, batched B={S * R}): events {old_ms:.5f} "
+        f"ms, device {old_launch:.5f} ms a launch, {old_all_ms:.5f} ms of "
+        f"device operations a call")
+    return err, t
+
+
+def _multi_bcr_checks(torch):
+    """The multi route on MULTI_BCR's sets: checks at each, times at each
+    but 32768. Returns (worst error against the twin, {n: times})."""
+    import numpy as np
+
+    worst, times = 0.0, {}
+    for n, S in MULTI_BCR:
+        sys_ = [_spd_system(n + 1, seed=3000 * n + s) for s in range(S)]
+        D = torch.as_tensor(np.stack([q[0][:n] for q in sys_]),
+                            dtype=torch.float32, device=DEVICE)
+        # U as the SPIKE hands it: a view [:, :-1] of [S, n, 3, 3]
+        U = torch.as_tensor(np.stack([q[1] for q in sys_]),
+                            dtype=torch.float32, device=DEVICE)[:, :-1]
+        rng = np.random.default_rng(n)
+        b = torch.as_tensor(rng.normal(size=(S, n, 3, MULTI_RHS)),
+                            dtype=torch.float32, device=DEVICE)
+        err, t = _multi_case(torch, f"spd n={n} S={S}", D, U, b,
+                             timed=n != 32768)
+        worst = max(worst, err)
+        if t is not None:
+            times[n] = t
+    return worst, times
+
+
 # the sharded LM on the repaired 1024-pose map: partitions of the meshes
 # [cuda:0] x d, and the reference's criteria against the lone solve
 # (tests/test_parallel.py): cost <= 1.05 x + 1e-4, poses within 2e-2
@@ -2235,8 +2340,8 @@ def _on(value, device):
 
 def _sharded_run(torch, mesh, problem, poses, config):
     """One sharded solve on the card, its counts zeroed just before and read
-    just after: (result, wall ms, batched BCR launches, lone BCR and
-    em_scan launches, collective counts)."""
+    just after: (result, wall ms, (multi, batched) BCR launches, lone BCR
+    and em_scan launches, collective counts)."""
     from hitl_slam_torch.parallel import mesh as M
     from hitl_slam_torch.parallel.sharded_solver import sharded_lm_solve
     from hitl_slam_torch.solver import bcr_kernel as B
@@ -2249,7 +2354,8 @@ def _sharded_run(torch, mesh, problem, poses, config):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     c = M.collectives
-    return (res, wall, B.batched_launches.count, _read_counts(),
+    return (res, wall, (B.multi_launches.count, B.batched_launches.count),
+            _read_counts(),
             dict(calls=dict(c.calls), floats=dict(c.floats),
                  largest=dict(c.largest)))
 
@@ -2275,12 +2381,13 @@ def _trial_costs(mesh, problem, poses, config) -> list[float]:
     return [float(c) for c in seen]
 
 
-def _check_sharded(name, res, lone, n_batched, others, coll,
+def _check_sharded(name, res, lone, counts, others, coll,
                    converged=True, groups=1):
     """The reference's criteria against the lone solve (its pose criterion
-    only where both solves converge within the iteration cap), one batched
-    BCR launch a device group an iteration and nothing else, and the
-    collective volume."""
+    only where both solves converge within the iteration cap), one launch
+    of the multi BCR route a device group an iteration and nothing else
+    (no batched, lone BCR or em_scan launch), and the collective volume."""
+    n_multi, n_batched = counts
     it = int(res.iterations)
     cost, lone_cost = float(res.final_cost), float(lone.final_cost)
     dpose = float((res.poses - lone.poses).abs().max())
@@ -2293,9 +2400,10 @@ def _check_sharded(name, res, lone, n_batched, others, coll,
     check(dpose <= MESH_POSE_TOL or not converged,
           f"{name}: poses {dpose:.3e} from the lone solve's")
     check(cost <= float(res.initial_cost), f"{name}: the cost went up")
-    check(n_batched == it * groups and others == (0, 0),
-          f"{name}: batched bcr launches {n_batched} != {it} iterations x "
-          f"{groups} device groups (em_scan, lone bcr: {others})")
+    check(n_multi == it * groups and n_batched == 0 and others == (0, 0),
+          f"{name}: multi bcr launches {n_multi} != {it} iterations x "
+          f"{groups} device groups (batched bcr {n_batched}, em_scan and "
+          f"lone bcr {others})")
     gathered = (coll["floats"]["gather"] + coll["floats"]["sum"]) / max(it, 1)
     check(gathered <= MESH_GATHER_MAX
           and coll["largest"]["shift"] <= MESH_SHIFT_MAX,
@@ -2303,7 +2411,8 @@ def _check_sharded(name, res, lone, n_batched, others, coll,
           f"an iteration, {coll['largest']['shift']} a shift")
     return dict(iterations=it, final_cost=cost, lone_final_cost=lone_cost,
                 initial_cost=float(res.initial_cost),
-                pose_diff_lone=dpose, launches_bcr_batched=n_batched,
+                pose_diff_lone=dpose, launches_bcr_multi=n_multi,
+                launches_bcr_batched=n_batched,
                 gathered_floats_per_iteration=gathered,
                 largest_shift_floats=coll["largest"]["shift"],
                 collectives=coll)
@@ -2338,17 +2447,17 @@ def _sharded_over_cards(torch, repaired, config):
     problem = joint.build_problem(repaired.poses, repaired.constraints)
     lone = lm.solve(problem, repaired.poses, config)
     S.sharded_lm_solve(mesh, problem, repaired.poses, config)    # warm-up
-    res, wall, nb, others, coll = _sharded_run(
+    res, wall, counts, others, coll = _sharded_run(
         torch, mesh, problem, repaired.poses, config)
-    rec = _check_sharded(f"sharded over {k} cards", res, lone, nb, others,
-                         coll, groups=k)
+    rec = _check_sharded(f"sharded over {k} cards", res, lone, counts,
+                         others, coll, groups=k)
     rec.update(wall_ms=wall, cards=k, devices=[
         torch.cuda.get_device_name(i) for i in range(k)])
     log(f"[mesh] ran: sharded LM one partition a card over {k} cards: "
         f"{rec['iterations']} iterations in {wall:.2f} ms, cost "
         f"{rec['final_cost']:.6e} (lone {rec['lone_final_cost']:.6e}), poses "
-        f"{rec['pose_diff_lone']:.3e} from the lone solve's, batched bcr "
-        f"launches {nb} (one a card an iteration, B = 7)")
+        f"{rec['pose_diff_lone']:.3e} from the lone solve's, multi bcr "
+        f"launches {counts[0]} (one a card an iteration, S = 1, R = 7)")
     return rec
 
 
@@ -2358,9 +2467,9 @@ def phase_mesh(torch, smi, repaired, stream, scale, replica_out):
     version, the 16384-pose chain against the f64 baseline, the replica
     batch placed on a replica mesh, the checkerboard's mesh branch, and
     the same sharded LM one partition a card where there are several.
-    Returns the `mesh` record, the batched BCR launches of the sharded
-    runs, the worst error against the twin and the times at the sharded
-    shapes."""
+    Returns the `mesh` record, the multi BCR launches of the sharded runs,
+    the worst error of the multi route against its twin and its times (at
+    the sharded shapes and at MULTI_BCR's)."""
     import numpy as np
 
     from hitl_slam_torch.baselines.cpu_lm import cpu_lm_solve
@@ -2391,20 +2500,24 @@ def phase_mesh(torch, smi, repaired, stream, scale, replica_out):
         return res, (time.perf_counter() - t0) * 1e3
 
     def record_systems(mesh, problem, poses):
-        """The first iteration's batched BCR systems of a sharded solve."""
-        seen, real = [], B.bcr_solve
+        """The first iteration's multi BCR call of a sharded solve, its
+        tensors cloned with their layout (U a view of the partitions'
+        couplings)."""
+        seen, real = [], B.bcr_solve_multi
 
         def spy(D, U, b):
-            seen.append((D.contiguous().clone(), U.contiguous().clone(),
-                         b.contiguous().clone()))
+            Ufull = torch.empty((U.shape[0], U.shape[1] + 1, 3, 3),
+                                dtype=U.dtype, device=U.device)
+            Ufull[:, :-1] = U
+            seen.append((D.clone(), Ufull[:, :-1], b.clone()))
             return real(D, U, b)
 
-        B.bcr_solve = spy
+        B.bcr_solve_multi = spy
         try:
             S.sharded_lm_solve(mesh, problem, poses, LMConfig(
                 max_iterations=1))
         finally:
-            B.bcr_solve = real
+            B.bcr_solve_multi = real
         return seen[0]
 
     # ---- (a) the repaired 1024-pose map on [cuda:0] x d ----
@@ -2421,10 +2534,11 @@ def phase_mesh(torch, smi, repaired, stream, scale, replica_out):
         mesh = make_mesh(1, d, [card] * d)
         cpu_mesh = make_mesh(1, d, [torch.device("cpu")] * d)
         S.sharded_lm_solve(mesh, problem, poses, config)      # warm-up
-        res, wall, nb, others, coll = _sharded_run(torch, mesh, problem,
-                                                   poses, config)
-        rec = _check_sharded(f"sharded d={d}", res, lone, nb, others, coll)
-        n_sharded += nb
+        res, wall, counts, others, coll = _sharded_run(torch, mesh, problem,
+                                                       poses, config)
+        rec = _check_sharded(f"sharded d={d}", res, lone, counts, others,
+                             coll)
+        n_sharded += counts[0]
         cpu = S.sharded_lm_solve(cpu_mesh, cpu_problem, poses.cpu(), config)
         dcpu = float((res.poses.cpu() - cpu.poses).abs().max())
         dcost = abs(float(cpu.final_cost) - rec["final_cost"]) / max(
@@ -2454,11 +2568,11 @@ def phase_mesh(torch, smi, repaired, stream, scale, replica_out):
                 f"lm.solve on the same input: {f['lone_card']} on the card, "
                 f"{f['lone_cpu']} on the CPU")
         D, U, b = record_systems(mesh, problem, poses)
-        err, t = _batched_case(torch, f"sharded d={d} first step", D, U, b,
-                               timed=True, rhs=7)
+        err, t = _multi_case(torch, f"sharded d={d} first step", D, U, b,
+                             timed=True)
         worst = max(worst, err)
         times[d] = t
-        rec["bcr_batched"] = t
+        rec["bcr_multi"] = t
         out["map"][f"d{d}"] = rec
         log(f"[mesh] sharded LM, {poses.shape[0]} poses on [cuda:0] x {d}: "
             f"{rec['iterations']} iterations in {wall:.2f} ms (lone solve "
@@ -2466,8 +2580,9 @@ def phase_mesh(torch, smi, repaired, stream, scale, replica_out):
             f"{rec['final_cost']:.6e} (lone {rec['lone_final_cost']:.6e}), "
             f"poses {rec['pose_diff_lone']:.3e} from the lone solve's, "
             f"{dcpu:.3e} from the CPU's ({int(cpu.iterations)} iterations); "
-            f"batched bcr launches {nb} = iterations (B = {7 * d}, n = "
-            f"{poses.shape[0] // d}); {rec['gathered_floats_per_iteration']:.1f}"
+            f"multi bcr launches {counts[0]} = iterations, batched "
+            f"{counts[1]} (S = {d}, n = {poses.shape[0] // d}, R = 7); "
+            f"{rec['gathered_floats_per_iteration']:.1f}"
             f" gathered floats a partition an iteration, shifts of at most "
             f"{rec['largest_shift_floats']}; device {dev_ms:.2f} ms in {ops} "
             f"operations ({ops / rec['iterations']:.0f} an iteration), busy "
@@ -2484,11 +2599,11 @@ def phase_mesh(torch, smi, repaired, stream, scale, replica_out):
     out["replica"] = {"replica": r, "lone_iterations": int(rlone.iterations)}
     for d in MESH_PARTITIONS:
         mesh = make_mesh(1, d, [card] * d)
-        res, wall, nb, others, coll = _sharded_run(torch, mesh, problem,
-                                                   rposes, config)
-        rec = _check_sharded(f"replica {r} d={d}", res, rlone, nb, others,
-                             coll)
-        n_sharded += nb
+        res, wall, counts, others, coll = _sharded_run(torch, mesh, problem,
+                                                       rposes, config)
+        rec = _check_sharded(f"replica {r} d={d}", res, rlone, counts,
+                             others, coll)
+        n_sharded += counts[0]
         cpu = S.sharded_lm_solve(make_mesh(1, d, [torch.device("cpu")] * d),
                                  cpu_problem, rposes.cpu(), config)
         dcpu = float((res.poses.cpu() - cpu.poses).abs().max())
@@ -2508,8 +2623,8 @@ def phase_mesh(torch, smi, repaired, stream, scale, replica_out):
             f"{int(rlone.iterations)}); cost {rec['final_cost']:.6e} from "
             f"{rec['initial_cost']:.6e}, {dcost:.3e} (relative) from the "
             f"CPU's; poses {dcpu:.3e} from the CPU's, "
-            f"{rec['pose_diff_lone']:.3e} from the lone solve's; batched bcr "
-            f"launches {nb}; {wall:.2f} ms")
+            f"{rec['pose_diff_lone']:.3e} from the lone solve's; multi bcr "
+            f"launches {counts[0]}, batched {counts[1]}; {wall:.2f} ms")
 
     # ---- (b) the 16384-pose chain, d = 8, against the f64 baseline ----
     d = MESH_CHAIN_PARTITIONS
@@ -2519,14 +2634,14 @@ def phase_mesh(torch, smi, repaired, stream, scale, replica_out):
     mesh = make_mesh(1, d, [card] * d)
     lone, lone_ms = lone_solve(problem, chain)
     S.sharded_lm_solve(mesh, problem, chain, config)          # warm-up
-    res, wall, nb, others, coll = _sharded_run(torch, mesh, problem, chain,
-                                               config)
+    res, wall, counts, others, coll = _sharded_run(torch, mesh, problem,
+                                                   chain, config)
     # 20 iterations stop both solves short of the optimum of so long a
     # chain (on the CPU at 1024 poses: 1.26 m apart after 20 iterations,
     # 0.021 m after both converged), so their poses are not compared
-    rec = _check_sharded(f"chain d={d}", res, lone, nb, others, coll,
+    rec = _check_sharded(f"chain d={d}", res, lone, counts, others, coll,
                          converged=False)
-    n_sharded += nb
+    n_sharded += counts[0]
     t0 = time.perf_counter()
     _, f64_cost, f64_iters = cpu_lm_solve(chain_np, _np_table(table),
                                           max_iterations=MESH_ITERS)
@@ -2534,23 +2649,24 @@ def phase_mesh(torch, smi, repaired, stream, scale, replica_out):
     rel = abs(rec["final_cost"] - f64_cost) / f64_cost
     lone_rel = abs(rec["lone_final_cost"] - f64_cost) / f64_cost
     D, U, b = record_systems(mesh, problem, chain)
-    err, t = _batched_case(torch, f"chain d={d} first step", D, U, b,
-                           timed=True, rhs=7)
+    err, t = _multi_case(torch, f"chain d={d} first step", D, U, b,
+                         timed=True)
     worst = max(worst, err)
     times["chain"] = t
     rec.update(poses=MESH_CHAIN_POSES, partitions=d, wall_ms=wall,
                lone_wall_ms=lone_ms, lone_iterations=int(lone.iterations),
                f64_cost=float(f64_cost), f64_iterations=int(f64_iters),
                f64_wall_s=f64_s, cost_rel_f64=rel, lone_cost_rel_f64=lone_rel,
-               bcr_batched=t)
+               bcr_multi=t)
     out["chain"] = rec
     log(f"[mesh] sharded LM, {MESH_CHAIN_POSES}-pose chain on [cuda:0] x "
         f"{d}: {rec['iterations']} iterations in {wall:.2f} ms, lone solve "
         f"{int(lone.iterations)} in {lone_ms:.2f} ms; cost "
         f"{rec['final_cost']:.6e}, lone {rec['lone_final_cost']:.6e}, f64 "
         f"cpu_lm_solve {f64_cost:.6e} ({f64_iters} iterations, {f64_s:.2f} "
-        f"s): relative {rel:.3e} (lone {lone_rel:.3e}); batched bcr launches "
-        f"{nb} (B = {7 * d}, n = {MESH_CHAIN_POSES // d}) ({smi})")
+        f"s): relative {rel:.3e} (lone {lone_rel:.3e}); multi bcr launches "
+        f"{counts[0]}, batched {counts[1]} (S = {d}, n = "
+        f"{MESH_CHAIN_POSES // d}, R = 7) ({smi})")
 
     # ---- (c) the replica batch of phase 15 on a replica mesh ----
     rmesh = make_mesh(MESH_REPLICA_ENTRIES, 1, [card] * MESH_REPLICA_ENTRIES)
@@ -2616,6 +2732,11 @@ def phase_mesh(torch, smi, repaired, stream, scale, replica_out):
 
     # ---- (e) one partition a card, where there are several ----
     out["cards"] = _sharded_over_cards(torch, repaired, config)
+
+    # ---- the multi route beyond the sharded shapes ----
+    err, spd_times = _multi_bcr_checks(torch)
+    worst = max(worst, err)
+    times.update(spd_times)
     return out, n_sharded, worst, times
 
 
@@ -2762,7 +2883,7 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"replicas": replicas}), flush=True)
     # ---- 16. the mesh ----
-    mesh, n_sharded, sharded_err, sharded_times = phase_mesh(
+    mesh, n_multi, multi_err, multi_times = phase_mesh(
         torch, smi, repaired, stream, scale, replica_out)
     del scale, replica_out
     print(json.dumps({"mesh": mesh}), flush=True)
@@ -2782,15 +2903,21 @@ def main() -> int:
         {"name": "bcr_solve_batched", "route": "cuda",
          "source": "hitl_slam_torch/csrc/bcr.cu",
          "replaces": "hitl_slam_tpu/solver/pallas_bcr.py:94",
-         "launches": n_batched + n_sharded,
-         "launches_replicas": n_batched, "launches_sharded": n_sharded,
-         "max_abs_err": max(batched_err, sharded_err),
+         "launches": n_batched, "max_abs_err": batched_err,
          **{k: v for k, v in batched_times[1024].items()
             if k not in ("B", "n")},
          "at": f"B={REPLICAS}, n=1024",
-         "n64": batched_times[64], "n16384": batched_times[16384],
-         "sharded": {f"d{d}": sharded_times[d] for d in MESH_PARTITIONS}
-         | {"chain": sharded_times["chain"]}},
+         "n64": batched_times[64], "n16384": batched_times[16384]},
+        {"name": "bcr_solve_multi", "route": "cuda",
+         "source": "hitl_slam_torch/csrc/bcr.cu",
+         "replaces": "hitl_slam_tpu/solver/pallas_bcr.py:94",
+         "under": "hitl_slam_tpu/parallel/sharded_solver.py:198",
+         "launches": n_multi, "max_abs_err": multi_err,
+         **{k: v for k, v in multi_times[8].items()
+            if k not in ("S", "n", "rhs")},
+         "at": "S=8, n=128, R=7 (the sharded LM at d = 8)",
+         "d4": multi_times[4], "chain": multi_times["chain"],
+         **{f"n{n}": multi_times[n] for n, _ in MULTI_BCR if n != 32768}},
     ]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

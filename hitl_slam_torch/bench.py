@@ -240,13 +240,15 @@ def sharded_split(sync, state, partitions: int, device) -> dict:
     """The pose-sharded LM on a mesh of `partitions` entries on `device`,
     LMConfig(max_iterations=20), beside the lone lm.solve of the same
     problem (each warm, the solve alone timed): on `state` (the repaired
-    map) and on a seeded chain 16 times as long; then the checkerboard's
-    mesh branch with `partitions` replica entries."""
+    map) and on a seeded chain 16 times as long, with the BCR launches of
+    the timed sharded solve (the multi route's, one an iteration, and the
+    batched route's); then the checkerboard's mesh branch with
+    `partitions` replica entries."""
     import torch
 
     from .parallel.mesh import make_mesh
     from .parallel.sharded_solver import sharded_lm_solve
-    from .solver import joint, lm
+    from .solver import bcr_kernel, joint, lm
 
     config = lm.LMConfig(max_iterations=20)
     P = state.num_poses
@@ -264,14 +266,19 @@ def sharded_split(sync, state, partitions: int, device) -> dict:
                 ("lone", lambda: lm.solve(problem, poses, config))):
             fn()
             sync()
+            counters = (bcr_kernel.multi_launches,
+                        bcr_kernel.batched_launches)
+            before = [c.count for c in counters]
             t0 = time.perf_counter()
             res = fn()
             sync()
-            runs[kind] = (res, (time.perf_counter() - t0) * 1e3)
-        (sh, sh_ms), (lo, lo_ms) = runs["sharded"], runs["lone"]
+            runs[kind] = (res, (time.perf_counter() - t0) * 1e3,
+                          [c.count - b for c, b in zip(counters, before)])
+        (sh, sh_ms, launched), (lo, lo_ms, _) = runs["sharded"], runs["lone"]
         out[name] = {
             "poses": int(poses.shape[0]), "wall_ms": sh_ms,
             "lone_wall_ms": lo_ms, "iterations": int(sh.iterations),
+            "multi_launches": launched[0], "batched_launches": launched[1],
             "lone_iterations": int(lo.iterations),
             "final_cost": float(sh.final_cost),
             "lone_final_cost": float(lo.final_cost),

@@ -19,10 +19,12 @@ groups; on a mesh that repeats one device every step is one batch.
     reduces to 42 floats of boundary coefficients, all-gathers them, solves
     the [6d, 6d] reduced system (an LU solve and one step of iterative
     refinement: the reduced matrix is nonsymmetric) and back-substitutes.
-    The local solves of a group are one batched block-cyclic-reduction
-    call: on the card one launch of csrc/bcr.cu's batched route with
-    B = 7 x (the group's partitions) systems of n = Pl poses, on the CPU
-    its plain version (solver/tridiag.py::bcr_solve).
+    The local solves of a group are one multi-right-hand-side
+    block-cyclic-reduction call: on the card one launch of csrc/bcr.cu's
+    multi route, which factors each of the group's partitions (n = Pl
+    poses) once against its 7 columns, as the reference's `vmap` over the
+    right-hand sides does; on the CPU its plain version
+    (solver/bcr_kernel.py::bcr_solve_multi_reference).
   - A step's communication: the three assembly shifts, one shift of the
     interface block, one gather of 42 floats a partition, and four
     one-float sums (cost, model decrease, two norms), counted by
@@ -195,12 +197,7 @@ def _spike_solve(Dd: list, U: list, g: list, groups: list, d: int) -> list:
         E[:, 0, :, :3] = eye
         E[:, -1, :, 3:] = eye
         rhs = torch.cat([-gi[..., None], E], -1)            # [n, Pl, 3, 7]
-        sol = bcr_kernel.bcr_solve(
-            Ddi[:, None].expand(n, 7, Pl, 3, 3).reshape(7 * n, Pl, 3, 3),
-            Ui[:, None, :-1].expand(n, 7, Pl - 1, 3, 3).reshape(
-                7 * n, Pl - 1, 3, 3),
-            rhs.permute(0, 3, 1, 2).reshape(7 * n, Pl, 3),
-        ).reshape(n, 7, Pl, 3).permute(0, 2, 3, 1)          # [n, Pl, 3, 7]
+        sol = bcr_kernel.bcr_solve_multi(Ddi, Ui[:, :-1], rhs)  # [n, Pl, 3, 7]
         Y = sol[..., 0]
         V = sol[..., 1:4] @ L[:, None]
         W = sol[..., 4:7] @ R[:, None]

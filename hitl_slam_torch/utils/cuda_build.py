@@ -40,18 +40,21 @@ class LaunchCounter:
         self.count = 0
 
 
-def require(kernel: str, name: str, t, shape: tuple, dtype, device) -> None:
+def require(kernel: str, name: str, t, shape: tuple, dtype, device,
+            per_system: bool = False) -> None:
     """Validate a tensor handed to a kernel wrapper: device, dtype, shape
-    and contiguity, raising ValueError on anything the kernel does not
-    take."""
+    and contiguity (with `per_system`, only within each slice of the first
+    dimension, for a kernel that takes the stride between them), raising
+    ValueError on anything the kernel does not take."""
     if t.device != device:
         raise ValueError(f"{kernel}: {name} on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise ValueError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{kernel}: {name} shape {tuple(t.shape)} != {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{kernel}: {name} must be contiguous")
+    if not (t[0] if per_system else t).is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous"
+                         + (" within a system" if per_system else ""))
 
 
 class BuildInfo:
@@ -151,6 +154,10 @@ def library() -> ctypes.CDLL:
         lib.hitl_bcr_solve_batched.argtypes = [vp, vp, vp, vp, vp, i, i, i,
                                                i, i, i, i, vp]
         lib.hitl_bcr_solve_batched.restype = i
+        ll = ctypes.c_longlong
+        lib.hitl_bcr_solve_multi.argtypes = [vp, vp, vp, vp, vp, ll, ll, ll,
+                                             i, i, i, i, i, i, i, i, vp]
+        lib.hitl_bcr_solve_multi.restype = i
         lib.hitl_cuda_error_string.argtypes = [i]
         lib.hitl_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -921,6 +921,8 @@ def test_bench_prints_one_json_line(tmp_path, capsys):
         assert r["poses"] == poses and r["wall_ms"] > 0
         assert r["lone_wall_ms"] > 0 and 0 < r["iterations"] <= 20
         assert r["final_cost"] <= r["lone_final_cost"] * 1.05 + 1e-4
+        # the CPU runs the multi route's plain version: no launch
+        assert r["multi_launches"] == r["batched_launches"] == 0
     assert sh["checkerboard_mesh"]["nodes"] == 128
     assert sh["checkerboard_mesh"]["ms_per_node"] > 0
     assert bench.main(["--device", "cpu", "--replays", "0"]) == 2

@@ -108,6 +108,62 @@ def test_bcr_batched_route_equals_lone_launches(cuda_device, num, batch):
     assert float((xb - xt).abs().max()) <= 1e-4 * scale
 
 
+def _multi_system(S, num, R, seed, device):
+    """S systems of `num` poses and R right-hand sides each, U handed as
+    the view [:, :-1] of an [S, num, 3, 3] array (the SPIKE's layout)."""
+    systems = [_spd_system(num + 1, seed + s, device) for s in range(S)]
+    D = torch.stack([s[0][:num] for s in systems])
+    U = torch.stack([s[1] for s in systems])[:, :-1]
+    rng = np.random.default_rng(seed)
+    b = torch.as_tensor(rng.normal(size=(S, num, 3, R)), dtype=torch.float32,
+                        device=device)
+    return D, U, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num,S,R", [(1, 2, 7), (2, 1, 2), (128, 8, 7),
+                                     (256, 4, 7), (1024, 3, 1), (2048, 8, 7),
+                                     (8193, 2, 8), (16384, 2, 7)])
+def test_bcr_multi_route_equals_lone_launches(cuda_device, num, S, R):
+    """The multi route on each of its routes (one block, clusters, top
+    levels in device memory), U a strided view: one launch counted, each
+    column of x bit-equal to a lone launch on it, and within the bound of
+    the plain twin."""
+    from hitl_slam_torch.solver import bcr_kernel
+
+    D, U, b = _multi_system(S, num, R, 7 * num + R, cuda_device)
+    assert not U.is_contiguous() or S == 1 or num == 1
+    before = bcr_kernel.multi_launches.count
+    x = bcr_kernel.bcr_solve_multi(D, U, b)
+    assert bcr_kernel.multi_launches.count == before + 1
+    lone = torch.stack([torch.stack([
+        bcr_kernel.bcr_solve_cuda(D[s], U[s].contiguous(),
+                                  b[s, :, :, c].contiguous())
+        for c in range(R)], -1) for s in range(S)])
+    twin = bcr_kernel.bcr_solve_multi_reference(D, U, b)
+    torch.cuda.synchronize()
+    assert x.shape == (S, num, 3, R) and x.is_contiguous()
+    assert torch.equal(x, lone)
+    scale = max(1.0, float(twin.abs().max()))
+    assert float((x - twin).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_bcr_multi_rejects_layouts_it_does_not_take(cuda_device):
+    from hitl_slam_torch.solver import bcr_kernel
+
+    D, U, b = _multi_system(2, 16, 7, 0, cuda_device)
+    with pytest.raises(ValueError):     # not contiguous within a system
+        bcr_kernel.bcr_solve_cuda_multi(D, U, b.transpose(1, 2).contiguous()
+                                        .transpose(1, 2))
+    with pytest.raises(ValueError):     # R = 9
+        bcr_kernel.bcr_solve_cuda_multi(D, U, torch.cat([b, b[..., :2]], -1))
+    with pytest.raises(ValueError):
+        bcr_kernel.bcr_solve_cuda_multi(D.double(), U, b)
+    with pytest.raises(ValueError):
+        bcr_kernel.bcr_solve_cuda_multi(D.cpu(), U.cpu(), b.cpu())
+
+
 @pytest.mark.cuda
 def test_em_scan_kernel_matches_plain(cuda_device, golden_large):
     """Exact counts and bit-equal minima on the 1024-pose map, for both

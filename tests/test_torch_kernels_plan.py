@@ -61,6 +61,84 @@ def test_bcr_launch_plan_refuses_sizes_without_a_route(n):
         B.launch_plan(n)
 
 
+_MULTI_N = [1, 2, 3, 64, 127, 512, 513, 1024, 1025, 2048, 8192, 8193,
+            16384, 16385, 32768, 1 << 18, 1 << 25]
+
+
+def _lone_plan_of_today(n):
+    """launch_plan(n) as the lone and batched routes have had it since
+    their redesign: 51-float lanes, 1024 a block, clusters to 16384 lanes."""
+    m = B.tridiag.next_pow2(n)
+    top = max(0, (m // 16384).bit_length() - 1)
+    lanes = min(m >> top, 1024)
+    return B.LaunchPlan(n, m, top, lanes, (m >> top) // lanes,
+                        max(32, min(512, lanes // 2)), 51 * 1056 * 4)
+
+
+@pytest.mark.parametrize("rhs", [1, 2, 7, 8])
+@pytest.mark.parametrize("n", _MULTI_N)
+def test_bcr_multi_launch_plan(n, rhs):
+    plan = B.launch_plan(n, rhs)
+    assert plan.rhs == rhs and plan.m == B.tridiag.next_pow2(n)
+    lanes = plan.lanes_per_block
+    assert lanes & (lanes - 1) == 0
+    assert plan.smem_bytes <= SMEM_PER_BLOCK
+    assert 1 <= plan.blocks <= MAX_CLUSTER
+    assert plan.threads <= 512 and plan.threads % 32 == 0
+    # the multi kernel's planes for R columns fit the plan's shared memory
+    assert B.multi_floats(rhs) * B.PLANE_STRIDE * 4 <= plan.smem_bytes
+    # a thread for each even lane of the first level (the multi kernel
+    # holds one lane's new L, U in registers across a barrier)
+    assert plan.threads >= -(-(lanes // 2) // 32) * 32
+    assert lanes <= 1024 and plan.m >> plan.top == plan.blocks * lanes
+    route = ("block" if plan.m <= 1024 else
+             "cluster" if plan.m <= 1024 * MAX_CLUSTER else "levels+cluster")
+    assert plan.route == route
+    if plan.top:
+        assert plan.m >> plan.top == 1024 * MAX_CLUSTER
+        assert plan.state_floats >= plan.m * B.multi_floats(rhs)
+    if rhs == 1:
+        assert plan == _lone_plan_of_today(n) == B.launch_plan(n)
+    else:
+        # a deep level's matrix warp and its R column threads side by side
+        assert plan.threads >= 32 * (rhs + 1)
+        # the routes are the lone route's at every R; a cluster spreads over
+        # up to 16 blocks of at least 256 lanes
+        lone = B.launch_plan(n)
+        assert (plan.route, plan.top) == (lone.route, lone.top)
+        tail = plan.m >> plan.top
+        assert lanes == (tail if tail <= 1024 else max(256, tail // 16))
+
+
+@pytest.mark.parametrize("rhs,smem", [(2, 139_392), (7, 202_752),
+                                      (8, 215_424)])
+def test_bcr_multi_shared_memory(rhs, smem):
+    # 27 floats of matrices and 3 a column, laid out for 1056 lane slots: a
+    # block holds 1024 lanes up to R = 8
+    plan = B.launch_plan(1024, rhs)
+    assert plan.smem_bytes == smem <= SMEM_PER_BLOCK
+    assert (plan.route, plan.blocks) == ("block", 1)
+
+
+@pytest.mark.parametrize("n,blocks,lanes", [(1025, 8, 256), (2048, 8, 256),
+                                            (4096, 16, 256), (8192, 16, 512),
+                                            (16384, 16, 1024),
+                                            (16385, 16, 1024)])
+def test_bcr_multi_cluster_spreads_over_blocks(n, blocks, lanes):
+    # the SPIKE's 16384-pose chain at d = 8 is n = 2048: 8 blocks, not 2
+    plan = B.launch_plan(n, 7)
+    assert (plan.blocks, plan.lanes_per_block) == (blocks, lanes)
+    assert plan.threads == 256 if lanes <= 512 else plan.threads == 512
+
+
+@pytest.mark.parametrize("n,rhs", [(16, 0), (16, 9), (16, -1),
+                                   ((1 << 25) + 1, 7), ((1 << 25) + 1, 1),
+                                   (0, 7)])
+def test_bcr_multi_launch_plan_refuses_what_has_no_route(n, rhs):
+    with pytest.raises(ValueError):
+        B.launch_plan(n, rhs)
+
+
 def _kernel_points(plan, p):
     """The flat points lane `sub` of pose p visits, for every sub, as the
     kernel's chunk loop walks them (em_scan.cu)."""
