@@ -106,15 +106,37 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      launches and its twin on S systems x 7 right-hand sides at n = 64,
      1024, 16384 and 32768 (the last two the levels route), timed but at
      32768; then one `{"mesh": {...}}` line;
- 17. times at the main path's shapes: each kernel by CUDA events (host
+ 17. the reference's own HitL bench sessions at its sizes
+     (hitl_slam_torch/bench_sessions.py), each section's launches counted
+     (em_scan = 2 x cycles, bcr = LM iterations of every solve, counts
+     zeroed just before and read just after) and held against the JAX
+     package's record of the same sessions (tests/data/
+     scale_sessions_jax.json and .npz, made by scripts/
+     make_scale_fixture.py): the 1024-pose, 180-ray headline session (one
+     warm-up, one timed: accepted flags and constraint rows equal to
+     JAX's, poses within the loose golden of JAX's), its pipelined chain
+     (queue_chain, 16 repetitions from the initial state: every cycle
+     accepted, the first repetition within the loose golden of the
+     sequential session), the 8192-pose joint solve alone, the 8192-pose
+     session (3 cycles accepted, rows equal, the ground-truth error falls
+     and ends within 0.05 m of JAX's) with the refine at scale (PCG, cost
+     falls, finite; the same refine from JAX's poses and rows within 1e-2
+     of JAX's final cost), the 16384-pose session (the same gates, and its
+     last cycle's cost within 5e-3 of the f64 cpu_lm_solve's) with the
+     device's busy share of its last cycle; then em_scan against its plain
+     version at [1024, 256], [8192, 128] and [16384, 128] and BCR at
+     n = 8192 on the session's LM system, with times, bytes and bounds;
+     `[scale]` lines and one `{"scale": {...}}` line;
+ 18. times at the main path's shapes: each kernel by CUDA events (host
      overhead included) and by torch.profiler (its own device time), its
      plain version, its bound from the shapes, and for BCR
      torch.linalg.solve on the dense system; BCR also at n = 64, 16384
      and 32768;
- 18. a `{"kernels": [...]}` line with launches, agreement, times and bounds
-     (the batched route's launches from phase 15, the multi route's from
-     phase 16);
- 19. the last line: {"ok": true, "device": {...}}.
+ 19. a `{"kernels": [...]}` line with launches (phase 17's also apart),
+     agreement, times and bounds (the batched route's launches from phase
+     15, the multi route's from phase 16; em_scan and BCR also at phase
+     17's shapes);
+ 20. the last line: {"ok": true, "device": {...}}.
 
 scripts/compare_checkouts.py times two checkouts' kernels and replays
 against each other on one card with the helpers here.
@@ -1040,7 +1062,7 @@ def phase_ltvm(torch, large, large_log, clean):
         "golden_large (repaired)": eng.state,
         "figure-8 (clean)": make_map_state(
             clean.gt_poses, clean.covariances, clean.point_clouds,
-            clean.normal_clouds, DEVICE),
+            clean.normal_clouds, device=DEVICE),
     }
     found = {}
     for name, st in maps.items():
@@ -1148,7 +1170,7 @@ def _episode_state(stream, device):
     poses, pcs, ncs, _ = build_episodes(
         scans, angles, rel, EpisodeOptions(clip_low=10, clip_high=10))
     st = make_map_state(poses, np.zeros((len(poses), 3, 3), np.float32),
-                        pcs, ncs, device)
+                        pcs, ncs, device=device)
     return st, poses, pcs, ncs
 
 
@@ -1984,7 +2006,8 @@ def _repair_on_card(torch, small, small_log):
     out = {}
     for dev in (DEVICE, "cpu"):
         st = make_map_state(small.poses, small.covariances, small.point_clouds,
-                            small.normal_clouds, dev, constraint_capacity=256)
+                            small.normal_clouds, constraint_capacity=256,
+                            device=dev)
         world = st.world_points()
         raw = torch.as_tensor(np.asarray(entry.points, np.float32),
                               device=dev)
@@ -2742,6 +2765,428 @@ def phase_mesh(torch, smi, repaired, stream, scale, replica_out):
 
 # ---------------------------------------------------------------- phase 17
 
+SCALE_FIXTURE = os.path.join(DATA, "scale_sessions_jax")
+# what phase 17 reads of the JAX package's record (scripts/
+# make_scale_fixture.py): per session in the JSON, and the arrays
+SCALE_FIXTURE_KEYS = {
+    "headline": ("accepted", "lm_iterations", "rows", "chain"),
+    "s8192": ("accepted", "lm_iterations", "rows", "gt_mean", "refine"),
+    "s16384": ("accepted", "lm_iterations", "rows", "gt_mean", "f64"),
+}
+SCALE_FIXTURE_ARRAYS = ("headline_poses", "s8192_poses", "s16384_poses") + \
+    tuple(f"s8192_table_{k}" for k in (
+        "ctype", "constrained", "anchor", "delta_parallel",
+        "delta_perpendicular", "delta_angle", "penalty_dir", "active"))
+# the sessions' ground-truth error after the session against the JAX
+# package's on the CPU: its own TPU and CPU runs differ by 0.044 m at 16k
+SCALE_GT_ATOL = 0.05
+# the 16k last-cycle cost against the f64 cpu_lm_solve of the same problem
+# (the JAX package: 1.68e-3 on the CPU, 2.96e-3 on its TPU)
+SCALE_F64_RTOL = 5e-3
+# the refine at 8192 from the JAX session's own poses and rows: its final
+# cost against the JAX package's
+REFINE_COST_RTOL = 1e-2
+# the phase runs bench.py's repetitions but one timed headline session
+SCALE_HEADLINE_SESSIONS = 1
+
+
+def load_scale_fixture() -> tuple[dict, dict]:
+    """The JAX package's record of the reference's sessions: (the JSON, the
+    arrays), with every key phase 17 reads."""
+    import numpy as np
+
+    with open(SCALE_FIXTURE + ".json") as f:
+        fx = json.load(f)
+    for session, keys in SCALE_FIXTURE_KEYS.items():
+        missing = [k for k in keys if k not in fx.get(session, {})]
+        check(not missing, f"scale fixture: {session} lacks {missing}")
+    with np.load(SCALE_FIXTURE + ".npz") as z:
+        arrays = {k: z[k] for k in SCALE_FIXTURE_ARRAYS}
+    return fx, arrays
+
+
+class _Counted:
+    """While a section runs: the correction cycles it makes (em_scan runs
+    twice in each) and the iteration tensors of every LM solve (BCR runs
+    once an iteration), with the kernels' counts zeroed on entry. Nothing
+    is read back while the section runs."""
+
+    def __enter__(self):
+        from hitl_slam_torch.models.hitl import cycle as C, engine as EN
+        from hitl_slam_torch.solver import lm as LM
+
+        self.cycles, self.iterations = 0, []
+        self._saved = (C.cycle_step, EN.cycle_step, C.lm_solve, LM.solve)
+        step, solve = self._saved[0], self._saved[3]
+
+        def counted_step(*a, **k):
+            self.cycles += 1
+            return step(*a, **k)
+
+        def counted_solve(*a, **k):
+            out = solve(*a, **k)
+            self.iterations.append(out.iterations)
+            return out
+
+        C.cycle_step = EN.cycle_step = counted_step
+        C.lm_solve = LM.solve = counted_solve
+        _sync()
+        _reset_counts()
+        return self
+
+    def __exit__(self, *exc):
+        from hitl_slam_torch.models.hitl import cycle as C, engine as EN
+        from hitl_slam_torch.solver import lm as LM
+
+        _sync()
+        self.launches = _read_counts()
+        C.cycle_step, EN.cycle_step, C.lm_solve, LM.solve = self._saved
+        return False
+
+
+def _scale_section(name, fn):
+    """fn() with its launches counted: returns (its result, em_scan
+    launches, BCR launches, seconds) after checking em_scan = 2 x cycles
+    and BCR = LM iterations."""
+    t0 = time.perf_counter()
+    with _Counted() as c:
+        out = fn()
+    secs = time.perf_counter() - t0
+    n_em, n_bcr = c.launches
+    its = sum(int(i) for i in c.iterations)
+    check(n_em == 2 * c.cycles,
+          f"{name}: em_scan launches {n_em} != 2 x {c.cycles} cycles")
+    check(n_bcr == its,
+          f"{name}: bcr launches {n_bcr} != LM iterations {its} of "
+          f"{len(c.iterations)} solves")
+    check(n_bcr > 0, f"{name}: no BCR launch")
+    log(f"[scale] {name}: {secs:.1f} s, {c.cycles} cycles, "
+        f"{len(c.iterations)} LM solves, launches em_scan={n_em} "
+        f"bcr={n_bcr}")
+    return out, n_em, n_bcr, secs
+
+
+def _session_gates(name, got, want, gt_key=None):
+    check(got["accepted"] == want["accepted"],
+          f"{name}: accepted {got['accepted']} != JAX {want['accepted']}")
+    check(got["rows"] == want["rows"],
+          f"{name}: {got['rows']} constraint rows != JAX {want['rows']}")
+    if gt_key:
+        g, w = got[gt_key], want[gt_key]
+        check(g["after"] < g["before"],
+              f"{name}: ground-truth error {g['before']:.4f} -> "
+              f"{g['after']:.4f} m did not fall")
+        check(abs(g["after"] - w["after"]) <= SCALE_GT_ATOL,
+              f"{name}: ground-truth error after {g['after']:.4f} m, JAX "
+              f"{w['after']:.4f} m (> {SCALE_GT_ATOL} m apart)")
+
+
+def _em_scan_at(torch, name, state, sel):
+    """em_scan against its plain version on `state`'s world points with
+    the clicks `sel`: counts exact, minima bit-equal; then its times, plain
+    time and bound."""
+    from hitl_slam_torch.ops import em_scan as E
+
+    world = state.world_points().contiguous()
+    mask = state.point_mask
+    s = torch.as_tensor(sel, dtype=torch.float32, device=DEVICE)
+    ck, mk = E.em_scan_cuda(world, mask, s)
+    cr, mr = E.em_scan_reference(world, mask, s)
+    torch.cuda.synchronize()
+    P, N = mask.shape
+    check(torch.equal(ck, cr), f"em_scan {name} [{P}, {N}]: counts differ in "
+          f"{int((ck != cr).sum())} entries")
+    check(torch.equal(mk.view(torch.int32), mr.view(torch.int32)),
+          f"em_scan {name} [{P}, {N}]: minima not bit-equal")
+    run = lambda: E.em_scan_cuda(world, mask, s)   # noqa: E731
+    ms = time_cuda(run, 100)
+    dev_ms, _, _ = device_ms(run, "em_scan_kernel")
+    plain_ms = time_cuda(lambda: E.em_scan_reference(world, mask, s), 20)
+    bytes_moved, flops = em_scan_work(mask)
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    log(f"[scale] em_scan {name} [{P}, {N}]: counts exact (sum "
+        f"{int(ck.sum())}), minima bit-equal; events {ms:.5f} ms, device "
+        f"{dev_ms:.5f} ms, plain {plain_ms:.4f} ms, {bytes_moved} B, bound "
+        f"{bound_ms:.6f} ms ({bound_by})")
+    return dict(P=P, N=N, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bytes=bytes_moved, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _bcr_lm_system(torch, state):
+    """The first LM step's system of the joint problem at `state`'s poses:
+    D damped by the initial mu on its clamped diagonal, U, -g."""
+    from hitl_slam_torch.solver import joint, lm
+
+    cfg = lm.LMConfig()
+    problem = joint.build_problem(state.poses, state.constraints)
+    D, U, g, _ = joint.normal_equations(problem, state.poses)
+    diag = torch.clamp(torch.diagonal(D, dim1=-2, dim2=-1), cfg.min_diagonal,
+                       cfg.max_diagonal)
+    return (D + cfg.initial_mu * torch.diag_embed(diag)).contiguous(), \
+        U.contiguous(), (-g).contiguous()
+
+
+def _bcr_at(torch, name, D, U, b):
+    from hitl_slam_torch.solver import bcr_kernel as B, tridiag
+
+    n = D.shape[0]
+    plan = B.launch_plan(n)
+    xk = B.bcr_solve_cuda(D, U, b)
+    xt = tridiag.bcr_solve(D, U, b)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(xt.abs().max()))
+    err = float((xk - xt).abs().max())
+    check(bool(torch.isfinite(xk).all()), f"bcr {name}: non-finite")
+    check(err <= BCR_RTOL * scale,
+          f"bcr {name}: kernel vs plain {err:.3e} > {BCR_RTOL * scale:.3e}")
+    fn = lambda: B.bcr_solve_cuda(D, U, b)   # noqa: E731
+    ms = time_cuda(fn, 100)
+    dev_ms, dev_call_ms, _ = device_ms(fn, "bcr_")
+    plain_ms = time_cuda(lambda: tridiag.bcr_solve(D, U, b), 10)
+    H, rhs = _dense_system(torch, D, U, b)
+    library_ms = time_cuda(lambda: torch.linalg.solve(H, rhs), 3, warmup=1)
+    del H, rhs
+    bytes_moved, flops = bcr_work(n)
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    log(f"[scale] bcr {name} n={n} ({plan.route} of {plan.blocks}, top "
+        f"{plan.top}): max|kernel-plain| {err:.3e} (max|x| {scale:.3f}); "
+        f"events {ms:.5f} ms, device {dev_ms:.5f} ms a launch ("
+        f"{dev_call_ms:.5f} a call), plain {plain_ms:.4f} "
+        f"ms, dense torch.linalg.solve {library_ms:.3f} ms, {bytes_moved} B, "
+        f"bound {bound_ms:.6f} ms ({bound_by})")
+    return err, dict(n=n, ms=ms, device_ms=dev_ms,
+                     device_ms_per_call=dev_call_ms, plain_ms=plain_ms,
+                     library_ms=library_ms, bytes=bytes_moved,
+                     bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _busy_share(torch, section):
+    """The device's busy share of the heaviest cycle of a session (its last
+    accepted one): the cycle replayed on a fresh engine from the state
+    before it, once timed, once under the device-only profiler."""
+    from hitl_slam_torch.core.state import CorrectionType, SingleInput
+
+    from hitl_slam_torch.bench_sessions import SCALE_CAPACITY
+    from hitl_slam_torch.models.hitl.engine import HitLSLAM
+
+    sess = section["_session"]
+    m = section["_map"]
+    eng = HitLSLAM(device=DEVICE)
+    eng.init(m.poses, m.covariances, m.point_clouds, m.normal_clouds,
+             constraint_capacity=SCALE_CAPACITY)
+    inputs = [SingleInput(CorrectionType(c), 0, s)
+              for c, s in sess["accepted_inputs"]]
+    for e in inputs[:-1]:
+        check(eng.replay_log(e).accepted, "busy share: a replay rejected")
+    st, n = eng.state, eng.num_constraints
+
+    def last():
+        eng.state, eng.num_constraints = st, n
+        rep = eng.replay_log(inputs[-1])
+        torch.cuda.synchronize()
+        return rep
+
+    last()
+    t0 = time.perf_counter()
+    rep = last()
+    wall = (time.perf_counter() - t0) * 1e3
+    dev, ops = _device_only_profile(torch, last)
+    return dict(wall_ms=wall, device_ms=dev, busy=dev / wall, ops=ops,
+                lm_iterations=rep.lm_iterations)
+
+
+def phase_scale(torch, smi):
+    """The reference's HitL bench sessions at its sizes on the card
+    (hitl_slam_torch/bench_sessions.py), each run with its launches counted,
+    against the JAX package's record of the same sessions; then the
+    kernels at the shapes these sessions give them."""
+    import numpy as np
+
+    from hitl_slam_torch import bench_sessions as S
+    from hitl_slam_torch.core.state import table_from_numpy
+    from hitl_slam_torch.models.hitl import refine as R
+
+    fx, jx = load_scale_fixture()
+    out = {"card": smi}
+    tot_em = tot_bcr = 0
+    t_phase = time.perf_counter()
+
+    def section(name, fn):
+        nonlocal tot_em, tot_bcr
+        res, n_em, n_bcr, secs = _scale_section(name, fn)
+        tot_em, tot_bcr = tot_em + n_em, tot_bcr + n_bcr
+        return res, dict(launches_em_scan=n_em, launches_bcr=n_bcr,
+                         seconds=secs)
+
+    # ---- (b) the headline session ----
+    head, info = section("headline", lambda: S.headline_section(
+        DEVICE, sessions=SCALE_HEADLINE_SESSIONS))
+    want = fx["headline"]
+    _session_gates("headline", head, want)
+    dxy, dth = pose_errors(head["_poses"], jx["headline_poses"])
+    check(dxy <= LOOSE[0] and dth <= LOOSE[1],
+          f"headline: poses {dxy:.3e} m / {dth:.3e} rad from JAX's (> "
+          f"{LOOSE})")
+    w = head["cycle_wall_ms"]
+    log(f"[scale] headline {head['poses']} poses x {head['padded_points']} "
+        f"points: accepted {head['accepted']} (JAX {want['accepted']}), LM "
+        f"iterations {head['lm_iterations']} (JAX {want['lm_iterations']}, "
+        f"not gated), {head['rows']} rows, poses {dxy:.2e} m / {dth:.2e} rad "
+        f"from JAX's; replay_log wall ms median {w['median']:.3f} (q1 "
+        f"{w['q1']:.3f}, q3 {w['q3']:.3f}, min {w['min']:.3f}) over "
+        f"{w['n']} accepted cycles")
+    out["headline"] = {**S.public(head), **info, "pose_error_vs_jax": {
+        "xy_m": dxy, "theta_rad": dth}}
+
+    # ---- (c) the pipelined chain ----
+    chain, info = section("chain", lambda: S.chain_section(DEVICE, head))
+    check(all(chain["accepted"]) and chain["finite"],
+          f"chain: accepted {chain['accepted']}, finite {chain['finite']}")
+    # the sequential session after the same corrections
+    seq = head["_session"]["accepted_poses"][chain["cycles"] - 1]
+    dxy, dth = pose_errors(chain["_first_poses"], seq)
+    check(dxy <= LOOSE[0] and dth <= LOOSE[1],
+          f"chain: first repetition {dxy:.3e} m / {dth:.3e} rad from the "
+          f"sequential session (> {LOOSE})")
+    log(f"[scale] chain {chain['cycles']} cycles x {chain['j_rep']}: "
+        f"{chain['ms_per_cycle']:.3f} ms a cycle (samples "
+        f"{[round(t, 3) for t in chain['ms_per_cycle_samples']]}), last "
+        f"repetition's LM iterations {chain['lm_iterations']} (JAX "
+        f"{want['chain']['lm_iterations']}), first repetition "
+        f"{dxy:.2e} m / {dth:.2e} rad from the sequential session, "
+        f"{chain['host_reads_per_cycle']:.1f} host reads and "
+        f"{chain['device_ops_per_cycle']:.0f} device operations a cycle")
+    out["chain"] = {**S.public(chain), **info,
+                    "pose_error_vs_sequential": {"xy_m": dxy,
+                                                 "theta_rad": dth}}
+
+    # ---- (e) the ~10^4-pose joint solve alone ----
+    table = head["_session"]["engine"].state.constraints
+    big, info = section("joint solve", lambda: S.joint_solve_section(
+        DEVICE, table))
+    check(big["finite"] and big["final_cost"] < big["initial_cost"],
+          f"joint solve: cost {big['initial_cost']} -> {big['final_cost']}")
+    log(f"[scale] joint solve {big['poses']} poses, {big['rows']} rows: "
+        f"{big['wall_ms']:.3f} ms (samples "
+        f"{[round(t, 3) for t in big['wall_ms_samples']]}), iterations "
+        f"{big['iterations']}, cost {big['initial_cost']:.6e} -> "
+        f"{big['final_cost']:.6e}")
+    out["joint_solve"] = {**big, **info}
+
+    # ---- (f), (g) the 8192- and 16384-pose sessions ----
+    sessions = {}
+    for size, key in ((8192, "s8192"), (16384, "s16384")):
+        t0 = time.perf_counter()
+        m = S.generate_figure8(**S.SCALE_MAPS[size])
+        map_s = time.perf_counter() - t0
+        res, info = section(f"{size}-pose session", lambda: (
+            S.scale_session_section(DEVICE, size, m=m)))
+        want = fx[key]
+        check(res["accepted_cycles"] == 3, f"{key}: "
+              f"{res['accepted_cycles']} cycles accepted, not 3")
+        _session_gates(key, res, want, "gt_mean")
+        g = res["gt_mean"]
+        log(f"[scale] {size} poses x {res['padded_points']} points (map "
+            f"{map_s:.1f} s): accepted {res['accepted']}, cycle wall ms "
+            f"{[round(t, 3) for t in res['cycle_wall_ms']]}, LM iterations "
+            f"{res['lm_iterations']} (JAX {want['lm_iterations']}), "
+            f"{res['rows']} rows, ground-truth error {g['before']:.4f} -> "
+            f"{g['after']:.4f} m (JAX {want['gt_mean']['after']:.4f} m), "
+            f"peak {res['peak_memory_mib']:.0f} MiB")
+        rec = {**S.public(res), **info, "map_s": map_s}
+        if "f64" in res:
+            f = res["f64"]
+            check(f["relative"] <= SCALE_F64_RTOL,
+                  f"{key}: last-cycle cost {f['last_cycle_cost']:.6e} is "
+                  f"{f['relative']:.3e} from the f64 solve's {f['cost']:.6e}"
+                  f" (> {SCALE_F64_RTOL})")
+            log(f"[scale] {size}: last-cycle cost {f['last_cycle_cost']:.6e}"
+                f", f64 cpu_lm_solve {f['cost']:.6e} ({f['ms']:.0f} ms), "
+                f"relative {f['relative']:.3e} (JAX "
+                f"{want['f64']['relative']:.3e})")
+        if "refine" in res:
+            r, wr = res["refine"], want["refine"]
+            check(r["solver"] == "pcg", f"{key} refine: solver {r['solver']}")
+            check(r["finite"] and r["final_cost"] < r["initial_cost"],
+                  f"{key} refine: cost {r['initial_cost']} -> "
+                  f"{r['final_cost']}, finite {r['finite']}")
+            # the same refine from the JAX session's own poses and rows
+            st = res["_session"]["engine"].state
+            rows = {k: jx[f"s8192_table_{k}"] for k in (
+                "ctype", "constrained", "anchor", "delta_parallel",
+                "delta_perpendicular", "delta_angle", "penalty_dir",
+                "active")}
+            pad = S.SCALE_CAPACITY - len(rows["active"])
+            rows = {k: np.concatenate([v, np.zeros(pad, v.dtype)])
+                    for k, v in rows.items()}
+            jp = torch.as_tensor(jx["s8192_poses"], device=DEVICE)
+            same = R.post_human_refine(
+                st.points, st.normals, st.point_mask, jp,
+                table_from_numpy(rows, DEVICE),
+                capacity=S.REFINE_AT_SCALE["capacity"],
+                config=S.lm.LMConfig(
+                    max_iterations=S.REFINE_AT_SCALE["max_iterations"]),
+                matcher="pair", max_pairs=S.REFINE_AT_SCALE["max_pairs"])
+            c1 = float(same.final_cost)
+            rel = abs(c1 - wr["final_cost"]) / abs(wr["final_cost"])
+            check(rel <= REFINE_COST_RTOL,
+                  f"{key} refine from JAX's state: final cost {c1:.6e}, JAX "
+                  f"{wr['final_cost']:.6e} ({rel:.3e} > {REFINE_COST_RTOL})")
+            own = abs(r["final_cost"] - wr["final_cost"]) / wr["final_cost"]
+            log(f"[scale] {size} refine ({r['matcher']} matcher, "
+                f"{r['solver']}): {r['wall_ms']:.1f} ms (samples "
+                f"{[round(t, 1) for t in r['wall_ms_samples']]}; match "
+                f"{r['match_ms']:.1f} ms, LM {r['lm_ms']:.1f} ms), "
+                f"{r['matches']} matches (JAX {wr['matches']}), dropped rows "
+                f"{r['match_dropped']} / votes {r['vote_dropped']} / election "
+                f"{r['elect_dropped']} (JAX {wr['match_dropped']} / "
+                f"{wr['vote_dropped']} / {wr['elect_dropped']}), "
+                f"{r['iterations']} iterations ({r['cg_iterations']} CG), "
+                f"cost {r['initial_cost']:.4f} -> {r['final_cost']:.4f} "
+                f"({own:.3e} from JAX's {wr['final_cost']:.4f}, from another "
+                f"start); from JAX's poses and rows: {int(same.num_matches)} "
+                f"matches, cost {float(same.initial_cost):.4f} -> {c1:.4f}, "
+                f"{rel:.3e} from JAX's; peak {r['peak_memory_mib']:.0f} MiB")
+            rec["refine_from_jax_state"] = dict(
+                matches=int(same.num_matches),
+                initial_cost=float(same.initial_cost), final_cost=c1,
+                relative=rel)
+            del same
+        if size == 16384:
+            busy = _busy_share(torch, res)
+            log(f"[scale] 16384: last cycle ({busy['lm_iterations']} LM "
+                f"iterations) {busy['wall_ms']:.2f} ms wall, device "
+                f"{busy['device_ms']:.2f} ms in {busy['ops']} operations: "
+                f"busy {100 * busy['busy']:.1f} %")
+            rec["busy_last_cycle"] = busy
+        sessions[key] = (res, rec)
+        out[key] = rec
+
+    # ---- the kernels at the sessions' shapes, against their plain twins ----
+    times = {"em_scan": {}, "bcr_solve": {}}
+    worst = [0.0, 0.0]
+    for name, st, sel in (
+            ("headline", head["_session"]["engine"].state,
+             head["_session"]["accepted_inputs"][0][1]),
+            ("8192", sessions["s8192"][0]["_session"]["engine"].state,
+             sessions["s8192"][0]["_session"]["accepted_inputs"][0][1]),
+            ("16384", sessions["s16384"][0]["_session"]["engine"].state,
+             sessions["s16384"][0]["_session"]["accepted_inputs"][0][1])):
+        t = _em_scan_at(torch, name, st, sel)
+        times["em_scan"][f"P{t['P']}_N{t['N']}"] = t
+    st8 = sessions["s8192"][0]["_session"]["engine"].state
+    err, t = _bcr_at(torch, "8192-pose session, first LM step",
+                     *_bcr_lm_system(torch, st8))
+    worst[1] = err
+    times["bcr_solve"]["n8192_lm"] = t
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[scale] phase: {out['seconds']:.1f} s, launches em_scan={tot_em} "
+        f"bcr={tot_bcr}")
+    return out, tot_em, tot_bcr, worst, times
+
+
+# ---------------------------------------------------------------- phase 18
+
 def phase_times(torch, state, log_entries):
     """Each kernel at the main path's shapes (em_scan on the golden_large
     map, BCR at its 1024 poses), beside its plain version, its bound and
@@ -2838,7 +3283,7 @@ def main() -> int:
     large_log = logs.load_log(os.path.join(DATA, "golden_large.log"))
     check(len(large.poses) == 1024, "golden_large must have 1024 poses")
     state = make_map_state(large.poses, large.covariances, large.point_clouds,
-                           large.normal_clouds, DEVICE)
+                           large.normal_clouds, device=DEVICE)
 
     # ---- 2. em_scan kernel vs plain ----
     em_err = phase_em_scan(torch, state, large_log)
@@ -2887,19 +3332,26 @@ def main() -> int:
         torch, smi, repaired, stream, scale, replica_out)
     del scale, replica_out
     print(json.dumps({"mesh": mesh}), flush=True)
+    # ---- 17. the reference's sessions at its sizes ----
+    scale, s_em, s_bcr, scale_err, scale_times = phase_scale(torch, smi)
+    print(json.dumps({"scale": scale}), flush=True)
     log(smi)
-    # ---- 17. times ----
+    # ---- 18. times ----
     times = phase_times(torch, state, large_log)
-    # ---- 18. kernels line ----
+    # ---- 19. kernels line ----
     kernels = [
         {"name": "em_scan", "route": "cuda",
          "source": "hitl_slam_torch/csrc/em_scan.cu",
          "replaces": "hitl_slam_tpu/ops/pallas_em.py:33",
-         "launches": n_em, "max_abs_err": em_err, **times["em_scan"]},
+         "launches": n_em + s_em, "scale_launches": s_em,
+         "max_abs_err": max(em_err, scale_err[0]), **times["em_scan"],
+         **scale_times["em_scan"]},
         {"name": "bcr_solve", "route": "cuda",
          "source": "hitl_slam_torch/csrc/bcr.cu",
          "replaces": "hitl_slam_tpu/solver/pallas_bcr.py:94",
-         "launches": n_bcr, "max_abs_err": bcr_err, **times["bcr_solve"]},
+         "launches": n_bcr + s_bcr, "scale_launches": s_bcr,
+         "max_abs_err": max(bcr_err, scale_err[1]), **times["bcr_solve"],
+         **scale_times["bcr_solve"]},
         {"name": "bcr_solve_batched", "route": "cuda",
          "source": "hitl_slam_torch/csrc/bcr.cu",
          "replaces": "hitl_slam_tpu/solver/pallas_bcr.py:94",
@@ -2921,7 +3373,7 @@ def main() -> int:
     ]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    # ---- 19. contract line ----
+    # ---- 20. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

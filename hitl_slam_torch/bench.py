@@ -28,6 +28,31 @@ and on a seeded chain 16 times as long (16384 poses); and the checkerboard
 localizer's mesh branch (D replica entries) on the same stream, ms a node
 at W = 10. Correctness fields are against those files; nothing of JAX is
 imported. Runs on the card unless --device says otherwise.
+
+    python -m hitl_slam_torch.bench [--headline] [--scale 8192,16384]
+
+With either flag the run is the reference's own HitL bench sessions
+(hitl_slam_torch/bench_sessions.py) instead, and the JSON object holds the
+device's facts and only the sections asked for. --headline: the 1024-pose,
+180-ray two-lap figure-8 session with its five mixed corrections (one
+warm-up, three timed sessions: the per-correction replay_log wall ms as
+median, quartiles and minimum over the accepted cycles, the accepted flags,
+LM iterations, final costs, dropped rows, constraint rows, the aligned
+error against ground truth), the pipelined chain (queue_chain over the first
+four accepted corrections, 16 repetitions from the initial state: ms a
+chained cycle, its flags and LM iterations, the scalar host reads and device
+operations a cycle), solve-only (ms a joint solve on each accepted cycle's
+snapshot, beside the f64 cpu_lm_solve and scipy_generic_solve of the same
+problems) and the 8192-pose joint solve alone (wall ms, iterations).
+--scale: the 8192-pose two-lap session (per-cycle walls, flags, LM
+iterations, costs, rows, the plain and aligned errors against ground
+truth, peak device memory) with the post-human refine at scale on its
+result (pair matcher, PCG: wall ms of two samples, the match and LM halves,
+matches, drop counters, iterations, costs), and the 16384-pose four-lap
+session with the f64 cpu_lm_solve of its last cycle's problem (the relative
+cost gap). --smoke shrinks the headline to 128 poses and 40 rays, one
+session and two repetitions, to check the script on the CPU; it is no
+measurement.
 """
 
 from __future__ import annotations
@@ -141,7 +166,7 @@ def checkerboard_split(sync, device, mesh=None) -> dict:
     poses, pcs, ncs, _ = build_episodes(
         scans, angles, rel, EpisodeOptions(clip_low=10, clip_high=10))
     st = make_map_state(poses, np.zeros((len(poses), 3, 3), np.float32),
-                        pcs, ncs, device)
+                        pcs, ncs, device=device)
     args = (st.points, st.normals, st.point_mask, st.poses, EnmlOptions())
     checkerboard_localize(*args, mesh=mesh)
     stages = {}
@@ -291,6 +316,51 @@ def sharded_split(sync, state, partitions: int, device) -> dict:
     return out
 
 
+def sessions_main(args, device) -> int:
+    """The run of --headline / --scale: one JSON line."""
+    import torch
+
+    from . import bench_sessions as S
+
+    sizes = [int(x) for x in args.scale.split(",") if x.strip()]
+    unknown = [x for x in sizes if x not in S.SCALE_MAPS]
+    if unknown:
+        print(f"ERROR: --scale takes {sorted(S.SCALE_MAPS)}, not {unknown}",
+              file=sys.stderr)
+        return 2
+    result = {**device_facts(torch, device), "torch": torch.__version__}
+    if args.headline:
+        if args.smoke:
+            from .io.figure8 import generate_figure8
+
+            m = generate_figure8(**dict(S.HEADLINE_MAP, num_poses=128,
+                                        num_rays=40))
+            head = S.headline_section(device, m=m, capacity=2048,
+                                      sessions=1, warmup=0)
+            reps = dict(j_rep=2, s_rep=2, samples=1, big=512)
+        else:
+            head = S.headline_section(device)
+            reps = dict(j_rep=S.J_REP, s_rep=S.S_REP, samples=None,
+                        big=S.BIG_P)
+        n = {} if reps["samples"] is None else {"samples": reps["samples"]}
+        out = S.public(head)
+        out["chain"] = S.public(S.chain_section(device, head,
+                                                j_rep=reps["j_rep"], **n))
+        out["solve_only"] = S.solve_only_section(
+            device, head, s_rep=reps["s_rep"], **n,
+            **({"scipy_runs": 1} if args.smoke else {}))
+        out["joint_solve"] = S.joint_solve_section(
+            device, head["_session"]["engine"].state.constraints,
+            P=reps["big"], **n)
+        result["headline"] = out
+    if sizes:
+        result["scale"] = {str(P): S.public(S.scale_session_section(device,
+                                                                    P))
+                           for P in sizes}
+    print(json.dumps(result))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="hitl-slam-torch-bench", description=__doc__,
@@ -307,6 +377,15 @@ def main(argv=None) -> int:
     ap.add_argument("--data", default=DATA,
                     help="directory holding golden_large.* (default: "
                          "tests/data of the checkout)")
+    ap.add_argument("--headline", action="store_true",
+                    help="the reference's headline session, its chain, "
+                         "solve-only and the 8192-pose joint solve")
+    ap.add_argument("--scale", default="",
+                    help="comma-separated reference sessions to run: 8192, "
+                         "16384")
+    ap.add_argument("--smoke", action="store_true",
+                    help="--headline at tiny shapes (a check of the script, "
+                         "not a measurement)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -327,6 +406,9 @@ def main(argv=None) -> int:
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+
+    if args.headline or args.scale:
+        return sessions_main(args, device)
 
     data = stfs.load_stfs_covars(
         os.path.join(args.data, "golden_large.stfs.covars.gz"))

@@ -57,7 +57,7 @@ def main(argv=None) -> int:
                   f"{path} ({e})", file=sys.stderr)
             return 1
         st = make_map_state(data.poses, data.covariances, data.point_clouds,
-                            data.normal_clouds, device)
+                            data.normal_clouds, device=device)
         t0 = time.perf_counter()
         vectors = curator.curate(st.poses, st.points, st.point_mask)
         print(f"curated {path}: {len(vectors)} vectors "

@@ -130,16 +130,18 @@ def make_map_state(
     covariances: np.ndarray,
     point_clouds: list[np.ndarray],
     normal_clouds: list[np.ndarray],
-    device,
     odometry: np.ndarray | None = None,
     constraint_capacity: int = 8192,
     max_points: int | None = None,
     pad_multiple: int = 128,
     dtype=torch.float32,
+    *,
+    device="cuda",
 ) -> MapState:
     """Pack ragged per-pose clouds into a padded, masked MapState on
-    `device`. N_max is rounded up to `pad_multiple`, as in the JAX package,
-    so both hold identical arrays."""
+    `device` (the card unless the caller names another). N_max is rounded
+    up to `pad_multiple`, as in the JAX package, so both hold identical
+    arrays."""
     num_poses = len(point_clouds)
     if poses.shape != (num_poses, 3):
         raise ValueError(f"poses {poses.shape} != ({num_poses}, 3)")

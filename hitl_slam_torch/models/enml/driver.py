@@ -267,7 +267,7 @@ def localize_and_save(
     from .localizer import EnmlOptions, batch_localize
 
     st = make_map_state(poses, np.zeros((len(poses), 3, 3), np.float32),
-                        point_clouds, normal_clouds, device)
+                        point_clouds, normal_clouds, device=device)
     opts = options or EnmlOptions()
     if ltf_segs is not None and parallel_windows:
         raise ValueError("ltf_segs is not supported with parallel_windows "

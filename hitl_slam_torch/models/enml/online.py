@@ -229,7 +229,8 @@ class OnlineLocalizer:
         from .localizer import single_window_localize
 
         st = make_map_state(poses, np.zeros((len(poses), 3, 3), np.float32),
-                            clouds, normals, self.device, max_points=384)
+                            clouds, normals, max_points=384,
+                            device=self.device)
         # ONE window GN over the trailing W nodes
         new_poses = single_window_localize(
             st.points, st.normals, st.point_mask, st.poses,

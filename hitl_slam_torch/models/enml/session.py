@@ -130,8 +130,8 @@ class EnmlSession:
         self.state = make_map_state(
             np.asarray(poses, np.float32),
             np.zeros((len(poses), 3, 3), np.float32),
-            point_clouds, normal_clouds, self.device,
-            constraint_capacity=constraint_capacity)
+            point_clouds, normal_clouds,
+            constraint_capacity=constraint_capacity, device=self.device)
         self.initial_poses = np.asarray(poses, np.float32)
         self.poses = np.asarray(poses, np.float32)
         self.covariances = np.zeros((len(poses), 3, 3), np.float32)

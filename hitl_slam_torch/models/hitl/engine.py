@@ -80,9 +80,10 @@ class _Speculation:
 
 
 class HitLSLAM:
-    """One interactive map-repair session on `device`."""
+    """One interactive map-repair session on `device` (the card unless the
+    caller names another)."""
 
-    def __init__(self, device, lm_config: LMConfig = LMConfig()):
+    def __init__(self, lm_config: LMConfig = LMConfig(), *, device="cuda"):
         self.lm_config = lm_config
         self.device = torch.device(device)
         self.state: MapState | None = None
@@ -117,8 +118,8 @@ class HitLSLAM:
              odometry=None, constraint_capacity: int = 8192):
         self.state = make_map_state(
             np.asarray(poses), np.asarray(covariances), point_clouds,
-            normal_clouds, self.device, odometry=odometry,
-            constraint_capacity=constraint_capacity,
+            normal_clouds, odometry=odometry,
+            constraint_capacity=constraint_capacity, device=self.device,
         )
         self.prev_poses = self.state.poses
         self.prev_covariances = self.state.covariances

@@ -25,6 +25,9 @@ class FunctionTimer:
         self.laps.append((label, dt))
         return dt
 
+    def total(self) -> float:
+        return time.perf_counter() - self.t0
+
     def laps_ms(self) -> dict:
         return {k: v * 1e3 for k, v in self.laps}
 

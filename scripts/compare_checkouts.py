@@ -68,7 +68,8 @@ def measure(checkout: str, replays: int) -> dict:
         os.path.join(S.DATA, "golden_large.stfs.covars.gz"))
     entries = logs.load_log(os.path.join(S.DATA, "golden_large.log"))
     state = make_map_state(large.poses, large.covariances,
-                           large.point_clouds, large.normal_clouds, "cuda")
+                           large.point_clouds, large.normal_clouds,
+                           device="cuda")
     world = state.world_points().contiguous()
     mask = state.point_mask
     sel = torch.as_tensor(entries[0].points, dtype=torch.float32,

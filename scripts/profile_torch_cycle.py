@@ -343,7 +343,7 @@ def ltvm_profile(torch, repeat):
 
     m = generate_figure8(**CLEAN_MAP)
     st = make_map_state(m.gt_poses, m.covariances, m.point_clouds,
-                        m.normal_clouds, "cuda")
+                        m.normal_clouds, device="cuda")
 
     def curate():
         return L.LongTermVectorMap(seed=0).curate(

@@ -329,7 +329,7 @@ def test_repair_step_matches_jax():
     jst = make_map_state(data.poses, data.covariances, data.point_clouds,
                          data.normal_clouds, constraint_capacity=256)
     tst = tmake(data.poses, data.covariances, data.point_clouds,
-                data.normal_clouds, "cpu", constraint_capacity=256)
+                data.normal_clouds, constraint_capacity=256, device="cpu")
     world = np.asarray(jst.world_points())
     mask = np.asarray(jst.point_mask)
     raw = np.asarray(entry.points, np.float32)

@@ -123,9 +123,9 @@ def test_port_cli_config_sets_lm(tmp_path):
     seen = []
     init = E.HitLSLAM.__init__
 
-    def spy(self, device, lm_config=LMConfig()):
+    def spy(self, lm_config=LMConfig(), *, device="cuda"):
         seen.append(lm_config)
-        init(self, device, lm_config)
+        init(self, lm_config, device=device)
 
     faulthandler.disable()
     E.HitLSLAM.__init__ = spy
@@ -305,6 +305,94 @@ def test_signatures_follow_the_reference():
         parallel_localizer.checkerboard_localize).parameters)[-1] == "stage_ms"
     assert (inspect.signature(lm.solve).parameters["accepts"].kind
             is inspect.Parameter.KEYWORD_ONLY)
+
+
+def test_device_follows_the_reference_parameters():
+    """make_map_state and HitLSLAM take the reference's parameters in the
+    reference's order, then `device` alone, keyword-only, defaulting to the
+    card."""
+    import inspect
+
+    from hitl_slam_torch.core import state
+    from hitl_slam_torch.models.hitl import engine
+    from hitl_slam_tpu.core import state as jstate
+    from hitl_slam_tpu.models.hitl import engine as jengine
+
+    for got, want in ((state.make_map_state, jstate.make_map_state),
+                      (engine.HitLSLAM, jengine.HitLSLAM)):
+        params = inspect.signature(got).parameters
+        assert list(params) == list(inspect.signature(want).parameters) + [
+            "device"], got.__name__
+        assert params["device"].kind is inspect.Parameter.KEYWORD_ONLY
+        assert params["device"].default == "cuda"
+
+
+def test_positional_calls_written_against_the_reference():
+    """The reference's callers pass make_map_state's odometry and
+    HitLSLAM's lm_config by position; the port takes the same calls with
+    device= added, and a session built so replays the small golden log as
+    one built by keywords does."""
+    from hitl_slam_torch.core.state import make_map_state
+    from hitl_slam_torch.models.hitl.engine import HitLSLAM
+    from hitl_slam_torch.solver.lm import LMConfig
+
+    data, entries = _golden()
+    odom = data.poses + np.float32(0.25)
+    st = make_map_state(data.poses, data.covariances, data.point_clouds,
+                        data.normal_clouds, odom, device="cpu")
+    assert st.poses.device.type == "cpu"
+    np.testing.assert_array_equal(st.odometry.numpy(), odom)
+    cfg = LMConfig(max_iterations=7)
+    by_position = HitLSLAM(cfg, device="cpu")
+    by_keyword = HitLSLAM(lm_config=cfg, device="cpu")
+    assert by_position.lm_config == cfg
+    assert by_position.device == torch.device("cpu")
+    for eng in (by_position, by_keyword):
+        eng.init(data.poses, data.covariances, data.point_clouds,
+                 data.normal_clouds, constraint_capacity=256)
+        for e in entries:
+            assert eng.replay_log(e).accepted
+    np.testing.assert_array_equal(by_position.get_poses(),
+                                  by_keyword.get_poses())
+
+
+def test_every_reference_class_has_its_public_members_in_the_port():
+    """Each public class a module of hitl_slam_tpu/ defines has a namesake
+    in the port's module with every public member of the reference's
+    (methods, properties, class attributes); the name test above reads
+    top-level definitions only and cannot see a missing method."""
+    import glob
+    import importlib
+    import inspect
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    missing = {}
+    checked = 0
+    for path in sorted(glob.glob(os.path.join(repo, "hitl_slam_tpu", "**",
+                                              "*.py"), recursive=True)):
+        rel = os.path.relpath(path, os.path.join(repo, "hitl_slam_tpu"))[:-3]
+        if os.path.basename(rel) == "__init__":
+            rel = os.path.dirname(rel)
+        ref = importlib.import_module(
+            ".".join(["hitl_slam_tpu"] + [p for p in rel.split("/") if p]))
+        port = importlib.import_module(".".join(
+            ["hitl_slam_torch"]
+            + [p for p in RENAMED.get(rel, rel).split("/") if p]))
+        for name, cls in vars(ref).items():
+            if (name.startswith("_") or not inspect.isclass(cls)
+                    or cls.__module__ != ref.__name__):
+                continue
+            checked += 1
+            theirs = getattr(port, name, None)
+            if not inspect.isclass(theirs):
+                missing[f"{rel}.{name}"] = "no class"
+                continue
+            gap = ({k for k in dir(cls) if not k.startswith("_")}
+                   - set(dir(theirs)))
+            if gap:
+                missing[f"{rel}.{name}"] = sorted(gap)
+    assert checked >= 50, checked
+    assert missing == {}, missing
 
 
 # what the port has yet to port: a module (None) or names of a module;

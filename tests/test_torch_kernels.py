@@ -174,7 +174,7 @@ def test_em_scan_kernel_matches_plain(cuda_device, golden_large):
 
     data, entries = golden_large
     st = make_map_state(data.poses, data.covariances, data.point_clouds,
-                        data.normal_clouds, cuda_device)
+                        data.normal_clouds, device=cuda_device)
     world = st.world_points().contiguous()
     mask = st.point_mask
     holes = mask.clone()
@@ -208,7 +208,7 @@ def test_em_scan_back_to_back_calls_leave_no_state(cuda_device, golden_large):
 
     data, entries = golden_large
     st = make_map_state(data.poses, data.covariances, data.point_clouds,
-                        data.normal_clouds, cuda_device)
+                        data.normal_clouds, device=cuda_device)
     world = st.world_points().contiguous()
     mask = st.point_mask
     s0, s1 = (torch.as_tensor(e.points, device=cuda_device) for e in entries)
@@ -282,7 +282,7 @@ def test_grid_match_card_equals_cpu(cuda_device, golden_large):
 
     data, _ = golden_large
     st = make_map_state(data.poses, data.covariances, data.point_clouds,
-                        data.normal_clouds, "cpu")
+                        data.normal_clouds, device="cpu")
     world = st.world_points()
     wnrm = rotate(st.poses[:, 2][:, None], st.normals)
     cpu = C.grid_match(world, wnrm, st.point_mask)
@@ -317,7 +317,8 @@ def test_refine_solvers_card_close_to_cpu(cuda_device, solver):
 
     data = stfs.load_stfs_covars(os.path.join(DATA, "golden.stfs.covars"))
     st = make_map_state(data.poses, data.covariances, data.point_clouds,
-                        data.normal_clouds, "cpu", constraint_capacity=64)
+                        data.normal_clouds, constraint_capacity=64,
+                        device="cpu")
     stf, *_ = R.match_factors(st.points, st.normals, st.point_mask, st.poses,
                               "pair", 65536, 1024, 64, None)
     assert int(stf.valid.sum()) > 1000
@@ -354,7 +355,7 @@ def drifted_state():
     m = generate_figure8(num_poses=256, num_rays=120, seed=7,
                          drift_theta_bias=6e-4, num_laps=2)
     return make_map_state(m.poses, m.covariances, m.point_clouds,
-                          m.normal_clouds, "cpu")
+                          m.normal_clouds, device="cpu")
 
 
 def _candidates(st, device):

@@ -40,7 +40,7 @@ def _maps(**kw):
 def noisy_48():
     m, jmk, tmk = _maps(num_poses=48, num_rays=120, seed=4)
     args = (m.poses, m.covariances, m.point_clouds, m.normal_clouds)
-    return m, jmk(*args), tmk(*args, "cpu")
+    return m, jmk(*args), tmk(*args, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -50,7 +50,7 @@ def clean_72():
                         drift_theta_bias=0.0, noise_trans=0.0,
                         noise_theta=0.0)
     args = (m.gt_poses, m.covariances, m.point_clouds, m.normal_clouds)
-    return m, jmk(*args), tmk(*args, "cpu")
+    return m, jmk(*args), tmk(*args, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -279,7 +279,7 @@ def test_checkerboard_mesh_device_groups(route):
     poses, pcs, ncs, _ = build_episodes(
         scans, angles, rel, EpisodeOptions(clip_low=10, clip_high=10))
     st = make_map_state(poses, np.zeros((len(poses), 3, 3), np.float32),
-                        pcs, ncs, "cpu")
+                        pcs, ncs, device="cpu")
     args = (st.points, st.normals, st.point_mask, st.poses)
     if route == "grid":
         args = tuple(a[:20] for a in args)

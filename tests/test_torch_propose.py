@@ -276,7 +276,7 @@ def _fig8_states(**kw):
 
     m = generate_figure8(num_poses=256, num_rays=120, num_laps=2, **kw)
     args = (m.poses, m.covariances, m.point_clouds, m.normal_clouds)
-    return m, jmk(*args), tmk(*args, "cpu")
+    return m, jmk(*args), tmk(*args, device="cpu")
 
 
 def _proposal_draws(seed, poses):

@@ -18,7 +18,7 @@ def _states(small_map):
 
     m = small_map
     return tmk(m.poses, m.covariances, m.point_clouds, m.normal_clouds,
-               "cpu", odometry=m.odometry, constraint_capacity=512)
+               odometry=m.odometry, constraint_capacity=512, device="cpu")
 
 
 def test_rasterize_points_keeps_the_channel_maximum():

@@ -43,8 +43,8 @@ def test_make_map_state_matches(small_map):
                                    m.normal_clouds, odometry=m.odometry,
                                    constraint_capacity=512))
     got = TS.to_numpy(TS.make_map_state(
-        m.poses, m.covariances, m.point_clouds, m.normal_clouds, "cpu",
-        odometry=m.odometry, constraint_capacity=512))
+        m.poses, m.covariances, m.point_clouds, m.normal_clouds,
+        odometry=m.odometry, constraint_capacity=512, device="cpu"))
     for k in ("poses", "covariances", "points", "normals", "point_mask",
               "odometry"):
         assert got[k].dtype == ref[k].dtype, k
@@ -250,7 +250,7 @@ def test_port_imports_no_jax():
         "'gui.graph_edit', 'gui.live', 'parallel', 'parallel.replicas', "
         "'native', 'models.hitl.repair', 'solver.tridiag', "
         "'parallel.mesh', 'parallel.sharded_solver', 'baselines', "
-        "'baselines.cpu_lm', 'baselines.cpu_refine'):\n"
+        "'baselines.cpu_lm', 'baselines.cpu_refine', 'bench_sessions'):\n"
         "    assert 'hitl_slam_torch.' + name in names, name\n"
         "print(len(names))\n"
     )
