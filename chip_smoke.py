@@ -127,16 +127,31 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      version at [1024, 256], [8192, 128] and [16384, 128] and BCR at
      n = 8192 on the session's LM system, with times, bytes and bounds;
      `[scale]` lines and one `{"scale": {...}}` line;
- 18. times at the main path's shapes: each kernel by CUDA events (host
+ 18. the rest of the reference's bench record
+     (hitl_slam_torch/bench_reference.py) at its full sizes, on phase 17's
+     headline session and with phase 17's other sessions and phases
+     10-11's scale-map walls (none run again): solve-only with the f64
+     baselines, the round trip, five speculative cycles (every one a hit,
+     each bit-equal to a non-speculative replay on the card) and the two
+     forced misses (reselect, drift: no hit, each equal to its replay),
+     32 replicas of the headline's final state on the batched route, the
+     refine of that state (its final cost within 1e-2 of the f64
+     cpu_refine_solve on the same factors), EnML on the reference's
+     160-scan stream, the bag's ingest (the native scanner built, both
+     routes exact); each section's launches counted (em_scan = 2 x
+     cycles, bcr = LM iterations); the assembled record holds every key
+     of bench_reference.KEY_MAP; `[reference]` lines and one
+     `{"reference": {...}}` line;
+ 19. times at the main path's shapes: each kernel by CUDA events (host
      overhead included) and by torch.profiler (its own device time), its
      plain version, its bound from the shapes, and for BCR
      torch.linalg.solve on the dense system; BCR also at n = 64, 16384
      and 32768;
- 19. a `{"kernels": [...]}` line with launches (phase 17's also apart),
-     agreement, times and bounds (the batched route's launches from phase
-     15, the multi route's from phase 16; em_scan and BCR also at phase
-     17's shapes);
- 20. the last line: {"ok": true, "device": {...}}.
+ 20. a `{"kernels": [...]}` line with launches (phases 17's and 18's also
+     apart), agreement, times and bounds (the batched route's launches
+     from phases 15 and 18, the multi route's from phase 16; em_scan and
+     BCR also at phase 17's shapes);
+ 21. the last line: {"ok": true, "device": {...}}.
 
 scripts/compare_checkouts.py times two checkouts' kernels and replays
 against each other on one card with the helpers here.
@@ -1249,25 +1264,11 @@ def _cobot_bag_messages(scans, angles, rel):
 
 def _device_only_profile(torch, run) -> tuple[float, int]:
     """(device ms, device operations) of run() from torch.profiler tracing
-    the card alone: a window of ~175,000 launches costs minutes to record
-    and sum with the host's operator events too. Rerun up to three times
-    where the window comes back without a device record."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    the card alone (bench_reference.device_profile: rerun up to three
+    times where the window comes back without a device record)."""
+    from hitl_slam_torch.bench_reference import device_profile
 
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        ops = sum(e.count for e in events)
-        if ops:
-            break
-    check(ops > 0, "enml: the profiler showed no device operation")
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0)) for e in events)
-    return us / 1e3, ops
+    return device_profile(run)
 
 
 def phase_enml(torch, smi, tmp):
@@ -2844,10 +2845,10 @@ class _Counted:
         return False
 
 
-def _scale_section(name, fn):
+def _scale_section(name, fn, tag="scale", bcr_needed=True):
     """fn() with its launches counted: returns (its result, em_scan
     launches, BCR launches, seconds) after checking em_scan = 2 x cycles
-    and BCR = LM iterations."""
+    and BCR = LM iterations (and, with `bcr_needed`, BCR launched)."""
     t0 = time.perf_counter()
     with _Counted() as c:
         out = fn()
@@ -2859,8 +2860,8 @@ def _scale_section(name, fn):
     check(n_bcr == its,
           f"{name}: bcr launches {n_bcr} != LM iterations {its} of "
           f"{len(c.iterations)} solves")
-    check(n_bcr > 0, f"{name}: no BCR launch")
-    log(f"[scale] {name}: {secs:.1f} s, {c.cycles} cycles, "
+    check(n_bcr > 0 or not bcr_needed, f"{name}: no BCR launch")
+    log(f"[{tag}] {name}: {secs:.1f} s, {c.cycles} cycles, "
         f"{len(c.iterations)} LM solves, launches em_scan={n_em} "
         f"bcr={n_bcr}")
     return out, n_em, n_bcr, secs
@@ -3071,7 +3072,7 @@ def phase_scale(torch, smi):
         f"{[round(t, 3) for t in big['wall_ms_samples']]}), iterations "
         f"{big['iterations']}, cost {big['initial_cost']:.6e} -> "
         f"{big['final_cost']:.6e}")
-    out["joint_solve"] = {**big, **info}
+    out["joint_solve"] = {**S.public(big), **info}
 
     # ---- (f), (g) the 8192- and 16384-pose sessions ----
     sessions = {}
@@ -3182,10 +3183,150 @@ def phase_scale(torch, smi):
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[scale] phase: {out['seconds']:.1f} s, launches em_scan={tot_em} "
         f"bcr={tot_bcr}")
-    return out, tot_em, tot_bcr, worst, times
+    sections = {"headline": head, "chain": chain, "joint_solve": big,
+                "scale_8192": sessions["s8192"][0],
+                "scale_16384": sessions["s16384"][0]}
+    return out, tot_em, tot_bcr, worst, times, sections
 
 
 # ---------------------------------------------------------------- phase 18
+
+# the headline refine's final cost against the f64 cpu_refine_solve of the
+# same factors from the same poses (phase 17's bound for the refine at
+# scale)
+REFERENCE_F64_RTOL = REFINE_COST_RTOL
+
+
+def enml_scale_from_phases(enml, scale) -> dict:
+    """The scale map's part of the reference's record from phases 10 and
+    11: the state's footprint, the scans, the sequential sweep's wall
+    (phase 10, which must have swept every node) and the checkerboard's
+    at W = 10 and W = 80 (phase 11)."""
+    from hitl_slam_torch.bench_reference import enml_footprint
+
+    seq, cb = enml["scale"], enml["checkerboard"]["scale"]
+    check(seq["swept_nodes"] == seq["nodes"],
+          f"reference: the scale sweep was cut to {seq['swept_nodes']} of "
+          f"{seq['nodes']} nodes")
+    return dict(footprint=enml_footprint(scale["state"]),
+                scans=scale["scans"], sequential_ms=seq["wall_s"] * 1e3,
+                checkerboard_ms=cb["W10"]["wall_s"] * 1e3,
+                w80_ms=cb["W80"]["wall_s"] * 1e3)
+
+
+def phase_reference(torch, smi, sections, enml_scale, peaks):
+    """The rest of the reference's bench record (hitl_slam_torch/
+    bench_reference.py) at its full sizes on the card, on phase 17's
+    headline session (its final state) and with phase 17's other sessions
+    and phases 10-11's scale-map walls: solve-only with the f64 baselines,
+    the round trip, speculative cycles and the forced misses, the replica
+    batch, the refine with its f64 baseline, EnML on the 160-scan stream
+    and the bag's ingest; each section's launches counted. Gates: every
+    natural cycle a hit, each bit-equal to a non-speculative replay on the
+    card; the forced misses reuse nothing (the section raises) and equal
+    their replays; the refine within REFERENCE_F64_RTOL of f64; the native
+    bag scanner built and both routes exact; the assembled record holds
+    every key of KEY_MAP. Returns (the record, em_scan, BCR and batched
+    BCR launches)."""
+    from hitl_slam_torch import bench_reference as BR
+    from hitl_slam_torch import bench_sessions as S
+    from hitl_slam_torch.bench import device_facts, replica_split
+    from hitl_slam_torch.solver import bcr_kernel as B
+
+    t_phase = time.perf_counter()
+    head = sections["headline"]
+    state = head["_session"]["engine"].state
+    s = {"device": torch.device(DEVICE), **sections,
+         "enml_scale": enml_scale}
+    tot = {"em": 0, "bcr": 0, "batched": 0}
+    mem = {}
+
+    def section(name, fn, bcr_needed=False):
+        S._reset_peak(DEVICE)
+        res, n_em, n_bcr, secs = _scale_section(
+            name, fn, tag="reference", bcr_needed=bcr_needed)
+        batched = B.batched_launches.count
+        tot["em"] += n_em
+        tot["bcr"] += n_bcr
+        tot["batched"] += batched
+        mem[name] = {"seconds": secs, "peak_mib": S._peak_mib(DEVICE),
+                     "launches": [n_em, n_bcr, batched]}
+        s[name] = res
+        return res
+
+    so = section("solve_only", lambda: S.solve_only_section(DEVICE, head),
+                 bcr_needed=True)
+    rtt = section("overhead", lambda: BR.overhead_section(DEVICE))
+    spec = section("speculative", lambda: BR.speculative_section(
+        DEVICE, head["_map"], head["capacity"]), bcr_needed=True)
+    check(spec["hits"] == spec["attempts"] == len(spec["hit"]),
+          f"speculative: {spec['hits']} hits of {spec['attempts']} attempts")
+    check(all(spec["bit_equal_to_replay"]),
+          f"speculative: cycles not bit-equal to their replays: "
+          f"{spec['bit_equal_to_replay']}")
+    check(spec["accepted"] == [a for a in head["accepted"] if a is not None],
+          f"speculative: accepted {spec['accepted']}, the headline "
+          f"{head['accepted']}")
+    check(set(spec["miss_equal_to_replay"]) == set(BR.MISS_KINDS)
+          and all(spec["miss_equal_to_replay"].values()),
+          f"forced misses: {spec['miss_equal_to_replay']}")
+    log(f"[reference] speculative: {spec['hits']} hits of "
+        f"{spec['attempts']}, bit-equal to replays; keypress ms "
+        f"{[round(t, 3) for t in spec['ms_accepted']]} (median "
+        f"{spec['ms']:.3f}); forced misses {spec['miss_ms_per_kind']} ms "
+        f"(hits unchanged, equal to replays); round trip "
+        f"{rtt['rtt_ms']:.4f} ms ({smi})")
+    rep = section("replicas", lambda: replica_split(_sync, state,
+                                                     BR.REPLICAS),
+                  bcr_needed=True)
+    check(rep["cost_not_up"] and mem["replicas"]["launches"][2] > 0,
+          f"replicas: cost not up {rep['cost_not_up']}, batched launches "
+          f"{mem['replicas']['launches'][2]}")
+    ref = section("refine", lambda: BR.headline_refine_section(DEVICE,
+                                                                state))
+    check(ref["f64_relative"] <= REFERENCE_F64_RTOL,
+          f"refine: final cost {ref['lm_final_cost']:.6e}, f64 "
+          f"{ref['cpu_final_cost']:.6e} ({ref['f64_relative']:.3e} > "
+          f"{REFERENCE_F64_RTOL})")
+    check(mem["refine"]["launches"] == [0, 0, 0],
+          f"refine launched a kernel: {mem['refine']['launches']}")
+    log(f"[reference] replicas {rep['replicas']}: {rep['wall_ms']:.2f} ms "
+        f"({rep['solves_per_s']:.1f} solves/s), iterations "
+        f"{rep['iterations']}; refine {ref['refine_ms']:.2f} ms (match "
+        f"{ref['match_ms']:.2f}, LM {ref['lm_ms']:.2f} ms, "
+        f"{ref['lm_iterations']} iterations), {ref['matches']} matches, "
+        f"{ref['match_dropped']} dropped; f64 {ref['cpu_ms']:.1f} ms, "
+        f"{ref['cpu_iterations']} iterations, cost {ref['cpu_final_cost']:.6e}"
+        f" against the card's {ref['lm_final_cost']:.6e} "
+        f"({ref['f64_relative']:.3e})")
+    en = section("enml", lambda: BR.enml_section(DEVICE))
+    bag = section("bag_ingest", lambda: BR.bag_ingest_section(
+        require_native=True))
+    check(bag["routes_equal"] is True, "bag ingest: the routes differ")
+    log(f"[reference] enml {en['nodes']} nodes: sweep "
+        f"{en['sequential_ms']:.1f} ms, checkerboard "
+        f"{en['checkerboard_ms']:.1f} ms, W = 80 "
+        f"{en['w80_checkerboard_ms']:.1f} ms; bag {bag['bytes']} B: native "
+        f"{bag['routes']['native']['mb_s']:.1f} MB/s, Python "
+        f"{bag['routes']['python']['mb_s']:.1f} MB/s, "
+        f"{bag['written']} messages each")
+    peak = max([p for p in peaks if p is not None]
+               + [m["peak_mib"] for m in mem.values()])
+    s["memory"] = {"peak_mib": peak, "sections": mem}
+    pub = S.public(s)
+    rec = BR.record(pub, False, device_facts(torch, torch.device(DEVICE)))
+    missing = [k for k in BR.KEY_MAP if k not in rec["detail"]]
+    check(not missing, f"reference record lacks {missing}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[reference] record: {len(rec['detail'])} keys, value "
+        f"{rec['value']:.3f} ms, peak {peak:.0f} MiB; phase {seconds:.1f} s, "
+        f"launches em_scan={tot['em']} bcr={tot['bcr']} "
+        f"batched={tot['batched']}")
+    rec["notes"]["seconds"] = seconds
+    return rec, tot["em"], tot["bcr"], tot["batched"]
+
+
+# ---------------------------------------------------------------- phase 19
 
 def phase_times(torch, state, log_entries):
     """Each kernel at the main path's shapes (em_scan on the golden_large
@@ -3230,7 +3371,10 @@ def phase_times(torch, state, log_entries):
             log(f"[time] bcr n={n}, the path's: plain {plain_ms:.4f} ms, "
                 f"dense torch.linalg.solve {library_ms:.4f} ms, bound "
                 f"{bound_ms:.6f} ms ({bound_by})")
-            out["bcr_solve"] = dict(ms=ms, device_ms=dev_ms,
+            # a launch: the profiler's dropped records deflate the mean a
+            # call (all 50 calls, over the records it delivered)
+            out["bcr_solve"] = dict(ms=ms, device_ms=per_launch,
+                                    device_ms_per_call=dev_ms,
                                     plain_ms=plain_ms, bound_ms=bound_ms,
                                     bound_by=bound_by, library_ms=library_ms)
     return out
@@ -3330,32 +3474,43 @@ def main() -> int:
     # ---- 16. the mesh ----
     mesh, n_multi, multi_err, multi_times = phase_mesh(
         torch, smi, repaired, stream, scale, replica_out)
+    enml_scale = enml_scale_from_phases(enml, scale)
     del scale, replica_out
     print(json.dumps({"mesh": mesh}), flush=True)
     # ---- 17. the reference's sessions at its sizes ----
-    scale, s_em, s_bcr, scale_err, scale_times = phase_scale(torch, smi)
+    scale, s_em, s_bcr, scale_err, scale_times, sections = phase_scale(
+        torch, smi)
     print(json.dumps({"scale": scale}), flush=True)
+    # ---- 18. the rest of the reference's bench record ----
+    peaks = [scale[k].get("peak_memory_mib") for k in ("s8192", "s16384")]
+    reference, r_em, r_bcr, r_batched = phase_reference(
+        torch, smi, sections, enml_scale, peaks)
+    del sections
+    print(json.dumps({"reference": reference}), flush=True)
     log(smi)
-    # ---- 18. times ----
+    # ---- 19. times ----
     times = phase_times(torch, state, large_log)
-    # ---- 19. kernels line ----
+    # ---- 20. kernels line ----
     kernels = [
         {"name": "em_scan", "route": "cuda",
          "source": "hitl_slam_torch/csrc/em_scan.cu",
          "replaces": "hitl_slam_tpu/ops/pallas_em.py:33",
-         "launches": n_em + s_em, "scale_launches": s_em,
+         "launches": n_em + s_em + r_em, "scale_launches": s_em,
+         "reference_launches": r_em,
          "max_abs_err": max(em_err, scale_err[0]), **times["em_scan"],
          **scale_times["em_scan"]},
         {"name": "bcr_solve", "route": "cuda",
          "source": "hitl_slam_torch/csrc/bcr.cu",
          "replaces": "hitl_slam_tpu/solver/pallas_bcr.py:94",
-         "launches": n_bcr + s_bcr, "scale_launches": s_bcr,
+         "launches": n_bcr + s_bcr + r_bcr, "scale_launches": s_bcr,
+         "reference_launches": r_bcr,
          "max_abs_err": max(bcr_err, scale_err[1]), **times["bcr_solve"],
          **scale_times["bcr_solve"]},
         {"name": "bcr_solve_batched", "route": "cuda",
          "source": "hitl_slam_torch/csrc/bcr.cu",
          "replaces": "hitl_slam_tpu/solver/pallas_bcr.py:94",
-         "launches": n_batched, "max_abs_err": batched_err,
+         "launches": n_batched + r_batched, "reference_launches": r_batched,
+         "max_abs_err": batched_err,
          **{k: v for k, v in batched_times[1024].items()
             if k not in ("B", "n")},
          "at": f"B={REPLICAS}, n=1024",
@@ -3373,7 +3528,7 @@ def main() -> int:
     ]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    # ---- 20. contract line ----
+    # ---- 21. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -53,6 +53,17 @@ session with the f64 cpu_lm_solve of its last cycle's problem (the relative
 cost gap). --smoke shrinks the headline to 128 poses and 40 rays, one
 session and two repetitions, to check the script on the CPU; it is no
 measurement.
+
+    python -m hitl_slam_torch.bench --reference [--smoke] [--out PATH]
+
+The reference's whole bench record (hitl_slam_torch/bench_reference.py):
+every number of the root bench.py's BENCH_DETAIL.json under its own key,
+as one JSON object on the last line of stdout, also written to --out
+(default hitl_slam_torch/build/bench_reference.json). On the card it takes
+minutes: the scale map's sequential EnML sweep alone is one and a half,
+the profiled device analysis four. --smoke runs
+it at the reference's smoke sizes and leaves out what the reference leaves
+out there.
 """
 
 from __future__ import annotations
@@ -67,6 +78,8 @@ import time
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "tests", "data")
+REFERENCE_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "bench_reference.json")
 
 
 def device_facts(torch, device) -> dict:
@@ -151,22 +164,12 @@ def checkerboard_split(sync, device, mesh=None) -> dict:
     calls): wall ms, ms a node, and its stage split (set-up, matches,
     batched GN steps, carry and scatter, covariance pass; synchronised at
     every boundary); with `mesh`, its mesh branch."""
-    steps = 160
-    import numpy as np
-
-    from .core.state import make_map_state
-    from .io.figure8 import generate_raw_stream
-    from .models.enml.driver import EpisodeOptions, build_episodes
+    from .bench_reference import enml_state
     from .models.enml.localizer import EnmlOptions
     from .models.enml.parallel_localizer import checkerboard_localize
 
-    scans, angles, rel, _, _ = generate_raw_stream(
-        num_steps=steps, num_rays=240, seed=11, noise_trans=4e-3,
-        noise_theta=2e-3)
-    poses, pcs, ncs, _ = build_episodes(
-        scans, angles, rel, EpisodeOptions(clip_low=10, clip_high=10))
-    st = make_map_state(poses, np.zeros((len(poses), 3, 3), np.float32),
-                        pcs, ncs, device=device)
+    st, steps = enml_state(dict(num_steps=160, num_rays=240, seed=11,
+                                noise_trans=4e-3, noise_theta=2e-3), device)
     args = (st.points, st.normals, st.point_mask, st.poses, EnmlOptions())
     checkerboard_localize(*args, mesh=mesh)
     stages = {}
@@ -330,29 +333,8 @@ def sessions_main(args, device) -> int:
         return 2
     result = {**device_facts(torch, device), "torch": torch.__version__}
     if args.headline:
-        if args.smoke:
-            from .io.figure8 import generate_figure8
-
-            m = generate_figure8(**dict(S.HEADLINE_MAP, num_poses=128,
-                                        num_rays=40))
-            head = S.headline_section(device, m=m, capacity=2048,
-                                      sessions=1, warmup=0)
-            reps = dict(j_rep=2, s_rep=2, samples=1, big=512)
-        else:
-            head = S.headline_section(device)
-            reps = dict(j_rep=S.J_REP, s_rep=S.S_REP, samples=None,
-                        big=S.BIG_P)
-        n = {} if reps["samples"] is None else {"samples": reps["samples"]}
-        out = S.public(head)
-        out["chain"] = S.public(S.chain_section(device, head,
-                                                j_rep=reps["j_rep"], **n))
-        out["solve_only"] = S.solve_only_section(
-            device, head, s_rep=reps["s_rep"], **n,
-            **({"scipy_runs": 1} if args.smoke else {}))
-        out["joint_solve"] = S.joint_solve_section(
-            device, head["_session"]["engine"].state.constraints,
-            P=reps["big"], **n)
-        result["headline"] = out
+        run = S.public(S.headline_run(device, smoke=args.smoke))
+        result["headline"] = {**run.pop("headline"), **run}
     if sizes:
         result["scale"] = {str(P): S.public(S.scale_session_section(device,
                                                                     P))
@@ -361,7 +343,7 @@ def sessions_main(args, device) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="hitl-slam-torch-bench", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -383,10 +365,20 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", default="",
                     help="comma-separated reference sessions to run: 8192, "
                          "16384")
+    ap.add_argument("--reference", action="store_true",
+                    help="the reference's whole bench record "
+                         "(bench_reference.py) as one JSON line")
+    ap.add_argument("--out", default=REFERENCE_OUT,
+                    help="where --reference writes its record too (default: "
+                         "hitl_slam_torch/build/bench_reference.json)")
     ap.add_argument("--smoke", action="store_true",
-                    help="--headline at tiny shapes (a check of the script, "
-                         "not a measurement)")
-    args = ap.parse_args(argv)
+                    help="--headline or --reference at tiny shapes (a check "
+                         "of the script, not a measurement)")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
 
     import numpy as np
     import torch
@@ -407,6 +399,10 @@ def main(argv=None) -> int:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    if args.reference:
+        from . import bench_reference
+
+        return bench_reference.main(args, device)
     if args.headline or args.scale:
         return sessions_main(args, device)
 

@@ -65,6 +65,11 @@ S_REP = 8
 BIG_P = 8192
 BIG_SEED = 3
 BIG_CONFIG = lm.LMConfig(max_iterations=20)
+# the smoke size of the headline and its sections (bench.py's BENCH_SMOKE):
+# a check of the scripts on the CPU, not a measurement
+SMOKE_MAP = dict(HEADLINE_MAP, num_poses=128, num_rays=40)
+SMOKE_CAPACITY = 2048
+SMOKE_REPS = dict(j_rep=2, s_rep=2, samples=1, big=512)
 # the refine at scale on the 8192-pose session's result (bench.py:1141)
 REFINE_AT_SCALE = dict(capacity=262144, max_iterations=5, matcher="pair",
                        max_pairs=16384)
@@ -287,19 +292,25 @@ def headline_section(device, m=None, capacity: int = HEADLINE_CAPACITY,
     specs = correction_specs(m.poses.shape[0])
     for _ in range(warmup):
         run_session(m, specs, capacity, device)
-    walls = []
+    walls, medians = [], []
     for _ in range(sessions):
         sess = run_session(m, specs, capacity, device)
-        walls += _accepted_walls(sess)
+        acc = _accepted_walls(sess)
+        walls += acc
+        medians.append(float(np.median(acc)))
     poses = sess["engine"].get_poses()
+    last = [r for r in sess["reports"] if r is not None and r.accepted][-1]
     return {
         "poses": int(m.poses.shape[0]),
         "points": int(sum(len(pc) for pc in m.point_clouds)),
         "padded_points": int(sess["engine"].state.max_points),
         "capacity": capacity, "sessions": sessions, "warmup": warmup,
         "cycle_wall_ms": summary(walls),
+        "cycle_wall_ms_all": walls, "session_medians_ms": medians,
         "last_session_wall_ms": sess["walls"],
+        "stage_ms_last_cycle": dict(last.timings_ms),
         **_report_fields(sess),
+        "active_rows": int(sess["engine"].state.constraints.active.sum()),
         "gt_aligned": {"before": gt_error_aligned(m.poses, m.gt_poses),
                        "after": gt_error_aligned(poses, m.gt_poses)},
         "_session": sess, "_poses": poses, "_map": m,
@@ -359,7 +370,8 @@ def chain_section(device, headline: dict, j_rep: int = J_REP,
     `samples` timed calls, each from the initial poses moved by
     1e-6 (k + 1); then the scalar host reads and device operations a cycle
     of one repetition under the profiler. `_first_poses`: the first
-    repetition's result of the untimed call from the initial poses."""
+    repetition's result of the untimed call from the initial poses;
+    `_run` reruns one whole call, `_inputs` are its input tensors."""
     sync = synchronizer(device)
     m, sess = headline["_map"], headline["_session"]
     st = sess["engine"].state
@@ -404,6 +416,9 @@ def chain_section(device, headline: dict, j_rep: int = J_REP,
         "host_reads_per_cycle": reads / k,
         "device_ops_per_cycle": None if launches is None else launches / k,
         "_first_poses": first.cpu().numpy(),
+        "_run": lambda: float(run(p0)[0]),
+        "_inputs": (st.points, st.point_mask, p0, covs, sels, *vars(
+            table).values()),
     }
 
 
@@ -466,7 +481,7 @@ def solve_only_section(device, headline: dict, s_rep: int = S_REP,
             times.append((time.perf_counter() - t0) * 1e3 / s_rep)
         per_snapshot.append(min(times))
         t0 = time.perf_counter()
-        _, _, its = cpu_lm_solve(start, _np_table(table, n_active))
+        _, cpu_cost, its = cpu_lm_solve(start, _np_table(table, n_active))
         cpu_ms.append((time.perf_counter() - t0) * 1e3)
         cpu_iters.append(int(its))
     start, n_active = sess["solve_snapshots"][-1]
@@ -482,6 +497,7 @@ def solve_only_section(device, headline: dict, s_rep: int = S_REP,
         "lm_iterations": iterations,
         "cpu_lm_ms": float(np.median(cpu_ms)), "cpu_lm_ms_each": cpu_ms,
         "cpu_lm_iterations": cpu_iters,
+        "cpu_lm_final_cost_last": float(cpu_cost),
         "scipy_ms": min(scipy_ms), "scipy_cost": float(scipy_cost),
     }
 
@@ -503,7 +519,8 @@ def joint_solve_section(device, table: ConstraintTable, P: int = BIG_P,
     """The ~10^4-pose joint solve alone: seeded_big_chain(P) with `table`
     (the headline session's) remapped to its poses (ids mod P), solved by
     lm.solve with BIG_CONFIG: one warm solve, then `samples` timed ones
-    from starts moved by 1e-6 (k + 1); the minimum wall."""
+    from starts moved by 1e-6 (k + 1); the minimum wall. `_run` reruns
+    one timed solve, `_inputs` are its input tensors."""
     sync = synchronizer(device)
     chain = torch.as_tensor(seeded_big_chain(P), device=device)
     big = dataclasses.replace(table, constrained=table.constrained % P,
@@ -527,6 +544,34 @@ def joint_solve_section(device, table: ConstraintTable, P: int = BIG_P,
         "iterations": iterations, "initial_cost": float(r.initial_cost),
         "final_cost": costs[-1],
         "finite": bool(torch.isfinite(r.poses).all()),
+        "_run": lambda: float(lm.solve(problem, chain + 1e-6,
+                                       BIG_CONFIG).final_cost),
+        "_inputs": (chain, *vars(big).values()),
+    }
+
+
+def headline_run(device, smoke: bool = False) -> dict:
+    """The headline session with its chain, solve-only and joint solve at
+    the reference's sizes, or at the smoke size (one session, no warm-up,
+    two repetitions, a 512-pose joint solve): {"headline", "chain",
+    "solve_only", "joint_solve"}, each its section's dict."""
+    if smoke:
+        head = headline_section(device, m=generate_figure8(**SMOKE_MAP),
+                                capacity=SMOKE_CAPACITY, sessions=1,
+                                warmup=0)
+        reps, n = SMOKE_REPS, {"samples": SMOKE_REPS["samples"]}
+    else:
+        head = headline_section(device)
+        reps, n = dict(j_rep=J_REP, s_rep=S_REP, big=BIG_P), {}
+    return {
+        "headline": head,
+        "chain": chain_section(device, head, j_rep=reps["j_rep"], **n),
+        "solve_only": solve_only_section(
+            device, head, s_rep=reps["s_rep"], **n,
+            **({"scipy_runs": 1} if smoke else {})),
+        "joint_solve": joint_solve_section(
+            device, head["_session"]["engine"].state.constraints,
+            P=reps["big"], **n),
     }
 
 
@@ -537,7 +582,8 @@ def refine_at_scale(device, state) -> dict:
     and both samples; then its two halves timed apart (the pair
     match, then the LM over its factors); matches, the drop counters,
     iterations and costs of the untimed run. `_poses`: its refined
-    poses."""
+    poses; `_run` reruns one timed refine, `_inputs` are its input
+    tensors."""
     from .models.hitl import refine as R
 
     sync = synchronizer(device)
@@ -594,6 +640,11 @@ def refine_at_scale(device, state) -> dict:
                        and np.isfinite(float(out.final_cost))),
         "peak_memory_mib": _peak_mib(device),
         "_poses": poses,
+        "_run": lambda: float(R.post_human_refine(
+            st.points + 1e-6, st.normals, st.point_mask, st.poses,
+            st.constraints, **kw).final_cost),
+        "_inputs": (st.points, st.normals, st.point_mask, st.poses,
+                    *vars(st.constraints).values()),
     }
 
 

@@ -250,7 +250,8 @@ def test_port_imports_no_jax():
         "'gui.graph_edit', 'gui.live', 'parallel', 'parallel.replicas', "
         "'native', 'models.hitl.repair', 'solver.tridiag', "
         "'parallel.mesh', 'parallel.sharded_solver', 'baselines', "
-        "'baselines.cpu_lm', 'baselines.cpu_refine', 'bench_sessions'):\n"
+        "'baselines.cpu_lm', 'baselines.cpu_refine', 'bench_sessions', "
+        "'bench_reference'):\n"
         "    assert 'hitl_slam_torch.' + name in names, name\n"
         "print(len(names))\n"
     )
