@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; nothing falls back):
-  1. device facts, then build both CUDA kernels from hitl_slam_torch/csrc/
-     (ptxas registers, shared memory and spills are printed);
+  1. device facts, then build the CUDA sources of hitl_slam_torch/csrc/
+     (both kernels and the graph loops' helper; ptxas registers, shared
+     memory and spills are printed);
   2. em_scan kernel vs its plain torch version on the 1024-pose golden map:
      exact counts and bit-equal minima, over threshold and edge cases, an
      odd N, and two calls back to back (the in-kernel reset of the minima);
@@ -142,16 +143,32 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      cycles, bcr = LM iterations); the assembled record holds every key
      of bench_reference.KEY_MAP; `[reference]` lines and one
      `{"reference": {...}}` line;
- 19. times at the main path's shapes: each kernel by CUDA events (host
+ 19. the cycle as a device program (models/hitl/cycle.py::CycleProgram:
+     a CUDA graph a correction type whose EM refit and LM solve are WHILE
+     nodes; phases 4-18 already ran every cycle through it): on
+     golden_large's and the headline's corrections, a replay against
+     eager cycle_step from the same state (verified, order_valid, new
+     rows, LM iterations and em_scan's inlier counts equal; floats
+     bit-equal wherever two eager runs are, else within phase 16's card-
+     against-CPU bounds; which standard held is printed); run_queue
+     through the program against replay_log (the same per-cycle flags),
+     with its host reads under torch.profiler (one a chain) and both
+     kernels' launches from its replays (em_scan = 2 x cycles, BCR = LM
+     iterations); queue_chain under torch.cuda.set_sync_debug_mode
+     ("error"); eager against program at 1024, 8192 and 16384 poses (a
+     correction's wall, the chained cycle, host reads and device
+     operations a cycle, busy share, capture ms, graph nodes, pool MiB);
+     `[program]` lines and one `{"program": {...}}` line;
+ 20. times at the main path's shapes: each kernel by CUDA events (host
      overhead included) and by torch.profiler (its own device time), its
      plain version, its bound from the shapes, and for BCR
      torch.linalg.solve on the dense system; BCR also at n = 64, 16384
      and 32768;
- 20. a `{"kernels": [...]}` line with launches (phases 17's and 18's also
-     apart), agreement, times and bounds (the batched route's launches
-     from phases 15 and 18, the multi route's from phase 16; em_scan and
-     BCR also at phase 17's shapes);
- 21. the last line: {"ok": true, "device": {...}}.
+ 21. a `{"kernels": [...]}` line with launches (phases 17's, 18's and
+     19's also apart), agreement, times and bounds (the batched route's
+     launches from phases 15 and 18, the multi route's from phase 16;
+     em_scan and BCR also at phase 17's shapes);
+ 22. the last line: {"ok": true, "device": {...}}.
 
 scripts/compare_checkouts.py times two checkouts' kernels and replays
 against each other on one card with the helpers here.
@@ -948,12 +965,20 @@ def phase_proposals(torch):
     # so the iterations of every solve are read where the cycle makes it
     from hitl_slam_torch.models.hitl import cycle as C
 
+    # (the solve of a replayed program, or of an eager cycle on the CPU)
     per_call, solved = [], []
     replay, solve = eng.replay_log, C.lm_solve
+    program_replay = C.CycleProgram.replay
 
     def counted_solve(*a, **k):
         out = solve(*a, **k)
-        solved.append(int(out.iterations))
+        if DEVICE == "cpu" or not torch.cuda.is_current_stream_capturing():
+            solved.append(out.iterations)
+        return out
+
+    def counted_program(prog, ctype):
+        out = program_replay(prog, ctype)
+        solved.append(prog.solve_iterations(ctype).clone())
         return out
 
     def counted(entry, record=False):
@@ -961,17 +986,23 @@ def phase_proposals(torch):
         n0 = len(solved)
         rep = replay(entry, record=record)
         em1, bcr1 = _read_counts()
-        per_call.append((rep, em1 - em0, bcr1 - bcr0, solved[n0:]))
+        per_call.append((rep, em1 - em0, bcr1 - bcr0,
+                         [int(i) for i in solved[n0:]]))
         return rep
 
     eng.replay_log, C.lm_solve = counted, counted_solve
+    C.CycleProgram.replay = counted_program
     torch.cuda.synchronize()
     _reset_counts()
     t0 = time.perf_counter()
-    tried = auto_repair(eng, 3, torch.device(DEVICE))
+    try:
+        tried = auto_repair(eng, 3, torch.device(DEVICE))
+    finally:
+        eng.replay_log, C.lm_solve = replay, solve
+        C.CycleProgram.replay = program_replay
     wall = (time.perf_counter() - t0) * 1e3
     n_em, n_bcr = _read_counts()
-    eng.replay_log, C.lm_solve = replay, solve
+    solved = [int(i) for i in solved]
     applied = sum(rep.accepted for _, _, rep in tried)
     check(applied >= 1, "auto-repair applied no correction")
     check(len(per_call) == len(tried) and n_em == 2 * len(tried),
@@ -2809,16 +2840,24 @@ def load_scale_fixture() -> tuple[dict, dict]:
 class _Counted:
     """While a section runs: the correction cycles it makes (em_scan runs
     twice in each) and the iteration tensors of every LM solve (BCR runs
-    once an iteration), with the kernels' counts zeroed on entry. Nothing
-    is read back while the section runs."""
+    once an iteration), with the kernels' counts zeroed on entry: the
+    replays of cycle programs, and the cycles and solves run eagerly
+    (those run while a program is captured launch nothing). Nothing is
+    read back while the section runs."""
 
     def __enter__(self):
         from hitl_slam_torch.models.hitl import cycle as C, engine as EN
         from hitl_slam_torch.solver import lm as LM
 
         self.cycles, self.iterations = 0, []
-        self._saved = (C.cycle_step, EN.cycle_step, C.lm_solve, LM.solve)
-        step, solve = self._saved[0], self._saved[3]
+        self._saved = (C.cycle_step, EN.cycle_step, C.lm_solve, LM.solve,
+                       C.CycleProgram.replay)
+        step, solve, replay = self._saved[0], self._saved[3], self._saved[4]
+
+        def capturing():
+            import torch
+
+            return DEVICE != "cpu" and torch.cuda.is_current_stream_capturing()
 
         def counted_step(*a, **k):
             self.cycles += 1
@@ -2826,11 +2865,19 @@ class _Counted:
 
         def counted_solve(*a, **k):
             out = solve(*a, **k)
-            self.iterations.append(out.iterations)
+            if not capturing():
+                self.iterations.append(out.iterations)
+            return out
+
+        def counted_replay(prog, ctype):
+            out = replay(prog, ctype)
+            self.cycles += 1
+            self.iterations.append(prog.solve_iterations(ctype).clone())
             return out
 
         C.cycle_step = EN.cycle_step = counted_step
         C.lm_solve = LM.solve = counted_solve
+        C.CycleProgram.replay = counted_replay
         _sync()
         _reset_counts()
         return self
@@ -2841,7 +2888,8 @@ class _Counted:
 
         _sync()
         self.launches = _read_counts()
-        C.cycle_step, EN.cycle_step, C.lm_solve, LM.solve = self._saved
+        (C.cycle_step, EN.cycle_step, C.lm_solve, LM.solve,
+         C.CycleProgram.replay) = self._saved
         return False
 
 
@@ -3328,6 +3376,326 @@ def phase_reference(torch, smi, sections, enml_scale, peaks):
 
 # ---------------------------------------------------------------- phase 19
 
+# a replay of the cycle program against eager cycle_step from the same
+# state: bit-equal where two eager runs on the card are bit-equal,
+# elsewhere within phase 16's card-against-CPU bounds
+PROGRAM_POSE_TOL, PROGRAM_COST_RTOL = MESH_CPU_POSE_TOL, MESH_CPU_COST_RTOL
+PROGRAM_INTS = ("verified", "order_valid", "num_new_constraints",
+                "lm_iterations")
+# the phase should finish within this many seconds
+PROGRAM_SECONDS = 60.0
+
+
+def _same_outputs(torch, a, b) -> bool:
+    """Every tensor of two CycleOutputs bit-equal."""
+    from dataclasses import fields
+
+    for f in fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        pairs = (list(zip(vars(x).values(), vars(y).values()))
+                 if f.name == "constraints" else [(x, y)])
+        if not all(torch.equal(u, v) for u, v in pairs):
+            return False
+    return True
+
+
+def _host_reads(torch, run) -> dict:
+    """run()'s reads back to the host under torch.profiler: scalar reads
+    (aten::_local_scalar_dense) and device-to-host copies (the card's
+    DtoH memcpy records)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        _sync()
+    ev = prof.key_averages()
+    scalar = sum(e.count for e in ev if e.key == "aten::_local_scalar_dense")
+    dtoh = sum(e.count for e in ev if e.device_type == DeviceType.CUDA
+               and "DtoH" in e.key)
+    return dict(scalar=scalar, dtoh=dtoh, total=scalar + dtoh)
+
+
+def _program_engine(data, capacity, odometry=None):
+    from hitl_slam_torch.models.hitl.engine import HitLSLAM
+
+    eng = HitLSLAM(device=DEVICE)
+    eng.init(data.poses, data.covariances, data.point_clouds,
+             data.normal_clouds, odometry=odometry,
+             constraint_capacity=capacity)
+    return eng
+
+
+def _program_outputs(torch, name, data, capacity, inputs, odometry=None):
+    """Each correction of `inputs` ((ctype, [4, 2] clicks)) from the state
+    the session reaches before it: eager cycle_step twice and a replay of
+    the map's CycleProgram; integers equal, em_scan's inlier counts equal,
+    floats bit-equal where the two eager runs are, else within the
+    bounds. The session then moves on by replay_log."""
+    import numpy as np
+
+    from hitl_slam_torch.core.state import CorrectionType, SingleInput
+    from hitl_slam_torch.models.hitl import cycle as C
+
+    eng = _program_engine(data, capacity, odometry)
+    rows = []
+    for i, (ct, clicks) in enumerate(inputs):
+        st, n = eng.state, eng.num_constraints
+        sel_np = eng._prepare_sel(CorrectionType(ct),
+                                  np.asarray(clicks, np.float32))
+        sel = torch.as_tensor(sel_np, device=DEVICE)
+        eager = []
+        for _ in range(2):
+            out, _, counts = C.cycle_solve(
+                st.points, st.point_mask, st.poses, st.covariances,
+                st.constraints, ct, sel, n, lm_config=eng.lm_config)
+            eager.append((C.clone_output(out), counts.clone()))
+        prog = eng._program(st)
+        rep = prog.run(ct, st.points, st.point_mask, st.poses,
+                       st.covariances, st.constraints, sel, n)
+        rep_counts = prog.graphs[ct].outputs[2].clone()
+        _sync()
+        (e1, c1), (e2, c2) = eager
+        ints = {k: (int(getattr(rep, k)), int(getattr(e1, k)))
+                for k in PROGRAM_INTS}
+        check(all(a == b for a, b in ints.values()),
+              f"{name} correction {i}: replay integers {ints} (replay, "
+              f"eager) differ")
+        check(torch.equal(rep_counts, c1),
+              f"{name} correction {i}: em_scan counts differ from eager")
+        eager_equal = _same_outputs(torch, e1, e2) and torch.equal(c1, c2)
+        replay_equal = _same_outputs(torch, rep, e1)
+        dpose = float((rep.poses - e1.poses).abs().max())
+        dcost = max(abs(float(getattr(rep, k)) - float(getattr(e1, k)))
+                    / max(abs(float(getattr(e1, k))), 1e-30)
+                    for k in ("lm_initial_cost", "lm_final_cost"))
+        if eager_equal:
+            check(replay_equal, f"{name} correction {i}: two eager runs are "
+                  f"bit-equal, the replay is not (poses {dpose:.3e}, cost "
+                  f"{dcost:.3e})")
+        else:
+            check(dpose <= PROGRAM_POSE_TOL and dcost <= PROGRAM_COST_RTOL,
+                  f"{name} correction {i}: replay {dpose:.3e} / {dcost:.3e} "
+                  f"from eager (> {PROGRAM_POSE_TOL} / {PROGRAM_COST_RTOL})")
+        standard = "bit-equal" if replay_equal else "tolerance"
+        rows.append(dict(ctype=ct, standard=standard,
+                         eager_bit_equal=eager_equal, max_pose_diff=dpose,
+                         cost_rel_diff=dcost, lm_iterations=ints[
+                             "lm_iterations"][0],
+                         verified=bool(ints["verified"][0]),
+                         order_valid=bool(ints["order_valid"][0])))
+        eng.replay_log(SingleInput(CorrectionType(ct), 0, clicks))
+    log(f"[program] {name}: {len(rows)} corrections, replay against eager "
+        f"cycle_step: " + "; ".join(
+            f"{r['standard']} (LM {r['lm_iterations']}, poses "
+            f"{r['max_pose_diff']:.1e}, eager runs bit-equal "
+            f"{r['eager_bit_equal']})" for r in rows))
+    return rows
+
+
+def _program_chain(torch, name, data, capacity, inputs, odometry=None):
+    """run_queue through the program against replay_log (per-cycle flags),
+    its host reads under the profiler, both kernels' launches from its
+    replays, and queue_chain under sync debug mode "error"."""
+    import numpy as np
+
+    from hitl_slam_torch.core.state import CorrectionType, SingleInput
+    from hitl_slam_torch.models.hitl import cycle as C
+
+    entries = [SingleInput(CorrectionType(c), 0, np.asarray(s, np.float32))
+               for c, s in inputs]
+    seq = _program_engine(data, capacity, odometry)
+    want = [seq.replay_log(e) for e in entries]
+    eng = _program_engine(data, capacity, odometry)
+    _sync()
+    _reset_counts()
+    got = eng.run_queue(entries)
+    _sync()
+    n_em, n_bcr = _read_counts()
+    flags = lambda rs: [(r.accepted, r.reason, r.num_new_constraints,   # noqa: E731
+                         r.lm_iterations) for r in rs]
+    check(flags(got) == flags(want),
+          f"{name}: run_queue {flags(got)} != replay_log {flags(want)}")
+    check(n_em == 2 * len(entries) and n_em > 0,
+          f"{name}: em_scan replay launches {n_em} != 2 x {len(entries)}")
+    iters = sum(r.lm_iterations for r in got)
+    check(n_bcr == iters and n_bcr > 0,
+          f"{name}: bcr replay launches {n_bcr} != LM iterations {iters}")
+    check(torch.equal(eng.state.poses, seq.state.poses)
+          or float((eng.state.poses - seq.state.poses).abs().max())
+          <= PROGRAM_POSE_TOL, f"{name}: run_queue's poses differ from "
+          "replay_log's")
+    fresh = _program_engine(data, capacity, odometry)
+    reads = _host_reads(torch, lambda: fresh.run_queue(entries))
+    check(reads["total"] == 1, f"{name}: run_queue read the host "
+          f"{reads} times, not once")
+    # the chain alone, with a synchronizing call anywhere raising
+    st = _program_engine(data, capacity, odometry).state
+    sels = torch.as_tensor(np.stack([seq._prepare_sel(e.correction_type,
+                                                      e.points)
+                                     for e in entries]), device=DEVICE)
+    _sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = C.queue_chain(st.points, st.point_mask, st.poses,
+                            st.covariances, st.constraints,
+                            [int(e.correction_type) for e in entries], sels,
+                            0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    accepted = [bool(a) for a in res[4][0].cpu().tolist()]
+    check(accepted == [r.accepted for r in want],
+          f"{name}: queue_chain under sync debug accepted {accepted}")
+    log(f"[program] {name} run_queue: flags equal replay_log's "
+        f"({[r.accepted for r in got]}, LM {[r.lm_iterations for r in got]})"
+        f", host reads {reads['total']} (scalar {reads['scalar']}, DtoH "
+        f"{reads['dtoh']}), replay launches em_scan={n_em} bcr={n_bcr}; "
+        f"queue_chain under sync debug mode \"error\": nothing raised")
+    return dict(cycles=len(entries), host_reads=reads,
+                launches_em_scan=n_em, launches_bcr=n_bcr,
+                sync_debug_error_raised=False), n_em, n_bcr
+
+
+def _program_times(torch, name, data, capacity, inputs, odometry=None):
+    """Eager against program at one size: the last correction's wall from
+    the state before it (the cycle and its six-scalar read, the best of
+    three), the chained cycle over every correction from the start state
+    (a checksum read at the end, the best of two), host reads and device
+    operations of one cycle and the busy share (profiler device ms over
+    the wall), and the programs' capture ms, graph nodes and pool MiB."""
+    import numpy as np
+
+    from hitl_slam_torch.bench_reference import device_profile
+    from hitl_slam_torch.core.state import CorrectionType, SingleInput
+    from hitl_slam_torch.models.hitl import cycle as C
+    from hitl_slam_torch.models.hitl.engine import _report_scalars
+
+    eng = _program_engine(data, capacity, odometry)
+    for c, clicks in inputs[:-1]:
+        eng.replay_log(SingleInput(CorrectionType(c), 0,
+                                   np.asarray(clicks, np.float32)))
+    st, n = eng.state, eng.num_constraints
+    ct, clicks = inputs[-1]
+    sel = torch.as_tensor(eng._prepare_sel(CorrectionType(ct), np.asarray(
+        clicks, np.float32)), device=DEVICE)
+    prog = eng._program(st)
+    args = (st.points, st.point_mask, st.poses, st.covariances,
+            st.constraints)
+
+    def eager_cycle():
+        _report_scalars(C.cycle_step(*args, ct, sel, n,
+                                     lm_config=eng.lm_config))
+
+    def program_cycle():
+        _report_scalars(prog.run(ct, *args, sel, n))
+
+    start = _program_engine(data, capacity, odometry).state
+    ctypes = [c for c, _ in inputs]
+    sels = torch.as_tensor(np.stack([np.asarray(
+        eng._prepare_sel(CorrectionType(c), np.asarray(s, np.float32)))
+        for c, s in inputs]), device=DEVICE)
+    cargs = (start.points, start.point_mask, start.poses, start.covariances,
+             start.constraints, ctypes, sels, 0)
+
+    def chained(fn):
+        def run():
+            p, c, _, _, _ = fn(*cargs)
+            float(torch.sum(p) + torch.sum(c))
+        return run
+
+    def best(fn, k):
+        fn()
+        walls = []
+        for _ in range(k):
+            _sync()
+            t0 = time.perf_counter()
+            fn()
+            _sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return min(walls)
+
+    out = {"poses": int(st.num_poses), "points": int(st.max_points),
+           "cycles_chained": len(inputs)}
+    for kind, cycle, chain in (
+            ("eager", eager_cycle, chained(C.queue_chain_eager)),
+            ("program", program_cycle, chained(C.queue_chain))):
+        wall = best(cycle, 3)
+        chain_ms = best(chain, 2) / len(inputs)
+        reads = _host_reads(torch, cycle)
+        dev_ms, ops = device_profile(cycle)
+        out[kind] = dict(cycle_ms=wall, chained_cycle_ms=chain_ms,
+                         host_reads_per_cycle=reads["total"],
+                         device_ops_per_cycle=ops, device_ms=dev_ms,
+                         busy=dev_ms / wall)
+    used = sorted(set(ctypes))
+    out["program"].update(
+        capture_ms={c: prog.capture_ms[c] for c in used},
+        graph_nodes={c: prog.nodes[c] for c in used},
+        pool_mib={c: prog.pool_mib[c] for c in used})
+    e, p = out["eager"], out["program"]
+    log(f"[program] {name} ({out['poses']} poses x {out['points']} points):"
+        f" cycle {e['cycle_ms']:.2f} ms eager, {p['cycle_ms']:.2f} ms "
+        f"program; chained cycle {e['chained_cycle_ms']:.2f} / "
+        f"{p['chained_cycle_ms']:.2f} ms; host reads a cycle "
+        f"{e['host_reads_per_cycle']} / {p['host_reads_per_cycle']}; device "
+        f"operations {e['device_ops_per_cycle']} / "
+        f"{p['device_ops_per_cycle']}; busy {100 * e['busy']:.1f} / "
+        f"{100 * p['busy']:.1f} %; capture ms {p['capture_ms']}, graph "
+        f"nodes {p['graph_nodes']}, pool MiB "
+        f"{ {c: round(v, 1) for c, v in p['pool_mib'].items()} }")
+    return out
+
+
+def phase_program(torch, smi, large, large_log, sections):
+    """The correction cycle as a device program (models/hitl/cycle.py::
+    CycleProgram, a CUDA graph a correction type whose EM and LM loops are
+    WHILE nodes): replays against eager cycle_step on golden_large and the
+    headline's corrections; run_queue through the program against
+    replay_log, with one host read a chain and both kernels launched from
+    replays; queue_chain under sync debug mode "error"; eager against
+    program at 1024, 8192 and 16384 poses. Returns (the record, em_scan
+    and BCR replay launches)."""
+    from hitl_slam_torch import bench_sessions as S
+
+    t_phase = time.perf_counter()
+    head = sections["headline"]
+    hm = head["_map"]
+    large_inputs = [(int(e.correction_type), e.points) for e in large_log]
+    head_inputs = head["_session"]["accepted_inputs"]
+    out = {"card": smi, "design": "WHILE conditional nodes "
+           "(csrc/graph_loop.cu); torch " + torch.__version__}
+    out["outputs"] = {
+        "golden_large": _program_outputs(torch, "golden_large", large, 16384,
+                                         large_inputs),
+        "headline": _program_outputs(torch, "headline", hm,
+                                     S.HEADLINE_CAPACITY, head_inputs,
+                                     hm.odometry)}
+    out["chain"] = {}
+    n_em = n_bcr = 0
+    for name, data, cap, inputs, odo in (
+            ("golden_large", large, 16384, large_inputs, None),
+            ("headline", hm, S.HEADLINE_CAPACITY, head_inputs, hm.odometry)):
+        out["chain"][name], e, b = _program_chain(torch, name, data, cap,
+                                                  inputs, odo)
+        n_em, n_bcr = n_em + e, n_bcr + b
+    out["times"] = {"1024": _program_times(torch, "headline", hm,
+                                           S.HEADLINE_CAPACITY, head_inputs,
+                                           hm.odometry)}
+    for key, size in (("scale_8192", 8192), ("scale_16384", 16384)):
+        sec = sections[key]
+        out["times"][str(size)] = _program_times(
+            torch, f"{size}-pose session", sec["_map"], S.SCALE_CAPACITY,
+            sec["_session"]["accepted_inputs"])
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[program] phase: {out['seconds']:.1f} s (budget "
+        f"{PROGRAM_SECONDS:.0f} s), replay launches em_scan={n_em} "
+        f"bcr={n_bcr}")
+    return out, n_em, n_bcr
+
+
+# ---------------------------------------------------------------- phase 20
+
 def phase_times(torch, state, log_entries):
     """Each kernel at the main path's shapes (em_scan on the golden_large
     map, BCR at its 1024 poses), beside its plain version, its bound and
@@ -3417,7 +3785,7 @@ def main() -> int:
     cuda_build.library()
     info = cuda_build.build_info
     log(f"[build] {info.path} in {time.perf_counter() - t0:.1f} s "
-        f"({'cached' if info.cached else 'nvcc, 2 sources in parallel'})")
+        f"({'cached' if info.cached else 'nvcc, 3 sources in parallel'})")
     log_ptxas("build", info.log)
 
     small = stfs.load_stfs_covars(os.path.join(DATA, "golden.stfs.covars"))
@@ -3485,25 +3853,29 @@ def main() -> int:
     peaks = [scale[k].get("peak_memory_mib") for k in ("s8192", "s16384")]
     reference, r_em, r_bcr, r_batched = phase_reference(
         torch, smi, sections, enml_scale, peaks)
-    del sections
     print(json.dumps({"reference": reference}), flush=True)
+    # ---- 19. the cycle as a device program ----
+    program, p_em, p_bcr = phase_program(torch, smi, large, large_log,
+                                         sections)
+    del sections
+    print(json.dumps({"program": program}), flush=True)
     log(smi)
-    # ---- 19. times ----
+    # ---- 20. times ----
     times = phase_times(torch, state, large_log)
-    # ---- 20. kernels line ----
+    # ---- 21. kernels line ----
     kernels = [
         {"name": "em_scan", "route": "cuda",
          "source": "hitl_slam_torch/csrc/em_scan.cu",
          "replaces": "hitl_slam_tpu/ops/pallas_em.py:33",
-         "launches": n_em + s_em + r_em, "scale_launches": s_em,
-         "reference_launches": r_em,
+         "launches": n_em + s_em + r_em + p_em, "scale_launches": s_em,
+         "reference_launches": r_em, "program_launches": p_em,
          "max_abs_err": max(em_err, scale_err[0]), **times["em_scan"],
          **scale_times["em_scan"]},
         {"name": "bcr_solve", "route": "cuda",
          "source": "hitl_slam_torch/csrc/bcr.cu",
          "replaces": "hitl_slam_tpu/solver/pallas_bcr.py:94",
-         "launches": n_bcr + s_bcr + r_bcr, "scale_launches": s_bcr,
-         "reference_launches": r_bcr,
+         "launches": n_bcr + s_bcr + r_bcr + p_bcr, "scale_launches": s_bcr,
+         "reference_launches": r_bcr, "program_launches": p_bcr,
          "max_abs_err": max(bcr_err, scale_err[1]), **times["bcr_solve"],
          **scale_times["bcr_solve"]},
         {"name": "bcr_solve_batched", "route": "cuda",
@@ -3528,7 +3900,7 @@ def main() -> int:
     ]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    # ---- 21. contract line ----
+    # ---- 22. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

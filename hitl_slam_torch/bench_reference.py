@@ -593,12 +593,13 @@ def bag_ingest_section(require_native: bool) -> dict:
 
 # ---------------------------------------------------------------- device
 
-def device_profile(run) -> tuple[float, int]:
-    """(device ms, device operations) of run() from torch.profiler tracing
-    the card alone (a window of 10^5 launches costs minutes with the host's
-    operator events too). The window is run again, up to three times, where
-    it comes back without a device record; RuntimeError if it never
-    shows one."""
+def device_trace(run) -> tuple[float, int, int]:
+    """(device ms, device operations, host reads) of run() from
+    torch.profiler tracing the card alone (a window of 10^5 launches costs
+    minutes with the host's operator events too); a host read is a
+    device-to-host copy record (a scalar read is one). The window is run
+    again, up to three times, where it comes back without a device record;
+    RuntimeError if it never shows one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -613,28 +614,38 @@ def device_profile(run) -> tuple[float, int]:
             us = sum(getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0))
                      for e in events)
-            return us / 1e3, ops
+            reads = sum(e.count for e in events if "DtoH" in e.key)
+            return us / 1e3, ops, reads
     raise RuntimeError("the profiler showed no device operation in three "
                        "windows")
 
 
+def device_profile(run) -> tuple[float, int]:
+    """(device ms, device operations) of run(): device_trace's first two."""
+    return device_trace(run)[:2]
+
+
 def device_analysis(device, surfaces: dict) -> dict:
-    """For each surface name -> (run, wall ms, input tensors): the wall, the
-    bytes of the inputs and, on a CUDA device, the device ms and device
-    operations of one rerun under the profiler, the busy share (device ms
-    over the wall) and the profiled rerun's own seconds; None for those
-    four on the CPU."""
+    """For each surface name -> (run, wall ms, input tensors[, extra]): the
+    wall, the bytes of the inputs and, on a CUDA device, the device ms,
+    device operations and host reads of one rerun under the profiler, the
+    busy share (device ms over the wall) and the profiled rerun's own
+    seconds; None for those five on the CPU. `extra`, a callable, adds
+    the fields it returns (the cycle programs' capture ms, graph nodes and
+    pool MiB for the chain)."""
     out = {}
-    for name, (run, wall_ms, inputs) in surfaces.items():
+    for name, (run, wall_ms, inputs, *extra) in surfaces.items():
         entry = {"wall_ms": wall_ms, "input_bytes": _nbytes(inputs),
-                 "device_ms": None, "device_ops": None, "busy": None,
-                 "profile_s": None}
+                 "device_ms": None, "device_ops": None, "host_reads": None,
+                 "busy": None, "profile_s": None}
         if torch.device(device).type == "cuda":
             t0 = time.perf_counter()
-            dev_ms, ops = device_profile(run)
-            entry.update(device_ms=dev_ms, device_ops=ops,
+            dev_ms, ops, reads = device_trace(run)
+            entry.update(device_ms=dev_ms, device_ops=ops, host_reads=reads,
                          busy=dev_ms / wall_ms,
                          profile_s=time.perf_counter() - t0)
+        for fn in extra:
+            entry.update(fn())
         out[name] = entry
     return out
 
@@ -889,7 +900,8 @@ def reference_sections(device, smoke: bool = False) -> dict:
     chain, big, ref = s["chain"], s["joint_solve"], s["refine"]
     surfaces = {
         "cycle_chain": (chain["_run"], chain["ms_per_cycle"] * chain["cycles"]
-                        * chain["j_rep"], chain["_inputs"]),
+                        * chain["j_rep"], chain["_inputs"],
+                        lambda: {"cycle_programs": chain["_programs"]()}),
         "solve_8192": (big["_run"], big["wall_ms"], big["_inputs"]),
         "refine_1024": (ref["_run"], ref["refine_ms"], ref["_inputs"]),
         "enml_batch": (s["enml"]["_run"], s["enml"]["sequential_ms"],

@@ -340,8 +340,11 @@ def _chained(st, p0, covs, table, ctypes, sels, j_rep: int):
 
 
 def _host_reads_and_launches(run) -> tuple[int, int | None]:
-    """(scalar reads back to the host, device operations) of run() under
-    torch.profiler; device operations only on a CUDA device (else None)."""
+    """(reads back to the host, device operations) of run() under
+    torch.profiler: on a CUDA device its device-to-host copy records (a
+    scalar read is one), on the CPU its scalar reads
+    (aten::_local_scalar_dense); device operations only on a CUDA device
+    (else None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -357,8 +360,23 @@ def _host_reads_and_launches(run) -> tuple[int, int | None]:
     reads = sum(e.count for e in events if e.key == "aten::_local_scalar_dense")
     if not cuda:
         return reads, None
-    return reads, sum(e.count for e in events
-                      if e.device_type == DeviceType.CUDA)
+    copies = sum(e.count for e in events
+                 if e.device_type == DeviceType.CUDA and "DtoH" in e.key)
+    return copies, sum(e.count for e in events
+                       if e.device_type == DeviceType.CUDA)
+
+
+def _program_stats(st, capacity: int) -> dict | None:
+    """Capture ms, graph nodes and pool MiB of each correction type's graph
+    in the CycleProgram that queue_chain replays for this map (None on the
+    CPU, which runs the chain eagerly)."""
+    from .models.hitl.cycle import cycle_program
+
+    if st.points.device.type != "cuda":
+        return None
+    prog = cycle_program(st.points, capacity, lm.LMConfig(), False, False)
+    return {str(c): {"capture_ms": prog.capture_ms[c], "nodes": prog.nodes[c],
+                     "pool_mib": prog.pool_mib[c]} for c in prog.graphs}
 
 
 def chain_section(device, headline: dict, j_rep: int = J_REP,
@@ -368,7 +386,7 @@ def chain_section(device, headline: dict, j_rep: int = J_REP,
     from the initial drifted state (a fresh table each time), one host read
     (the checksum) at the end. ms a chained cycle is the minimum over
     `samples` timed calls, each from the initial poses moved by
-    1e-6 (k + 1); then the scalar host reads and device operations a cycle
+    1e-6 (k + 1); then the host reads and device operations a cycle
     of one repetition under the profiler. `_first_poses`: the first
     repetition's result of the untimed call from the initial poses;
     `_run` reruns one whole call, `_inputs` are its input tensors."""
@@ -417,6 +435,7 @@ def chain_section(device, headline: dict, j_rep: int = J_REP,
         "device_ops_per_cycle": None if launches is None else launches / k,
         "_first_poses": first.cpu().numpy(),
         "_run": lambda: float(run(p0)[0]),
+        "_programs": lambda: _program_stats(st, table.capacity),
         "_inputs": (st.points, st.point_mask, p0, covs, sels, *vars(
             table).values()),
     }

@@ -1,0 +1,127 @@
+// Device loops in CUDA graphs: the graph that utils/device_loop.py builds
+// around straight-line pieces captured by PyTorch.
+//
+// A LoopGraph is a chain of nodes. Straight-line work enters it as a child
+// graph node (a copy of a graph PyTorch captured); a loop as a one-thread
+// kernel node that copies a device bool into a conditional handle (the test
+// before the first trip), then a conditional node of type WHILE whose body
+// is a child graph node (the trip, also captured by PyTorch) followed by the
+// same one-thread kernel (the test before the next trip). The WHILE node
+// runs its body while the handle holds a nonzero value, so a replay decides
+// every trip on the device and reads nothing back, as the reference's
+// lax.while_loop does. Returns are CUDA error codes.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+__global__ void set_condition(cudaGraphConditionalHandle handle,
+                              const bool* flag) {
+  cudaGraphSetConditional(handle, *flag ? 1u : 0u);
+}
+
+// Add the kernel node set_condition(handle, flag) to `graph` after `dep`
+// (none when null).
+cudaError_t add_test(cudaGraph_t graph, cudaGraphNode_t dep,
+                     cudaGraphConditionalHandle handle, const bool* flag,
+                     cudaGraphNode_t* node) {
+  cudaKernelNodeParams kp = {};
+  void* args[] = {&handle, &flag};
+  kp.func = reinterpret_cast<void*>(set_condition);
+  kp.gridDim = dim3(1, 1, 1);
+  kp.blockDim = dim3(1, 1, 1);
+  kp.sharedMemBytes = 0;
+  kp.kernelParams = args;
+  return cudaGraphAddKernelNode(node, graph, dep ? &dep : nullptr,
+                                dep ? 1 : 0, &kp);
+}
+
+}  // namespace
+
+extern "C" int hitl_loop_graph_new(void** graph) {
+  cudaGraph_t g = nullptr;
+  cudaError_t err = cudaGraphCreate(&g, 0);
+  *graph = g;
+  return static_cast<int>(err);
+}
+
+// Append a copy of the captured graph `piece` after *tail; *tail becomes
+// the new node.
+extern "C" int hitl_loop_append(void* graph, void** tail, void* piece) {
+  cudaGraphNode_t dep = static_cast<cudaGraphNode_t>(*tail);
+  cudaGraphNode_t node;
+  cudaError_t err = cudaGraphAddChildGraphNode(
+      &node, static_cast<cudaGraph_t>(graph), dep ? &dep : nullptr,
+      dep ? 1 : 0, static_cast<cudaGraph_t>(piece));
+  if (err == cudaSuccess) *tail = node;
+  return static_cast<int>(err);
+}
+
+// Append a loop after *tail: while the device bool at `flag` holds, run a
+// copy of the captured graph `body` (which recomputes the bool). *tail
+// becomes the WHILE node.
+extern "C" int hitl_loop_append_while(void* graph, void** tail,
+                                      const void* flag, void* body) {
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  const bool* f = static_cast<const bool*>(flag);
+  cudaGraphConditionalHandle handle;
+  cudaError_t err = cudaGraphConditionalHandleCreate(&handle, g, 0, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaGraphNode_t first;
+  err = add_test(g, static_cast<cudaGraphNode_t>(*tail), handle, f, &first);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  cudaGraphNodeParams p = {};
+  p.type = cudaGraphNodeTypeConditional;
+  p.conditional.handle = handle;
+  p.conditional.type = cudaGraphCondTypeWhile;
+  p.conditional.size = 1;
+  cudaGraphNode_t loop;
+#if CUDART_VERSION >= 13000
+  err = cudaGraphAddNode(&loop, g, &first, nullptr, 1, &p);
+#else
+  err = cudaGraphAddNode(&loop, g, &first, 1, &p);
+#endif
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  cudaGraph_t inner = p.conditional.phGraph_out[0];
+  cudaGraphNode_t trip, next;
+  err = cudaGraphAddChildGraphNode(&trip, inner, nullptr, 0,
+                                   static_cast<cudaGraph_t>(body));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = add_test(inner, trip, handle, f, &next);
+  if (err == cudaSuccess) *tail = loop;
+  return static_cast<int>(err);
+}
+
+// Nodes of a graph, not counting inside child graphs.
+extern "C" int hitl_loop_graph_nodes(void* graph, unsigned long long* count) {
+  size_t n = 0;
+  cudaError_t err =
+      cudaGraphGetNodes(static_cast<cudaGraph_t>(graph), nullptr, &n);
+  *count = n;
+  return static_cast<int>(err);
+}
+
+extern "C" int hitl_loop_instantiate(void* graph, void** exec) {
+  cudaGraphExec_t e = nullptr;
+  cudaError_t err = cudaGraphInstantiate(&e, static_cast<cudaGraph_t>(graph),
+                                         0ULL);
+  *exec = e;
+  return static_cast<int>(err);
+}
+
+extern "C" int hitl_loop_launch(void* exec, void* stream) {
+  return static_cast<int>(cudaGraphLaunch(static_cast<cudaGraphExec_t>(exec),
+                                          static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int hitl_loop_destroy(void* graph, void* exec) {
+  cudaError_t err = cudaSuccess;
+  if (exec) err = cudaGraphExecDestroy(static_cast<cudaGraphExec_t>(exec));
+  if (graph) {
+    cudaError_t e2 = cudaGraphDestroy(static_cast<cudaGraph_t>(graph));
+    if (err == cudaSuccess) err = e2;
+  }
+  return static_cast<int>(err);
+}

@@ -30,6 +30,14 @@ def _rot(phi: Tensor, v: Tensor) -> Tensor:
     return torch.stack([c * x - s * y, s * x + c * y], dim=-1)
 
 
+def _row(t: Tensor, i: Tensor) -> Tensor:
+    """t[i] for a 0-dim index tensor, negative indices wrapping as Python's
+    do, read on the device (indexing with a 0-dim tensor reads the index
+    back to the host)."""
+    return torch.index_select(t, 0, torch.remainder(i, t.shape[0])
+                              .reshape(1))[0]
+
+
 def backprop(poses: Tensor, covariances: Tensor, correction: Tensor,
              bp_min: Tensor, bp_max: Tensor) -> tuple[Tensor, Tensor]:
     """correction [3] = (dx, dy, dtheta); bp_min/bp_max scalar int tensors.
@@ -51,8 +59,8 @@ def backprop(poses: Tensor, covariances: Tensor, correction: Tensor,
 
     # ---- covariance scaling (applied to poses [min, max)) ----
     prev = torch.clamp(bp_max - 1, min=0).long()
-    rot_beta = 1.0 / (1.0 + rot_sigma[prev] / DEST_ROT_VARIANCE)
-    trans_beta = 1.0 / (1.0 + trans_sigma[prev] / DEST_TRANS_VARIANCE)
+    rot_beta = 1.0 / (1.0 + _row(rot_sigma, prev) / DEST_ROT_VARIANCE)
+    trans_beta = 1.0 / (1.0 + _row(trans_sigma, prev) / DEST_TRANS_VARIANCE)
     one = torch.ones((), dtype=poses.dtype, device=poses.device)
     scale = torch.stack([
         torch.stack([trans_beta, trans_beta, rot_beta]),
@@ -79,8 +87,8 @@ def backprop(poses: Tensor, covariances: Tensor, correction: Tensor,
 
     # ---- translation stage ----
     bmax = bp_max.long()
-    destination = xy[bmax] + correction[:2]
-    trans = destination - new_xy[bmax]
+    destination = _row(xy, bmax) + correction[:2]
+    trans = destination - _row(new_xy, bmax)
     dtrans = w_trans[:, None] * trans[None]             # [P,2]
     t_prefix = torch.cumsum(dtrans, 0) - dtrans         # sum_{i<k}
     new_xy = torch.where(in_window[:, None], new_xy + t_prefix, new_xy)

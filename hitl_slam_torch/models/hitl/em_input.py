@@ -16,8 +16,9 @@ Port of hitl_slam_tpu/models/hitl/em_input.py:
   - `order_and_filter`: the host (numpy) ordering and filtering of the two
     pose sets, the twin of ordering.py::order_on_device.
 
-The refit loop reads one flag from the device per round (the reference's
-`lax.while_loop` condition).
+The refit loop is a `device_while` (the reference's `lax.while_loop`):
+eagerly it reads one flag from the device a round, inside a CUDA graph
+capture (utils/device_loop.py::LoopGraph) it is a WHILE node of the graph.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from ...ops.geometry import dist_to_segment, norm2
+from ...utils.device_loop import device_while
 
 Tensor = torch.Tensor
 
@@ -79,17 +81,20 @@ def _segfit_theta(pts: Tensor, w: Tensor, cm: Tensor, half_len: Tensor,
 def endpoint_adjust_batch(world_pts: Tensor, mask: Tensor, segs: Tensor) -> Tensor:
     """Refit S segments segs=[S,2,2] against the map until each segment's
     endpoints move less than 0.05 m (or MAX_ADJUST_ROUNDS rounds). Returns
-    the refit [S, 2, 2] endpoints."""
+    the refit [S, 2, 2] endpoints.
+
+    A round is the body of a `device_while` over the carry (s, moved),
+    each written with `copy_`."""
     flat = world_pts.reshape(-1, 2)
     fmask = mask.reshape(-1)
     dtype = segs.dtype
     S = segs.shape[0]
-    s = segs
+    s = segs.clone()
     moved = torch.full((S,), float("inf"), dtype=dtype, device=segs.device)
-    for _ in range(MAX_ADJUST_ROUNDS):
+    go = torch.any(moved > ENDPOINT_STABLE)
+
+    def adjust_round():
         active = moved > ENDPOINT_STABLE               # [S]
-        if not bool(torch.any(active)):
-            break
         p1, p2 = s[:, 0], s[:, 1]                       # [S,2]
         d = dist_to_segment(p1[:, None], p2[:, None], flat[None])  # [S,M]
         w = (fmask[None] & (d < INLIER_THRESHOLD)).to(dtype)
@@ -103,8 +108,12 @@ def endpoint_adjust_batch(world_pts: Tensor, mask: Tensor, segs: Tensor) -> Tens
         new2 = cm - half_len[:, None] * a
         moved_now = torch.maximum(norm2(new1 - p1), norm2(new2 - p2))
         new_s = torch.stack([new1, new2], dim=1)
-        s = torch.where(active[:, None, None], new_s, s)
-        moved = torch.where(active, moved_now, torch.zeros_like(moved_now))
+        s.copy_(torch.where(active[:, None, None], new_s, s))
+        moved.copy_(torch.where(active, moved_now,
+                                torch.zeros_like(moved_now)))
+        go.copy_(torch.any(moved > ENDPOINT_STABLE))
+
+    device_while(go, adjust_round, MAX_ADJUST_ROUNDS)
     return s
 
 

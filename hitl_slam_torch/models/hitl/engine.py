@@ -6,9 +6,14 @@ get_cost_breakdown / propose_corrections / post_optimize and speculative
 dispatch, with the same
 single-depth undo snapshot and the two-click pending-correction state
 machine. The numeric cycle runs on the engine's device
-(models/hitl/cycle.py); this class holds the state, records history and
-undo snapshots, and keeps the constraint-table write cursor. It reads back
-six scalars per correction.
+(models/hitl/cycle.py): on a card as a replay of the map's
+`CycleProgram` (a CUDA graph whose EM and LM loops run on the device), on
+the CPU eagerly. This class holds the state, records history and undo
+snapshots, and keeps the constraint-table write cursor. A correction reads
+back six scalars, in one transfer, and nothing else on a card; a queued
+chain (`run_queue`) reads back its per-cycle flags once at its end.
+Whatever outlives the next replay (the new state, the undo snapshot, a
+speculative result) is a copy, never the graph's own memory.
 
 Speculative dispatch: when the second drag completes a selection, the whole
 cycle for it starts on a worker thread (on a CUDA stream of its own when the
@@ -37,7 +42,8 @@ from ...core.state import (
 )
 from ...solver.lm import LMConfig
 from ...utils.timing import FunctionTimer
-from .cycle import CycleOutput, cycle_step, queue_chain
+from .cycle import (CycleOutput, CycleProgram, cycle_program, cycle_step,
+                    queue_chain)
 
 
 @dataclass
@@ -186,13 +192,27 @@ class HitLSLAM:
             sel = np.stack([sel[0], sel[0], sel[1], sel[1]])
         return sel if sel.shape[0] == 4 else None
 
+    def _program(self, st: MapState) -> CycleProgram:
+        """The map's cycle program (a card only)."""
+        return cycle_program(st.points, st.constraints.capacity,
+                             self.lm_config, self.odom_inv_sigma is not None,
+                             warm_start=False)
+
     def _run_cycle(self, st: MapState, ctype: int, sel: np.ndarray,
-                   num_constraints: int) -> CycleOutput:
+                   num_constraints: int,
+                   program: CycleProgram | None = None) -> CycleOutput:
+        """One cycle on the current stream: a replay of the map's program
+        (or `program`) on a card, its outputs copied out of the graph;
+        eager on the CPU."""
+        sel_t = torch.as_tensor(sel, dtype=torch.float32, device=self.device)
+        if self.device.type == "cuda":
+            return (program or self._program(st)).run(
+                ctype, st.points, st.point_mask, st.poses, st.covariances,
+                st.constraints, sel_t, num_constraints,
+                odom_inv_sigma=self.odom_inv_sigma)
         return cycle_step(
             st.points, st.point_mask, st.poses, st.covariances,
-            st.constraints, ctype,
-            torch.as_tensor(sel, dtype=torch.float32, device=self.device),
-            num_constraints,
+            st.constraints, ctype, sel_t, num_constraints,
             lm_config=self.lm_config,
             odom_inv_sigma=self.odom_inv_sigma,
         )
@@ -215,8 +235,12 @@ class HitLSLAM:
         st = self.state
         ctype = int(self.correction_type)
         n = self.num_constraints
-        stream = None
+        stream = prog = None
         if self.device.type == "cuda":
+            # a first use of the correction type captures its graph here,
+            # on the caller's thread; the worker only replays
+            prog = self._program(st)
+            prog.graph(ctype)
             if self._spec_stream is None:
                 self._spec_stream = torch.cuda.Stream(self.device)
             stream = self._spec_stream
@@ -230,7 +254,7 @@ class HitLSLAM:
                     vals = _report_scalars(out)
                 else:
                     with torch.cuda.stream(stream):
-                        out = self._run_cycle(st, ctype, sel, n)
+                        out = self._run_cycle(st, ctype, sel, n, prog)
                         vals = _report_scalars(out)
                 box["out"], box["vals"] = out, vals
             except Exception as e:   # handed to the run() that uses it
@@ -427,11 +451,14 @@ class HitLSLAM:
                   chain_capacity: int = 8,
                   record: bool = False) -> list[CycleReport]:
         """Execute queued corrections as device-carried chains
-        (cycle.queue_chain), up to `chain_capacity` corrections a chain, with
-        one host read at the end of each. Per-cycle accept/reject semantics
-        match sequential replay_log; undo() restores the state before the
-        whole queue. Nothing is compiled, so a short chain needs no padding
-        cycles."""
+        (cycle.queue_chain), up to `chain_capacity` corrections a chain.
+        On a card a chain is replays of the map's CycleProgram with the
+        carry selected on the device between them, and its one host read
+        is the per-cycle flags at its end (tests/test_torch_device_program.py
+        and chip_smoke.py phase 19 count it); on the CPU every cycle runs
+        eagerly and reads its loops' exit tests. Per-cycle accept/reject
+        semantics match sequential replay_log; undo() restores the state
+        before the whole queue. A short chain needs no padding cycles."""
         if not inputs:
             return []
         self._discard_speculative()
@@ -463,6 +490,7 @@ class HitLSLAM:
                 st.constraints, [int(s.correction_type) for s, _ in runs],
                 sels, self.num_constraints, lm_config=self.lm_config,
                 odom_inv_sigma=self.odom_inv_sigma)
+            # the chain's one host read
             flags = torch.stack([c.to(torch.float64) for c in per],
                                 dim=1).cpu().tolist()
             timer.lap("queue_chain")

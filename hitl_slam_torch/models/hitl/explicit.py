@@ -95,7 +95,9 @@ def apply_explicit(poses: Tensor, ctype: int, sel: Tensor, group_mask: Tensor,
     new_th = torch.where(affected, poses[:, 2] + theta, poses[:, 2])
 
     first_idx = torch.argmax(group_mask.to(torch.int32))
-    C = torch.cat([T[first_idx], theta[None]])
+    # index_select: indexing with a 0-dim tensor reads it back to the host
+    C = torch.cat([torch.index_select(T, 0, first_idx.reshape(1))[0],
+                   theta[None]])
     return torch.cat([new_xy, new_th[:, None]], dim=1), C
 
 

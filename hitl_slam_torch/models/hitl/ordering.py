@@ -87,7 +87,9 @@ def order_on_device(c1: Tensor, c2: Tensor, sel: Tensor,
     bp_min = torch.where(first_is_corrected, s_max + 1, f_max + 1)
     bp_max = torch.where(first_is_corrected, f_min - 1, s_min - 1)
 
-    sel_out = torch.where(swapped, sel[[2, 3, 0, 1]], sel)
+    # the pairs swapped by slices: a list index would be copied from the
+    # host
+    sel_out = torch.where(swapped, torch.cat([sel[2:4], sel[0:2]]), sel)
 
     valid = (
         ~complete

@@ -61,12 +61,14 @@ def _scatter_constraints(
     c_grid = corr_idx[None, :].expand(MA, MC).reshape(-1)
 
     def put(col: Tensor, vals) -> Tensor:
-        vals = torch.as_tensor(vals, dtype=col.dtype, device=col.device)
-        new = torch.where(v, vals.expand(v.shape), col[slots])
+        # a Python scalar stays one (no tensor copied from the host)
+        if isinstance(vals, Tensor):
+            vals = vals.to(col.dtype).expand(v.shape)
+        new = torch.where(v, vals, col[slots])
         return col.clone().index_put_((slots,), new)
 
     active = put(table.active, True)
-    active[cap - 1] = False   # the dump slot stays dead
+    active[cap - 1:].fill_(False)   # the dump slot stays dead
     new = ConstraintTable(
         ctype=put(table.ctype, int(ctype)),
         constrained=put(table.constrained, c_grid),

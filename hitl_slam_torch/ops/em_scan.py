@@ -18,6 +18,8 @@ kernel's counts are exact and its minima bit-equal to it.
 from __future__ import annotations
 
 import struct
+import threading
+from contextlib import contextmanager
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -62,14 +64,14 @@ def em_scan_reference(world: Tensor, mask: Tensor, sel: Tensor,
     x = world[..., 0]
     y = world[..., 1]
     m = mask.bool()
-    t2 = torch.tensor(threshold2(inlier_threshold), dtype=torch.float32,
-                      device=world.device)
+    t2 = torch.full((), threshold2(inlier_threshold), dtype=torch.float32,
+                    device=world.device)
     d2a = _seg_dist2(x, y, sel[0, 0], sel[0, 1], sel[1, 0], sel[1, 1])
     d2b = _seg_dist2(x, y, sel[2, 0], sel[2, 1], sel[3, 0], sel[3, 1])
     ca = ((d2a < t2) & m).sum(dim=1, dtype=torch.int32)
     cb = ((d2b < t2) & m).sum(dim=1, dtype=torch.int32)
     counts = torch.stack([ca, cb], dim=1)
-    big = torch.tensor(BIG, dtype=world.dtype, device=world.device)
+    big = torch.full((), BIG, dtype=world.dtype, device=world.device)
     mins = []
     for k in range(4):
         ex = x - sel[k, 0]
@@ -124,16 +126,44 @@ def launch_plan(P: int, N: int) -> EmScanPlan:
 
 # one ticket counter for each (device index, stream): the kernel's blocks
 # draw tickets from it and the last one sets it back to 0, so it is zeroed
-# once, when the stream first calls; launches on one stream run in turn
+# once, when the stream first calls; launches on one stream run in turn. A
+# launch captured into a CUDA graph draws from the ticket of its program
+# (`capture_ticket`), made outside the capture: one made inside would live
+# in the graph's memory, and its zeroing would be part of every replay
 _tickets: dict = {}
+_capture = threading.local()
 
 
 def _ticket(dev: torch.device, stream: int) -> Tensor:
+    if torch.cuda.is_current_stream_capturing():
+        t = getattr(_capture, "ticket", None)
+        if t is None:
+            raise RuntimeError("em_scan: a launch captured into a CUDA graph "
+                               "needs a ticket made before the capture "
+                               "(em_scan.capture_ticket)")
+        return t
     key = (dev.index, stream)
     t = _tickets.get(key)
     if t is None:
         t = _tickets[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
     return t
+
+
+def new_ticket(device) -> Tensor:
+    """A ticket counter for one program's captured launches."""
+    return torch.zeros((1,), dtype=torch.int32, device=device)
+
+
+@contextmanager
+def capture_ticket(ticket: Tensor):
+    """Launches captured on this thread inside the block draw from
+    `ticket` (from `new_ticket`); the program's replays run one at a time."""
+    prev = getattr(_capture, "ticket", None)
+    _capture.ticket = ticket
+    try:
+        yield
+    finally:
+        _capture.ticket = prev
 
 
 def em_scan_cuda(world: Tensor, mask: Tensor, sel: Tensor,
@@ -167,7 +197,7 @@ def em_scan_cuda(world: Tensor, mask: Tensor, sel: Tensor,
         counts.data_ptr(), min_d2.data_ptr(), out.data_ptr(),
         _ticket(dev, stream).data_ptr(), stream)
     cuda_build.check(code, "em_scan")
-    launches.count += 1
+    launches.bump(dev)
     return counts, min_d2
 
 

@@ -51,6 +51,13 @@ class HumanFactors:
     active: Tensor    # [C] bool
 
 
+def _const_row(values, like: Tensor) -> Tensor:
+    """[len(values)] of like's dtype, made on like's device without a copy
+    from the host (which a CUDA graph capture refuses)."""
+    return torch.stack([torch.full((), v, dtype=like.dtype,
+                                   device=like.device) for v in values])
+
+
 def build_odometry_factors(poses: Tensor,
                            inv_sigma: Tensor | None = None
                            ) -> OdometryFactors:
@@ -74,10 +81,9 @@ def build_odometry_factors(poses: Tensor,
     radial = torch.where(degenerate, torch.zeros_like(norm), norm)
     rotation = angle_mod(p1[:, 2] - p0[:, 2])
     if inv_sigma is None:
-        inv_sigma = torch.tensor(
-            [1.0 / ODOM_RADIAL_STD, 1.0 / ODOM_TANGENTIAL_STD,
-             1.0 / ODOM_ANGULAR_STD], dtype=poses.dtype,
-            device=poses.device).expand(axis.shape[0], 3)
+        inv_sigma = _const_row(
+            (1.0 / ODOM_RADIAL_STD, 1.0 / ODOM_TANGENTIAL_STD,
+             1.0 / ODOM_ANGULAR_STD), poses).expand(axis.shape[0], 3)
     else:
         inv_sigma = torch.as_tensor(inv_sigma, dtype=poses.dtype,
                                     device=poses.device)
@@ -245,9 +251,9 @@ def build_relative_pose_factors(
         torch.stack([torch.cos(p1[:, 2]), torch.sin(p1[:, 2])], -1),
         local / torch.clamp(norm, min=_EPS)[:, None])
     axis = torch.stack([radial_dir, perp_rows(radial_dir)], dim=-2)
-    inv_sigma = torch.tensor(
-        [1.0 / radial_std, 1.0 / tangential_std, 1.0 / angular_std],
-        dtype=poses.dtype, device=poses.device).expand(len(p0), 3)
+    inv_sigma = _const_row(
+        (1.0 / radial_std, 1.0 / tangential_std, 1.0 / angular_std),
+        poses).expand(len(p0), 3)
     return RelativePoseFactors(
         pose0=pose0, pose1=pose1, axis=axis,
         radial=torch.where(degenerate, torch.zeros_like(norm), norm),

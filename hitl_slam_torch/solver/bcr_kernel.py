@@ -169,11 +169,11 @@ def launch(D: Tensor, U: Tensor, b: Tensor, plan: LaunchPlan,
         if batch is None:
             code = lib.hitl_bcr_solve(*ptrs, *args)
             cuda_build.check(code, "bcr_solve")
-            launches.count += 1
+            launches.bump(D.device)
         else:
             code = lib.hitl_bcr_solve_batched(*ptrs, batch, *args)
             cuda_build.check(code, "bcr_solve_batched")
-            batched_launches.count += 1
+            batched_launches.bump(D.device)
     return x
 
 
@@ -253,7 +253,7 @@ def bcr_solve_cuda_multi(D: Tensor, U: Tensor, b: Tensor) -> Tensor:
             plan.threads, plan.smem_bytes,
             torch.cuda.current_stream(D.device).cuda_stream)
         cuda_build.check(code, "bcr_solve_multi")
-        multi_launches.count += 1
+        multi_launches.bump(D.device)
     return x
 
 

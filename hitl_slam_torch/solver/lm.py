@@ -10,8 +10,10 @@ Port of hitl_slam_tpu/solver/lm.py with the same semantics:
   - the optional `mu0` warm start, clipped into [1e-6, 1e-1].
 
 Each iteration does one residual+Jacobian pass at the trial point. The
-on-device `lax.while_loop` of the reference becomes a Python loop that reads
-one flag (`done`) from the device per iteration.
+on-device `lax.while_loop` of the reference becomes
+`utils/device_loop.py::device_while`: eagerly a Python loop that reads one
+flag from the device an iteration, inside a CUDA graph capture
+(`LoopGraph`) a WHILE node that reads nothing.
 
 `solve_batched` is the LM of B independent problems stacked on a leading
 replica dimension, what the reference computes as a `vmap` of `solve`
@@ -36,6 +38,7 @@ from typing import Callable
 
 import torch
 
+from ..utils.device_loop import device_while
 from .assembly_soa import normal_equations_soa, soa_constants
 from .joint import JointProblem, normal_equations
 
@@ -80,7 +83,9 @@ class LMResult:
 
 
 def _scalar(v: float, like: Tensor) -> Tensor:
-    return torch.tensor(v, dtype=like.dtype, device=like.device)
+    """A scalar of like's dtype on its device, made there (no host copy,
+    so it may be made inside a CUDA graph capture)."""
+    return torch.full((), v, dtype=like.dtype, device=like.device)
 
 
 def _assembler(problem: JointProblem, use_soa: bool):
@@ -104,25 +109,42 @@ def solve(
 ) -> LMResult:
     """Run LM from poses0. `use_soa=False` assembles with
     joint.normal_equations. A list passed as `accepts` receives each
-    iteration's accept flag (a bool tensor; no host read)."""
+    iteration's accept flag (a bool tensor; no host read); inside a
+    LoopGraph capture it receives one [max_iterations] bool buffer instead,
+    whose first `iterations` entries a replay writes.
+
+    The iteration is the body of a `device_while` over a carry of buffers
+    (x, D, U, g, c, mu, nu, done and the iteration count), each written
+    with `copy_`: eagerly a loop with one host read an iteration, inside a
+    LoopGraph a WHILE node of the graph."""
     if linear_solver is None:
         linear_solver = _default_linear_solver(poses0.device)
     assemble = _assembler(problem, use_soa)
+    dev = poses0.device
 
     D, U, g, c = assemble(poses0)
     c0 = c
-    x = poses0
+    x = poses0.clone()
+    c = c.clone()
     if mu0 is None:
         mu = _scalar(config.initial_mu, poses0)
     else:
         mu = torch.clamp(torch.as_tensor(mu0, dtype=poses0.dtype,
-                                         device=poses0.device), 1e-6, 1e-1)
+                                         device=dev), 1e-6, 1e-1)
     nu = _scalar(2.0, poses0)
     two = _scalar(2.0, poses0)
     third = _scalar(1.0 / 3.0, poses0)
-    it = 0
-    done = torch.zeros((), dtype=torch.bool, device=poses0.device)
-    while it < config.max_iterations:
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    go = ~done & (it < config.max_iterations)
+    captured = dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    accepted = None
+    if accepts is not None and captured:
+        accepted = torch.zeros((config.max_iterations,), dtype=torch.bool,
+                               device=dev)
+        accepts.append(accepted)
+
+    def iteration():
         diag = torch.clamp(torch.diagonal(D, dim1=-2, dim2=-1),
                            config.min_diagonal, config.max_diagonal)
         D_damped = D + mu * torch.diag_embed(diag)
@@ -135,36 +157,41 @@ def solve(
         rho = (c - c_new) / torch.clamp(pred, min=1e-30)
 
         accept = (rho > 0) & torch.isfinite(c_new)
-        if accepts is not None:
+        if accepted is not None:
+            accepted.index_put_((it.long()[None],), accept[None])
+        elif accepts is not None:
             accepts.append(accept)
-        x = torch.where(accept, x_new, x)
-        D = torch.where(accept, D_new, D)
-        U = torch.where(accept, U_new, U)
-        g = torch.where(accept, g_new, g)
+        x_next = torch.where(accept, x_new, x)
+        D.copy_(torch.where(accept, D_new, D))
+        U.copy_(torch.where(accept, U_new, U))
+        g.copy_(torch.where(accept, g_new, g))
         c_next = torch.where(accept, c_new, c)
 
         t = 2.0 * rho - 1.0
         factor = torch.maximum(third, 1.0 - t * (t * t))
-        mu = torch.where(accept, mu * factor, mu * nu)
-        nu = torch.where(accept, two, nu * 2.0)
-        mu = torch.clamp(mu, 1e-32, 1e32)
+        mu_next = torch.where(accept, mu * factor, mu * nu)
+        nu.copy_(torch.where(accept, two, nu * 2.0))
+        mu_next = torch.clamp(mu_next, 1e-32, 1e32)
 
         # relative function decrease (accepted steps only), relative step
         # size (every step), or trust-region collapse
-        fdone = accept & (torch.abs(c - c_new) <= config.function_tolerance * c)
-        xnorm = torch.sqrt(torch.sum(x * x))
+        fdone = accept & (torch.abs(c - c_new)
+                          <= config.function_tolerance * c)
+        xnorm = torch.sqrt(torch.sum(x_next * x_next))
         sdone = (torch.sqrt(torch.sum(step * step))
                  <= config.parameter_tolerance
                  * (xnorm + config.parameter_tolerance))
-        mdone = mu >= config.mu_collapse
-        c = c_next
-        it += 1
-        done = done | fdone | sdone | mdone
-        if bool(done):
-            break
+        mdone = mu_next >= config.mu_collapse
+        x.copy_(x_next)
+        c.copy_(c_next)
+        mu.copy_(mu_next)
+        it.add_(1)
+        done.copy_(done | fdone | sdone | mdone)
+        go.copy_(~done & (it < config.max_iterations))
+
+    device_while(go, iteration, config.max_iterations)
     return LMResult(
-        poses=x, final_cost=c, initial_cost=c0,
-        iterations=torch.tensor(it, dtype=torch.int32, device=poses0.device),
+        poses=x, final_cost=c, initial_cost=c0, iterations=it,
         converged=done, final_mu=mu,
     )
 

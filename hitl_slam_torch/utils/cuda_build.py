@@ -17,6 +17,8 @@ import shutil
 import subprocess
 import tempfile
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
@@ -27,17 +29,61 @@ COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # that its per-point squared distances are bit-identical to the separate
 # torch ops of its plain version (exact counts at the threshold)
 EXTRA = {"em_scan.cu": ["--fmad=false"]}
-SOURCES = ("em_scan.cu", "bcr.cu")
+SOURCES = ("em_scan.cu", "bcr.cu", "graph_loop.cu")
 LIB_NAME = "libhitl_kernels.so"
 
 
 class LaunchCounter:
-    """A plain count of kernel launches, bumped by a wrapper right where it
-    launches its kernel and nowhere else."""
+    """A count of kernel launches, bumped (`bump`) by a wrapper right where
+    it launches its kernel and nowhere else.
+
+    An eager launch adds one on the host. A launch captured into a CUDA
+    graph launches nothing at capture time: it captures, beside the kernel,
+    an add of one to a device counter, so that every replay counts the
+    launches it makes, and inside a device loop (utils/device_loop.py) only
+    those of the trips that run. The device counter is made before the
+    capture (`prepare`), outside the graph's memory. `count` is the host's
+    count plus the device counters' (reading those waits for the device);
+    setting it sets the host's and zeroes the device counters."""
 
     def __init__(self, name: str):
         self.name = name
-        self.count = 0
+        self._host = 0
+        self._device: dict = {}
+
+    def prepare(self, device) -> None:
+        """Make the device counter for captures on `device` (a CUDA
+        device), if there is none yet."""
+        device = torch.device(device)
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device.index not in self._device:
+            self._device[device.index] = torch.zeros(
+                (), dtype=torch.int64, device=device)
+
+    def bump(self, device) -> None:
+        """One launch of the kernel on CUDA `device`, eager or captured."""
+        if not (torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()):
+            self._host += 1
+            return
+        counter = self._device.get(device.index)
+        if counter is None:
+            raise RuntimeError(
+                f"{self.name}: a launch captured into a CUDA graph needs "
+                f"its device counter made before the capture "
+                f"(LaunchCounter.prepare)")
+        counter.add_(1)
+
+    @property
+    def count(self) -> int:
+        return self._host + sum(int(c) for c in self._device.values())
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self._host = int(value)
+        for c in self._device.values():
+            c.zero_()
 
 
 def require(kernel: str, name: str, t, shape: tuple, dtype, device,
@@ -158,6 +204,16 @@ def library() -> ctypes.CDLL:
         lib.hitl_bcr_solve_multi.argtypes = [vp, vp, vp, vp, vp, ll, ll, ll,
                                              i, i, i, i, i, i, i, i, vp]
         lib.hitl_bcr_solve_multi.restype = i
+        pp, ull = ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_ulonglong)
+        for name, args in (("hitl_loop_graph_new", [pp]),
+                           ("hitl_loop_append", [vp, pp, vp]),
+                           ("hitl_loop_append_while", [vp, pp, vp, vp]),
+                           ("hitl_loop_graph_nodes", [vp, ull]),
+                           ("hitl_loop_instantiate", [vp, pp]),
+                           ("hitl_loop_launch", [vp, vp]),
+                           ("hitl_loop_destroy", [vp, vp])):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = i
         lib.hitl_cuda_error_string.argtypes = [i]
         lib.hitl_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

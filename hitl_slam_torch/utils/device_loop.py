@@ -1,0 +1,196 @@
+"""Loops whose trips the device decides: `device_while` and `LoopGraph`.
+
+The reference runs its EM refit and its LM solve as `lax.while_loop`s
+inside one compiled program: the device evaluates the condition, and the
+host never sees it. The port's counterpart has two forms.
+
+- Eagerly (CPU tensors, or CUDA tensors outside a capture), `device_while`
+  reads `cond` before each trip and stops at the first false one, or after
+  `max_trips` trips: one host read a trip, the loop's only ones.
+- Inside `LoopGraph` (a CUDA graph capture on the card), it reads nothing.
+  The work before the loop is closed as one captured piece, one trip of
+  the body is captured as another, and the graph gets a conditional node of
+  type WHILE (csrc/graph_loop.cu) that runs the trip while
+  `cond & (trips < max_trips)` holds on the device; the work after the
+  loop starts the next piece. A replay of the whole graph runs every loop
+  to its exit on the device, as `lax.while_loop` does.
+
+`body` must update the loop's carry in place, with `copy_` into buffers
+made before the loop, and recompute `cond` in place; it must not drop the
+last reference to a tensor made before the loop. A trip that does not run
+then leaves the carry exactly as it was.
+
+The pieces are ordinary PyTorch captures (`torch.cuda.CUDAGraph` with
+`keep_graph=True`), one after another on one stream and into one memory
+pool, so a later piece may reuse what an earlier one freed; the graph runs
+them in the order they were captured. PyTorch 2.11, the card's, has no
+conditional nodes of its own (`CUDAGraph.begin_capture_to_if_node` came
+later), so the WHILE node is added through the CUDA runtime in
+csrc/graph_loop.cu (conditional nodes need CUDA 12.4 or later;
+scripts/graph_loop_probe.py checks them on the card).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+import time
+import warnings
+from typing import Callable
+
+import torch
+
+from . import cuda_build
+
+Tensor = torch.Tensor
+
+_local = threading.local()
+
+
+def device_while(cond: Tensor, body: Callable[[], None],
+                 max_trips: int) -> int | None:
+    """While `cond` (a scalar bool tensor) holds, at most `max_trips`
+    times, run `body()`, which updates the carry and `cond` in place.
+
+    Returns the number of trips when run eagerly; None inside a
+    `LoopGraph` capture, where the trips happen at replay."""
+    if cond.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        capture = getattr(_local, "capture", None)
+        if capture is None:
+            raise RuntimeError("device_while: a loop can be captured only "
+                               "inside a LoopGraph")
+        capture.loop(cond, body, max_trips)
+        return None
+    trips = 0
+    while trips < max_trips and bool(cond):
+        body()
+        trips += 1
+    return trips
+
+
+class LoopGraph:
+    """`fn()` captured once on CUDA `device` into one graph in which every
+    `device_while` is a WHILE node; `replay()` runs it on the current
+    stream. `outputs` is what `fn` returned: tensors in the graph's memory,
+    overwritten by every replay.
+
+    `pool` (a `torch.cuda.graph_pool_handle()`) may be shared by several
+    LoopGraphs that are never replayed at the same time and are captured on
+    one `stream` (the pool's free memory is kept by stream). Any failure of the
+    capture raises; nothing falls back to eager execution. `capture_ms`
+    is the host time of the capture and instantiation, `nodes` the graph's
+    nodes (those of every captured piece, each loop body once, and the
+    three a loop adds: its first test, the WHILE node, the test after a
+    trip)."""
+
+    def __init__(self, fn: Callable[[], object], device, pool=None,
+                 stream: torch.cuda.Stream | None = None):
+        self.device = torch.device(device)
+        self._lib = cuda_build.library()
+        self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
+        self.stream = (torch.cuda.Stream(self.device) if stream is None
+                       else stream)
+        self.nodes = 0
+        self._pieces: list = []     # captured graphs: their memory stays
+        self._keep: list = []       # loop flags the graph reads
+        self._graph = ctypes.c_void_p()
+        self._tail = ctypes.c_void_p()
+        self._exec = ctypes.c_void_p()
+        self._open = None
+        self._check(self._lib.hitl_loop_graph_new(ctypes.byref(self._graph)),
+                    "graph create")
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            if getattr(_local, "capture", None) is not None:
+                raise RuntimeError("LoopGraph: captures do not nest")
+            _local.capture = self
+            try:
+                self._begin()
+                self.outputs = fn()
+                self._end()
+            except BaseException:
+                self._abort()
+                raise
+            finally:
+                _local.capture = None
+        self._check(self._lib.hitl_loop_instantiate(
+            self._graph, ctypes.byref(self._exec)), "graph instantiate")
+        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    # -- capture -----------------------------------------------------------
+
+    def _check(self, code: int, what: str) -> None:
+        if code != 0:
+            msg = self._lib.hitl_cuda_error_string(code).decode()
+            raise RuntimeError(f"LoopGraph {what}: CUDA error {code} ({msg})")
+
+    def _begin(self) -> None:
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        g.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+        self._open = g
+
+    def _close(self) -> tuple[ctypes.c_void_p, int]:
+        """End the open capture; its graph and node count."""
+        g, self._open = self._open, None
+        with warnings.catch_warnings():
+            # a piece may be empty (nothing between two loops)
+            warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+            g.capture_end()
+        self._pieces.append(g)
+        raw = ctypes.c_void_p(g.raw_cuda_graph())
+        n = ctypes.c_ulonglong()
+        self._check(self._lib.hitl_loop_graph_nodes(raw, ctypes.byref(n)),
+                    "node count")
+        self.nodes += n.value
+        return raw, n.value
+
+    def _end(self) -> None:
+        raw, n = self._close()
+        if n:
+            self._check(self._lib.hitl_loop_append(
+                self._graph, ctypes.byref(self._tail), raw), "append")
+
+    def _abort(self) -> None:
+        if self._open is not None:
+            try:
+                self._open.capture_end()
+            except RuntimeError:
+                pass
+            self._open = None
+
+    def loop(self, cond: Tensor, body: Callable[[], None],
+             max_trips: int) -> None:
+        """Close the piece before the loop, capture one trip, add the
+        WHILE node, open the piece after it (device_while's capture)."""
+        dev = cond.device
+        trips = torch.zeros((), dtype=torch.int32, device=dev)
+        go = torch.logical_and(cond, trips < max_trips)
+        self._keep += [trips, go]
+        self._end()
+        self._begin()
+        body()
+        trips.add_(1)
+        torch.logical_and(cond, trips < max_trips, out=go)
+        raw, _ = self._close()
+        self._check(self._lib.hitl_loop_append_while(
+            self._graph, ctypes.byref(self._tail), go.data_ptr(), raw),
+            "append while")
+        self.nodes += 3
+        self._begin()
+
+    # -- replay ------------------------------------------------------------
+
+    def replay(self) -> None:
+        """Run the graph on the current stream."""
+        self._check(self._lib.hitl_loop_launch(
+            self._exec, torch.cuda.current_stream(self.device).cuda_stream),
+            "launch")
+
+    def __del__(self):
+        lib = getattr(self, "_lib", None)
+        if lib is not None and (self._exec.value or self._graph.value):
+            lib.hitl_loop_destroy(self._graph, self._exec)
+            self._graph = self._exec = ctypes.c_void_p()

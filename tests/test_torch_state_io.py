@@ -251,7 +251,7 @@ def test_port_imports_no_jax():
         "'native', 'models.hitl.repair', 'solver.tridiag', "
         "'parallel.mesh', 'parallel.sharded_solver', 'baselines', "
         "'baselines.cpu_lm', 'baselines.cpu_refine', 'bench_sessions', "
-        "'bench_reference'):\n"
+        "'bench_reference', 'utils.device_loop'):\n"
         "    assert 'hitl_slam_torch.' + name in names, name\n"
         "print(len(names))\n"
     )
