@@ -44,13 +44,16 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      from the seed, the SDF against the CPU's); wall and device ms of the
      SDF, the filter and the RANSAC;
  10. EnML batch localization (launches neither kernel; the counts are
-     zeroed before it and must stay 0): the sweep on the card against the
-     CPU on the test-size stream (pose and covariance differences, match
-     counts of every 16th window); the sweep over the reference's scale
-     map (1078 nodes, 256 padded points a node) with its wall, ms a node,
-     realtime factor, launches a node and busy share from a profiled
-     32-node segment, peak memory, consistency and the error against ground
-     truth; then a bag through `cli_enml` on the card into HitLSLAM;
+     zeroed before it and must stay 0): the sweep on the card (a replay of
+     its program, models/enml/program.py) against the CPU on the test-size
+     stream (pose and covariance differences, match counts of every 16th
+     window); the sweep over the reference's scale map (1078 nodes, 256
+     padded points a node) by its program with its wall, ms a node,
+     realtime factor and graph operations a node from a 32-node segment
+     (a segment program's replay; its busy share not measured), peak
+     memory,
+     consistency and the error against ground truth; then a bag through
+     `cli_enml` on the card into HitLSLAM;
  11. the checkerboard localizer (launches neither kernel): card against
      CPU on the test-size stream (both matcher routes, the probe's
      counts), then the scale map at W = 10 (16 windows a batch) and at
@@ -70,7 +73,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
  15. the replica batch (BASELINE config #5 at the bench's size): 32
      perturbed replicas of the repaired 1024-pose golden_large map by
      make_perturbed_replicas (seed 0), solved by batched_solve with 20 LM
-     iterations on the card: costs finite and not up, the batched BCR
+     iterations on the card (the LM a replay of its program, its busy
+     share not measured): costs finite and not up,
+     the batched BCR
      route launched once a step (and nothing else), 4 replicas chosen by a
      seed equal to their lone solves (iterations, accept sequence, poses
      within 1e-5), the batched wall at or below 32 lone solves' one after
@@ -159,16 +164,35 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      correction's wall, the chained cycle, host reads and device
      operations a cycle, busy share, capture ms, graph nodes, pool MiB);
      `[program]` lines and one `{"program": {...}}` line;
- 20. times at the main path's shapes: each kernel by CUDA events (host
+ 20. EnML and the replica batch's LM as device programs (a sweep one
+     WHILE node over the nodes, a segment one over its trips, the online
+     window a straight graph, the batched LM one WHILE node over its
+     steps; phases 10-13, 15 and 18 already ran them): replays against
+     the eager functions (`eager=True`) on the test-size stream's sweep,
+     the first 64 nodes of the scale map, the session's 32-node segments
+     over 80 nodes (the last past the end), the online [W, 384] window and
+     phase 15's 32 replicas (batched_solve, and solve_batched with its
+     accept flags): bit-equal wherever two eager runs are, else within
+     phase 16's card-against-CPU pose bound and phase 10's covariance
+     bound (the standard that held is printed); one host read a sweep, a
+     segment, a window and a batched solve under torch.profiler; each
+     under torch.cuda.set_sync_debug_mode("error"); no kernel launched by
+     the EnML replays, the batched BCR route once a step by the replica
+     replays and nothing else; eager and program walls, ms a node and
+     realtime factor, graph operations, capture ms, graph nodes and pool
+     MiB (the busy share not measured); `[program]` lines and one
+     `{"enml_program":
+     {...}}` line;
+ 21. times at the main path's shapes: each kernel by CUDA events (host
      overhead included) and by torch.profiler (its own device time), its
      plain version, its bound from the shapes, and for BCR
      torch.linalg.solve on the dense system; BCR also at n = 64, 16384
      and 32768;
- 21. a `{"kernels": [...]}` line with launches (phases 17's, 18's and
-     19's also apart), agreement, times and bounds (the batched route's
-     launches from phases 15 and 18, the multi route's from phase 16;
-     em_scan and BCR also at phase 17's shapes);
- 22. the last line: {"ok": true, "device": {...}}.
+ 22. a `{"kernels": [...]}` line with launches (phases 17's, 18's, 19's
+     and 20's also apart), agreement, times and bounds (the batched
+     route's launches from phases 15, 18 and 20, the multi route's from
+     phase 16; em_scan and BCR also at phase 17's shapes);
+ 23. the last line: {"ok": true, "device": {...}}.
 
 scripts/compare_checkouts.py times two checkouts' kernels and replays
 against each other on one card with the helpers here.
@@ -202,6 +226,12 @@ DEVICE = "cuda"
 # f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# a replay whose graph holds a WHILE node: torch.profiler (CUPTI) does not
+# trace its trips (a window over a replayed sweep showed one trip's
+# kernels), and CUDA events around it span the host's gaps too, so no
+# device time is measured for it, and no busy share
+BUSY_NOT_MEASURED = ("busy share not measured (the profiler does not trace "
+                     "a WHILE node's trips)")
 
 
 class SmokeFailure(RuntimeError):
@@ -1302,6 +1332,26 @@ def _device_only_profile(torch, run) -> tuple[float, int]:
     return device_profile(run)
 
 
+def _capture_ms(points, o):
+    """The capture ms of the sweep program of `points` (NaN on the CPU,
+    where the sweep runs eagerly)."""
+    if DEVICE == "cpu":
+        return float("nan")
+    from hitl_slam_torch.models.enml.program import sweep_program
+
+    return sweep_program(points, o, None).graph().capture_ms
+
+
+def _trip_nodes(points, o, segment):
+    """The graph nodes of one trip (one node) of the segment program of
+    `points` (0 on the CPU)."""
+    if DEVICE == "cpu":
+        return 0
+    from hitl_slam_torch.models.enml.program import sweep_program
+
+    return sum(sweep_program(points, o, segment).graph().body_nodes)
+
+
 def phase_enml(torch, smi, tmp):
     """EnML batch localization: card against CPU at test size, the sweep at
     the reference's scale, and a bag through the CLI into HitLSLAM. Returns
@@ -1391,22 +1441,24 @@ def phase_enml(torch, smi, tmp):
                     pre, 64, o, seg)
     _sync()
     seg_ms = (time.perf_counter() - t0) * 1e3
-    dev_ms, ops = _device_only_profile(torch, lambda: L.sweep_segment(
-        st.points, st.normals, st.point_mask, st.poses, cov0, pre, 64, o,
-        seg))
-    # the device's busy share: its time over the unprofiled segment's wall
-    busy = dev_ms / seg_ms
+    # the operations a node are one trip's graph nodes; the busy share is
+    # not measured (BUSY_NOT_MEASURED)
+    ops = _trip_nodes(st.points, o, seg) * seg
     # the whole sweep, or its first K nodes where the budget forces a cut
     K = P
     if seg_ms / seg * P / 1e3 > ENML_SWEEP_BUDGET_S:
         K = max(ENML_MIN_NODES, int(ENML_SWEEP_BUDGET_S * 1e3 * seg / seg_ms))
         K = min(K, P)
+    sweep_in = (st.points[:K], st.normals[:K], st.point_mask[:K],
+                st.poses[:K], o)
+    # the first call captures the sweep's program; the timed one replays it
+    L.batch_localize(*sweep_in)
+    capture_ms = _capture_ms(sweep_in[0], o)
     if DEVICE != "cpu":
         torch.cuda.reset_peak_memory_stats()
     _sync()
     t0 = time.perf_counter()
-    p_l, c_l = L.batch_localize(st.points[:K], st.normals[:K],
-                                st.point_mask[:K], st.poses[:K], o)
+    p_l, c_l = L.batch_localize(*sweep_in)
     _sync()
     wall_s = time.perf_counter() - t0
     peak = _peak_memory_mb(torch)
@@ -1428,18 +1480,20 @@ def phase_enml(torch, smi, tmp):
     log(f"[enml] scale map: {P} nodes x {N} padded points ({real} real), "
         f"W = {W}, W*N = {W * N} matcher rows; sweep of {K} nodes{cut}: "
         f"wall {wall_s:.2f} s, {wall_s * 1e3 / K:.2f} ms a node, realtime "
-        f"factor {rtf:.2f} ({steps} scans at {ENML_SCAN_PERIOD_S} s); "
-        f"32-node segment: wall {seg_ms:.1f} ms, device {dev_ms:.2f} ms in "
-        f"{ops / seg:.0f} device operations a node, busy {100 * busy:.1f} %; "
+        f"factor {rtf:.2f} ({steps} scans at {ENML_SCAN_PERIOD_S} s), "
+        f"program capture {capture_ms:.1f} ms; "
+        f"32-node segment (a replay): wall {seg_ms:.1f} ms, "
+        f"{ops / seg:.0f} graph operations a node, {BUSY_NOT_MEASURED}; "
         f"peak memory {peak:.0f} MiB; consistency "
         f"(every 16th node) {before:.4f} -> {after:.4f}; error against "
         f"ground truth (aligned) odometry {err_odo:.4f} m, localized "
         f"{err_loc:.4f} m ({smi})")
     out["scale"] = dict(nodes=P, padded_points=P * N, real_points=real,
                         swept_nodes=K, wall_s=wall_s,
+                        capture_ms=capture_ms,
                         ms_per_node=wall_s * 1e3 / K, realtime_factor=rtf,
-                        segment_wall_ms=seg_ms, segment_device_ms=dev_ms,
-                        launches_per_node=ops / seg, busy_share=busy,
+                        segment_wall_ms=seg_ms,
+                        graph_ops_per_node=ops / seg, busy_share=None,
                         peak_mib=peak, consistency=[before, after],
                         gt_error_m=[err_odo, err_loc])
     scale = dict(state=st, poses0=poses0, pcs=pcs,
@@ -2128,7 +2182,8 @@ def phase_replicas(torch, smi, repaired, small, small_log, bag, tmp):
 
     from hitl_slam_torch.parallel.replicas import (batched_solve,
                                                    build_problems,
-                                                   make_perturbed_replicas)
+                                                   make_perturbed_replicas,
+                                                   replica_program)
     from hitl_slam_torch.solver import bcr_kernel as B, lm
     from hitl_slam_torch.solver.lm import LMConfig
 
@@ -2194,8 +2249,11 @@ def phase_replicas(torch, smi, repaired, small, small_log, bag, tmp):
     check(wall_ms <= lone_ms,
           f"replicas: batched {wall_ms:.1f} ms above {REPLICAS} lone solves "
           f"{lone_ms:.1f} ms")
-    dev_ms, ops = _device_only_profile(torch, lambda: batched_solve(
-        reps, tb, config, device=DEVICE))
+    # the batch's program: its operations counted from the graph (the busy
+    # share is not measured: BUSY_NOT_MEASURED)
+    g = replica_program(reps, tb, config).graph()
+    body = sum(g.body_nodes)
+    ops = g.nodes - body + body * steps
     rec = dict(B=REPLICAS, n=P, max_iterations=REPLICA_ITERS,
                wall_ms=wall_ms, lone_wall_ms=lone_ms,
                solves_per_s=REPLICAS / wall_ms * 1e3,
@@ -2203,8 +2261,7 @@ def phase_replicas(torch, smi, repaired, small, small_log, bag, tmp):
                                median=float(np.median(iters)),
                                max=int(iters.max())),
                steps=steps, launches_bcr_batched=n_batched,
-               device_ms=dev_ms, device_ops=ops,
-               busy_share=dev_ms / wall_ms,
+               graph_ops=ops, busy_share=None,
                sampled=picks, lone_vs_batched=worst_pose,
                cost_initial_mean=float(c0.mean()),
                cost_final_mean=float(c1.mean()))
@@ -2213,8 +2270,8 @@ def phase_replicas(torch, smi, repaired, small, small_log, bag, tmp):
         f"{lone_ms:.2f} ms; iterations min/median/max "
         f"{int(iters.min())}/{float(np.median(iters))}/{int(iters.max())}; "
         f"batched bcr launches {n_batched} = steps; replicas {picks} equal "
-        f"their lone solves (<= {worst_pose:.3e}); device {dev_ms:.2f} ms in "
-        f"{ops} operations, busy {100 * dev_ms / wall_ms:.1f} % ({smi})")
+        f"their lone solves (<= {worst_pose:.3e}); a replay {ops} graph "
+        f"operations, {BUSY_NOT_MEASURED} ({smi})")
     # ---- 2. the batched kernel on the first step's systems and others ----
     first = []
 
@@ -2223,7 +2280,7 @@ def phase_replicas(torch, smi, repaired, small, small_log, bag, tmp):
         return B.bcr_solve_cuda_batched(D, U, b)
 
     lm.solve_batched(prob_b, reps, LMConfig(max_iterations=1),
-                     linear_solver=record)
+                     linear_solver=record, eager=True)
     err, times = _batched_bcr_checks(torch, first[0])
     # ---- 3. repair_step on the card ----
     rec["repair_step"] = _repair_on_card(torch, small, small_log)
@@ -3630,9 +3687,9 @@ def _program_times(torch, name, data, capacity, inputs, odometry=None):
                          busy=dev_ms / wall)
     used = sorted(set(ctypes))
     out["program"].update(
-        capture_ms={c: prog.capture_ms[c] for c in used},
-        graph_nodes={c: prog.nodes[c] for c in used},
-        pool_mib={c: prog.pool_mib[c] for c in used})
+        capture_ms={c: prog.graphs[c].capture_ms for c in used},
+        graph_nodes={c: prog.graphs[c].nodes for c in used},
+        pool_mib={c: prog.graphs[c].pool_mib for c in used})
     e, p = out["eager"], out["program"]
     log(f"[program] {name} ({out['poses']} poses x {out['points']} points):"
         f" cycle {e['cycle_ms']:.2f} ms eager, {p['cycle_ms']:.2f} ms "
@@ -3695,6 +3752,396 @@ def phase_program(torch, smi, large, large_log, sections):
 
 
 # ---------------------------------------------------------------- phase 20
+
+# EnML's programs against the eager functions on the card: the 160-scan
+# stream's sweep, the first ENML_PROGRAM_PREFIX nodes of the scale map, the
+# session's segments (ENML_PROGRAM_SEGMENT nodes from t0 = 0 until past the
+# end of the stream's first ENML_SEGMENT_NODES nodes) and the online window
+# (the stream's last W nodes at the online localizer's 384 points)
+ENML_PROGRAM_PREFIX = 64
+ENML_PROGRAM_SEGMENT = 32
+ENML_SEGMENT_NODES = 80
+ONLINE_POINTS = 384
+# a replay against an eager run that is not bit-equal to a second eager
+# run: poses within phase 16's card-against-CPU bound, covariances within
+# phase 10's (relative to each pose's largest entry)
+ENML_PROGRAM_POSE_TOL, ENML_PROGRAM_COV_RTOL = MESH_CPU_POSE_TOL, ENML_COV_RTOL
+# the phase should finish within this many seconds
+ENML_PROGRAM_SECONDS = 150.0
+
+
+def _standard(torch, name, rep, e1, e2, covs=None):
+    """`rep` (a replay's tensors) against `e1` (an eager run's): bit-equal
+    where a second eager run `e2` is bit-equal to `e1`, else poses (the
+    first tensor) within ENML_PROGRAM_POSE_TOL and, where `covs` names the
+    index of a covariance tensor, it within ENML_PROGRAM_COV_RTOL. Returns
+    the standard that held and the differences."""
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))  # noqa
+    eager_equal, replay_equal = same(e1, e2), same(rep, e1)
+    dpose = float((rep[0] - e1[0]).abs().max())
+    dcov = 0.0
+    if covs is not None:
+        scale = e1[covs].abs().amax(dim=(-2, -1), keepdim=True).clamp(
+            min=1e-30)
+        dcov = float(((rep[covs] - e1[covs]).abs() / scale).max())
+    if eager_equal:
+        check(replay_equal, f"{name}: two eager runs are bit-equal, the "
+              f"replay is not (poses {dpose:.3e}, covariances {dcov:.3e})")
+    else:
+        check(dpose <= ENML_PROGRAM_POSE_TOL
+              and dcov <= ENML_PROGRAM_COV_RTOL,
+              f"{name}: replay {dpose:.3e} / {dcov:.3e} from eager (> "
+              f"{ENML_PROGRAM_POSE_TOL} / {ENML_PROGRAM_COV_RTOL})")
+    return dict(standard="bit-equal" if replay_equal else "tolerance",
+                eager_bit_equal=eager_equal, max_pose_diff=dpose,
+                cov_rel_diff=dcov)
+
+
+def _dispatched_reads(torch, run) -> dict:
+    """run()'s reads back to the host as PyTorch dispatches them: scalar
+    reads (aten::_local_scalar_dense, item, nonzero) and copies to the
+    host. A program's replay runs outside the dispatcher (one launch of an
+    executable graph), so what it could read would show as a synchronising
+    call under sync debug mode instead (_no_sync). torch.profiler is not
+    used here: CUPTI traces a WHILE node's trips unreliably (a window over
+    a long replayed sweep reported one trip's kernels, and after a few
+    such windows the process died of an illegal memory access)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    scalar_ops = (aten._local_scalar_dense.default, aten.item.default,
+                  aten.nonzero.default)
+
+    class Reads(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.scalar = self.to_host = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func in scalar_ops:
+                self.scalar += 1
+            elif ((func is aten._to_copy.default
+                   and args[0].device.type != "cpu"
+                   and str(kwargs.get("device", args[0].device)) == "cpu")
+                  or (func is aten.copy_.default
+                      and args[0].device.type == "cpu"
+                      and args[1].device.type != "cpu")):
+                self.to_host += 1
+            return func(*args, **kwargs)
+
+    with Reads() as mode:
+        run()
+    _sync()
+    return dict(scalar=mode.scalar, to_host=mode.to_host,
+                total=mode.scalar + mode.to_host)
+
+
+def _one_read(torch, name, run):
+    """run() (a program call and one read of its result): exactly one host
+    read."""
+    reads = _dispatched_reads(torch, run)
+    check(reads["total"] == 1, f"{name}: {reads} host reads, not one")
+    return reads
+
+
+def _no_sync(torch, name, call):
+    """call() (a program call without a read) under sync debug mode
+    "error": a synchronizing call anywhere raises."""
+    _sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _sync()
+
+
+def _timed_runs(fn, k: int):
+    """k runs of fn(), each ending in a synchronise: (their results, the
+    best wall ms)."""
+    outs, ms = [], []
+    for _ in range(k):
+        _sync()
+        t0 = time.perf_counter()
+        outs.append(fn())
+        _sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return outs, min(ms)
+
+
+def _walls(torch, eager_ms, program, prog, trips=0, replays=1, nodes=None,
+           scans=None):
+    """Eager (its wall given) against program (the best of three runs of
+    `replays` replays of `prog`'s graph, `trips` loop trips in all) and
+    the graph operations a run executes, counted from the graph's nodes
+    (those outside its loop each replay, the body's each trip); ms a node
+    and the realtime factor over `scans` scans where given. The busy share
+    is not measured (BUSY_NOT_MEASURED): None."""
+    out = {"eager_ms": eager_ms, "program_ms": _timed_runs(program, 3)[1]}
+    g = prog.graph()
+    body = sum(g.body_nodes)
+    ops = replays * (g.nodes - body) + body * trips
+    out.update(busy=None, graph_ops=ops)
+    if nodes:
+        out.update(eager_ms_per_node=out["eager_ms"] / nodes,
+                   program_ms_per_node=out["program_ms"] / nodes,
+                   graph_ops_per_node=ops / nodes)
+    if scans:
+        stream_s = scans * ENML_SCAN_PERIOD_S
+        out.update(eager_realtime=stream_s / (out["eager_ms"] / 1e3),
+                   program_realtime=stream_s / (out["program_ms"] / 1e3))
+    return out
+
+
+def _facts(prog) -> dict:
+    g = prog.graph()
+    return dict(capture_ms=g.capture_ms, graph_nodes=g.nodes,
+                body_nodes=sum(g.body_nodes), pool_mib=g.pool_mib)
+
+
+def _sweep_case(torch, name, st, o, scans=None):
+    """batch_localize on `st`: eager twice, the program (its first call
+    captures), the standard, one host read a sweep, no synchronising call,
+    no kernel launched, and the walls."""
+    import numpy as np
+
+    from hitl_slam_torch.models.enml import localizer as L
+    from hitl_slam_torch.models.enml.program import sweep_program
+
+    args = (st.points, st.normals, st.point_mask, st.poses, o)
+    eager, eager_ms = _timed_runs(
+        lambda: L.batch_localize(*args, eager=True), 2)
+    _reset_counts()
+    rep = L.batch_localize(*args)
+    _sync()
+    check(_read_counts() == (0, 0), f"{name}: a kernel launched")
+    check(np.isfinite(rep[0].cpu().numpy()).all(), f"{name}: poses")
+    row = _standard(torch, name, rep, eager[0], eager[1], covs=1)
+    prog = sweep_program(st.points, o, None)
+    row["host_reads"] = _one_read(torch, name, lambda: torch.cat(
+        [x.flatten() for x in L.batch_localize(*args)]).cpu())
+    _no_sync(torch, name, lambda: L.batch_localize(*args))
+    P = st.num_poses
+    row.update(nodes=P, **_walls(
+        torch, eager_ms, lambda: L.batch_localize(*args), prog, trips=P,
+        nodes=P, scans=scans), **_facts(prog))
+    log(f"[program] {name} ({P} nodes x {st.max_points} points): replay "
+        f"{row['standard']} to eager (poses {row['max_pose_diff']:.1e}, "
+        f"covariances {row['cov_rel_diff']:.1e}, eager runs bit-equal "
+        f"{row['eager_bit_equal']}); sweep {row['eager_ms']:.1f} ms eager, "
+        f"{row['program_ms']:.1f} ms program ({row['eager_ms_per_node']:.2f}"
+        f" / {row['program_ms_per_node']:.3f} ms a node"
+        + (f", realtime {row['eager_realtime']:.3f} / "
+           f"{row['program_realtime']:.2f}" if scans else "")
+        + f"); host reads {row['host_reads']['total']}; "
+        f"{BUSY_NOT_MEASURED}; {row['graph_ops']} graph "
+        f"operations ({row['graph_ops_per_node']:.0f} a node); capture "
+        f"{row['capture_ms']:.1f} ms, {row['graph_nodes']} graph nodes "
+        f"({row['body_nodes']} a trip), pool {row['pool_mib']:.1f} MiB")
+    return row
+
+
+def _segment_case(torch, name, st, o):
+    """The session's segments: sweep_segment of ENML_PROGRAM_SEGMENT nodes
+    from t0 = 0 until past the end of `st`, eager twice and by the
+    program; one host read and no synchronising call a segment."""
+    from hitl_slam_torch.models.enml import localizer as L
+    from hitl_slam_torch.models.enml.program import sweep_program
+
+    P, seg = st.num_poses, ENML_PROGRAM_SEGMENT
+    pre = L.sweep_precompute(st.poses, o)
+    maps = (st.points, st.normals, st.point_mask)
+    cov0 = torch.zeros((P, 3, 3), device=st.poses.device)
+
+    def tiles(eager):
+        ps, cv = st.poses, cov0
+        for t0 in range(0, P, seg):
+            ps, cv = L.sweep_segment(*maps, ps, cv, pre, t0, o, seg,
+                                     eager=eager)
+        return ps, cv
+
+    eager, eager_ms = _timed_runs(lambda: tiles(True), 2)
+    _reset_counts()
+    rep = tiles(False)
+    _sync()
+    check(_read_counts() == (0, 0), f"{name}: a kernel launched")
+    row = _standard(torch, name, rep, eager[0], eager[1], covs=1)
+    one = lambda: L.sweep_segment(*maps, st.poses, cov0, pre, 0, o, seg)  # noqa
+    row["host_reads"] = _one_read(torch, name, lambda: one()[0].cpu())
+    _no_sync(torch, name, one)
+    prog = sweep_program(st.points, o, seg)
+    tiles_n = -(-P // seg)
+    row.update(nodes=P, segment=seg, segments=tiles_n,
+               **_walls(torch, eager_ms, lambda: tiles(False), prog,
+                        trips=tiles_n * seg, replays=tiles_n, nodes=P),
+               **_facts(prog))
+    log(f"[program] {name} ({P} nodes in segments of {seg}): replays "
+        f"{row['standard']} to eager (poses {row['max_pose_diff']:.1e}, "
+        f"covariances {row['cov_rel_diff']:.1e}); {row['eager_ms']:.1f} ms "
+        f"eager, {row['program_ms']:.1f} ms program; host reads a segment "
+        f"{row['host_reads']['total']}; {row['graph_ops']} graph "
+        f"operations; capture "
+        f"{row['capture_ms']:.1f} ms, {row['graph_nodes']} graph nodes, "
+        f"pool {row['pool_mib']:.1f} MiB")
+    return row
+
+
+def _window_case(torch, name, stream, o):
+    """The online localizer's window solve on the stream's last W nodes
+    padded to ONLINE_POINTS points: eager twice and by the program, one
+    host read and no synchronising call a window."""
+    import numpy as np
+
+    from hitl_slam_torch.core.state import make_map_state
+    from hitl_slam_torch.models.enml import localizer as L
+    from hitl_slam_torch.models.enml.program import window_program
+
+    _, poses, pcs, ncs = _episode_state(stream, "cpu")
+    W = o.max_history
+    st = make_map_state(poses[-W:], np.zeros((W, 3, 3), np.float32),
+                        pcs[-W:], ncs[-W:], max_points=ONLINE_POINTS,
+                        device=DEVICE)
+    args = (st.points, st.normals, st.point_mask, st.poses, o)
+    eager, eager_ms = _timed_runs(
+        lambda: (L.single_window_localize(*args, eager=True),), 2)
+    _reset_counts()
+    rep = (L.single_window_localize(*args),)
+    _sync()
+    check(_read_counts() == (0, 0), f"{name}: a kernel launched")
+    row = _standard(torch, name, rep, eager[0], eager[1])
+    row["host_reads"] = _one_read(
+        torch, name, lambda: L.single_window_localize(*args).cpu())
+    _no_sync(torch, name, lambda: L.single_window_localize(*args))
+    prog = window_program(st.points, o)
+    row.update(window=[W, ONLINE_POINTS], **_walls(
+        torch, eager_ms, lambda: L.single_window_localize(*args), prog),
+        **_facts(prog))
+    log(f"[program] {name} ([{W}, {ONLINE_POINTS}]): replay "
+        f"{row['standard']} to eager (poses {row['max_pose_diff']:.1e}); "
+        f"{row['eager_ms']:.2f} ms eager, {row['program_ms']:.3f} ms "
+        f"program; host reads {row['host_reads']['total']}; "
+        f"{row['graph_ops']} graph operations; "
+        f"capture {row['capture_ms']:.1f} ms, {row['graph_nodes']} graph "
+        f"nodes, pool {row['pool_mib']:.1f} MiB")
+    return row
+
+
+def _replica_case(torch, repaired):
+    """Phase 15's replicas: batched_solve by its program against the eager
+    batched_solve (twice), the batched LM alone (solve_batched, whose
+    program has no build) likewise with its accept flags, one host
+    read a batched solve, no synchronising call, B' launched once a step
+    from the replays and the other kernels not at all, and the walls.
+    Returns (the row, B' launches)."""
+    import numpy as np
+
+    from hitl_slam_torch.parallel.replicas import (batched_solve,
+                                                   build_problems,
+                                                   make_perturbed_replicas,
+                                                   replica_program)
+    from hitl_slam_torch.solver import bcr_kernel as B, lm
+    from hitl_slam_torch.solver.lm import LMConfig
+
+    config = LMConfig(max_iterations=REPLICA_ITERS)
+    reps, tb = make_perturbed_replicas(repaired.poses.cpu().numpy(),
+                                       repaired.constraints, REPLICAS,
+                                       seed=0)
+    fields = ("poses", "final_cost", "initial_cost", "iterations",
+              "converged", "final_mu")
+    as_tuple = lambda r: tuple(getattr(r, f) for f in fields)  # noqa: E731
+    eager, eager_ms = _timed_runs(lambda: as_tuple(batched_solve(
+        reps, tb, config, DEVICE, eager=True)), 2)
+    batched_solve(reps, tb, config, DEVICE)         # captures
+    _sync()
+    _reset_counts()
+    B.batched_launches.count = 0
+    rep = batched_solve(reps, tb, config, DEVICE)
+    _sync()
+    steps = int(rep.iterations.max())
+    n_batched = B.batched_launches.count
+    check(n_batched == steps and _read_counts() == (0, 0),
+          f"replica program: batched launches {n_batched} != {steps} steps "
+          f"(em_scan, lone bcr {_read_counts()})")
+    row = _standard(torch, "replica program", as_tuple(rep), *eager)
+    check(int(rep.iterations.min()) >= 1, "replica program: no step")
+    # the batched LM alone, with its accept flags
+    prob = build_problems(reps, tb)
+    acc_e, acc_p = [], []
+    lm_e = lm.solve_batched(prob, reps, config, accepts=acc_e, eager=True)
+    lm_p = lm.solve_batched(prob, reps, config, accepts=acc_p)
+    check(torch.equal(lm_p.iterations, lm_e.iterations)
+          and len(acc_p) == len(acc_e)
+          and all(torch.equal(a, b) for a, b in zip(acc_p, acc_e)),
+          "solve_batched's program: iterations or accept flags differ from "
+          "eager")
+    row["solve_batched_bit_equal"] = all(
+        torch.equal(a, b) for a, b in zip(as_tuple(lm_p), as_tuple(lm_e)))
+    row["host_reads"] = _one_read(torch, "replica program", lambda:
+                                  batched_solve(reps, tb, config,
+                                                DEVICE).poses.cpu())
+    _no_sync(torch, "replica program",
+             lambda: batched_solve(reps, tb, config, DEVICE))
+    prog = replica_program(reps, tb, config)
+    row.update(B=REPLICAS, n=int(reps.shape[1]), steps=steps,
+               launches_bcr_batched=n_batched,
+               iterations=np.asarray(rep.iterations.cpu()).tolist(),
+               **_walls(torch, eager_ms,
+                        lambda: batched_solve(reps, tb, config, DEVICE),
+                        prog, trips=steps),
+               **_facts(prog))
+    log(f"[program] replicas (B={REPLICAS}, n={row['n']}, {steps} steps): "
+        f"replay {row['standard']} to eager batched_solve (poses "
+        f"{row['max_pose_diff']:.1e}; solve_batched's program bit-equal "
+        f"{row['solve_batched_bit_equal']}, accept flags equal); "
+        f"{row['eager_ms']:.2f} ms eager, {row['program_ms']:.2f} ms "
+        f"program; host reads {row['host_reads']['total']}; B' launches "
+        f"{n_batched} = steps; "
+        f"{row['graph_ops']} graph operations; capture "
+        f"{row['capture_ms']:.1f} ms, {row['graph_nodes']} graph nodes, "
+        f"pool {row['pool_mib']:.1f} MiB")
+    return row, n_batched
+
+
+def phase_enml_program(torch, smi, stream, scale_state, repaired):
+    """EnML's sweep, segments and online window and the replica batch's LM
+    as device programs (models/enml/program.py, parallel/replicas.py,
+    solver/lm.py; phases 10-13, 15 and 18 already ran them): each replay
+    against the eager function on the same inputs, its host reads under
+    the profiler, under sync debug mode "error", its launches, walls, busy
+    share, capture ms, graph nodes and pool MiB. Returns (the record, B'
+    launches from the replays)."""
+    from hitl_slam_torch.models.enml import localizer as L
+
+    t_phase = time.perf_counter()
+    o = L.EnmlOptions()
+    out = {"card": smi}
+    st, _, _, _ = _episode_state(stream, DEVICE)
+    out["test_size"] = _sweep_case(torch, "enml test size", st, o,
+                                   scans=len(stream[0]))
+    K = ENML_PROGRAM_PREFIX
+    pre_st = _prefix(scale_state, K)
+    out["scale_prefix"] = _sweep_case(torch, f"enml scale map, first {K} "
+                                      f"nodes", pre_st, o)
+    out["segments"] = _segment_case(torch, "enml session segments",
+                                    _prefix(st, ENML_SEGMENT_NODES), o)
+    out["window"] = _window_case(torch, "enml online window", stream, o)
+    out["replicas"], n_batched = _replica_case(torch, repaired)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[program] EnML and replica programs: {out['seconds']:.1f} s "
+        f"(budget {ENML_PROGRAM_SECONDS:.0f} s), B' replay launches "
+        f"{n_batched}")
+    return out, n_batched
+
+
+def _prefix(st, K):
+    """The first K nodes of a map state."""
+    return st.replace(**{f: getattr(st, f)[:K] for f in (
+        "poses", "covariances", "points", "normals", "point_mask",
+        "odometry")})
+
+
+# ---------------------------------------------------------------- phase 21
 
 def phase_times(torch, state, log_entries):
     """Each kernel at the main path's shapes (em_scan on the golden_large
@@ -3843,6 +4290,7 @@ def main() -> int:
     mesh, n_multi, multi_err, multi_times = phase_mesh(
         torch, smi, repaired, stream, scale, replica_out)
     enml_scale = enml_scale_from_phases(enml, scale)
+    scale_state = scale["state"]
     del scale, replica_out
     print(json.dumps({"mesh": mesh}), flush=True)
     # ---- 17. the reference's sessions at its sizes ----
@@ -3859,10 +4307,15 @@ def main() -> int:
                                          sections)
     del sections
     print(json.dumps({"program": program}), flush=True)
+    # ---- 20. EnML and the replica LM as device programs ----
+    enml_program, q_batched = phase_enml_program(torch, smi, stream,
+                                                 scale_state, repaired)
+    del scale_state
+    print(json.dumps({"enml_program": enml_program}), flush=True)
     log(smi)
-    # ---- 20. times ----
+    # ---- 21. times ----
     times = phase_times(torch, state, large_log)
-    # ---- 21. kernels line ----
+    # ---- 22. kernels line ----
     kernels = [
         {"name": "em_scan", "route": "cuda",
          "source": "hitl_slam_torch/csrc/em_scan.cu",
@@ -3881,7 +4334,8 @@ def main() -> int:
         {"name": "bcr_solve_batched", "route": "cuda",
          "source": "hitl_slam_torch/csrc/bcr.cu",
          "replaces": "hitl_slam_tpu/solver/pallas_bcr.py:94",
-         "launches": n_batched + r_batched, "reference_launches": r_batched,
+         "launches": n_batched + r_batched + q_batched,
+         "reference_launches": r_batched, "program_launches": q_batched,
          "max_abs_err": batched_err,
          **{k: v for k, v in batched_times[1024].items()
             if k not in ("B", "n")},
@@ -3900,7 +4354,7 @@ def main() -> int:
     ]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    # ---- 22. contract line ----
+    # ---- 23. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

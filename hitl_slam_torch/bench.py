@@ -187,14 +187,16 @@ def replica_split(sync, state, num_replicas: int) -> dict:
     """BASELINE config #5 on `state` (the repaired map): `num_replicas`
     perturbed copies (make_perturbed_replicas, seed 0), LMConfig(
     max_iterations=20), each timed warm (the second of two calls): the
-    batched solve with the device's default linear solver (the batched BCR
-    kernel on the card), with the plain batched BCR, and the same solves
-    one after another."""
+    batched solve (batched_solve: on the card a replay of its program,
+    whose first call captured it; `capture_ms`, None elsewhere) with the
+    device's default linear solver (the batched BCR kernel on the card),
+    the batched solve with the plain batched BCR, and the same solves one
+    after another."""
     import numpy as np
     import torch
 
-    from .parallel.replicas import (build_problems, make_perturbed_replicas,
-                                    replica_table)
+    from .parallel.replicas import (batched_solve, make_perturbed_replicas,
+                                    replica_program, replica_table)
     from .solver import joint, lm, tridiag
 
     config = lm.LMConfig(max_iterations=20)
@@ -209,10 +211,12 @@ def replica_split(sync, state, num_replicas: int) -> dict:
         sync()
         return out, (time.perf_counter() - t0) * 1e3
 
-    out, kernel_ms = timed(lambda: lm.solve_batched(
-        build_problems(reps, tb), reps, config))
-    twin, twin_ms = timed(lambda: lm.solve_batched(
-        build_problems(reps, tb), reps, config,
+    out, kernel_ms = timed(lambda: batched_solve(reps, tb, config,
+                                                 device=reps.device))
+    capture_ms = (replica_program(reps, tb, config).graph().capture_ms
+                  if reps.is_cuda else None)
+    twin, twin_ms = timed(lambda: batched_solve(
+        reps, tb, config, device=reps.device,
         linear_solver=tridiag.bcr_solve))
 
     def lone_all():
@@ -225,6 +229,7 @@ def replica_split(sync, state, num_replicas: int) -> dict:
         "replicas": num_replicas, "poses": int(reps.shape[1]),
         "max_iterations": config.max_iterations,
         "wall_ms": kernel_ms, "solves_per_s": num_replicas / kernel_ms * 1e3,
+        "capture_ms": capture_ms,
         "twin_wall_ms": twin_ms, "lone_wall_ms": lone_ms,
         "iterations": iters.tolist(),
         "iterations_equal_lone": bool(np.array_equal(

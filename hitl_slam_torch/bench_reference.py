@@ -31,7 +31,8 @@ headline's final state, bench.py:683-708, is bench.replica_split's):
 
 and `device_analysis`, in place of the reference's `xla_analysis`: for each
 of its seven surfaces the wall, the device ms and device operations from
-torch.profiler, the busy share and the bytes of the inputs.
+torch.profiler, the busy share and the bytes of the inputs (not measured,
+None, for the sweep's replay: UNTRACED_SURFACES).
 
 `hbm_peak_mb` is the largest torch.cuda.max_memory_allocated over the run:
 the peak is reset before each section and read after it, and every section
@@ -78,7 +79,6 @@ ENML_STREAM_SMOKE = dict(num_steps=24, num_rays=60, seed=11)
 ENML_SCALE_STREAM = dict(num_steps=2600, num_rays=240, seed=12, num_laps=7)
 CHUNK, CHUNK_SMOKE, CHUNK_W80 = 16, 4, 8
 W80 = 80
-SWEEP_WARM_NODES = 32
 # the bag of bench.py:1264-1270: 64 scans of 720 rays, 20 times over
 BAG_STREAM = dict(num_steps=64, num_rays=720, seed=3)
 BAG_REPEAT = 20
@@ -411,9 +411,20 @@ def enml_footprint(st) -> dict:
     }
 
 
+def _sweep_capture_ms(st, o) -> float | None:
+    """The capture ms of the sweep program of `st` under `o` (on a card,
+    after its first call), None on the CPU."""
+    if st.points.device.type != "cuda":
+        return None
+    from .models.enml.program import sweep_program
+
+    return sweep_program(st.points, o, None).graph().capture_ms
+
+
 def _localizers(st):
     """(sweep, checkerboard) of `st` as functions of the points and of the
-    options / chunk, each ending in a host read of one value."""
+    options / chunk, each ending in a host read of one value (the sweep on
+    a card: a replay of its program)."""
     from .models.enml.localizer import batch_localize
     from .models.enml.parallel_localizer import checkerboard_localize
 
@@ -444,8 +455,10 @@ def _w80(sync, board, st, chunk):
 
 def enml_section(device, smoke: bool = False) -> dict:
     """EnML on bench.py's 160-scan stream (24 scans of 60 rays at
-    `smoke`): the sequential sweep and the checkerboard (16 windows a
-    batch; 4 at `smoke`), each warm then timed on points + 1e-6, with their
+    `smoke`): the sequential sweep (on a card a replay of its program: the
+    warm call captures it, `sweep_capture_ms`) and the checkerboard (16
+    windows a batch; 4 at `smoke`), each warm then timed on points + 1e-6,
+    with their
     realtime factors over the scans at 20 Hz; the checkerboard at W = 80
     (8 a batch, the minimum of two after a warm call), left out (None) at
     `smoke`; the state's footprint. `_poses`: the timed sweep's poses;
@@ -460,13 +473,15 @@ def enml_section(device, smoke: bool = False) -> dict:
     chunk = CHUNK_SMOKE if smoke else CHUNK
     pts_p = st.points + 1e-6
     sweep(st.points, o)
+    capture_ms = _sweep_capture_ms(st, o)
     poses, seq_ms = _timed(sync, lambda: sweep(pts_p, o))
     board(st.points, o, chunk)
     _, ck_ms = _timed(sync, lambda: board(pts_p, o, chunk))
     stream_s = steps * SCAN_PERIOD_S
     return {
         "scans": steps, **enml_footprint(st), "chunk": chunk,
-        "sequential_ms": seq_ms, "checkerboard_ms": ck_ms,
+        "sequential_ms": seq_ms, "sweep_capture_ms": capture_ms,
+        "checkerboard_ms": ck_ms,
         "realtime_factor": stream_s / (seq_ms / 1e3),
         "checkerboard_realtime_factor": stream_s / (ck_ms / 1e3),
         "w80_checkerboard_ms": (None if smoke else
@@ -500,22 +515,19 @@ def enml_scale_keys(footprint: dict, scans: int, sequential_ms: float,
 
 def enml_scale_section(device) -> dict:
     """The scale map (2600 scans, 7 laps): the sequential sweep timed once
-    on points + 1e-6 after warming on its first 32 nodes (sweep_segment;
-    eager PyTorch compiles nothing, so a second whole sweep would only
-    repeat the first), the checkerboard at 16 windows a batch warm then
-    timed, and W = 80 at 8 a batch (the minimum of two). `_runs` reruns
-    the two timed checkerboards for the device analysis; `_inputs`."""
-    from .models.enml.localizer import (EnmlOptions, sweep_precompute,
-                                        sweep_segment)
+    on points + 1e-6 after a warm call (on a card the warm call captures
+    its program, `sweep_capture_ms`, and the timed one replays it), the
+    checkerboard at 16 windows a batch warm then timed, and W = 80 at 8 a
+    batch (the minimum of two). `_runs` reruns the two timed checkerboards
+    for the device analysis; `_inputs`."""
+    from .models.enml.localizer import EnmlOptions
 
     sync = S.synchronizer(device)
     st, steps = enml_state(ENML_SCALE_STREAM, device)
     sweep, board = _localizers(st)
     o = EnmlOptions()
-    cov0 = torch.zeros((st.num_poses, 3, 3), dtype=st.poses.dtype,
-                       device=st.poses.device)
-    sweep_segment(st.points, st.normals, st.point_mask, st.poses, cov0,
-                  sweep_precompute(st.poses, o), 0, o, SWEEP_WARM_NODES)
+    sweep(st.points, o)
+    capture_ms = _sweep_capture_ms(st, o)
     pts_p = st.points + 1e-6
     _, seq_ms = _timed(sync, lambda: sweep(pts_p, o))
     board(st.points, o, CHUNK)
@@ -524,7 +536,8 @@ def enml_scale_section(device) -> dict:
     o80 = EnmlOptions(max_history=W80)
     return {
         "scans": steps, "footprint": enml_footprint(st),
-        "sequential_ms": seq_ms, "checkerboard_ms": ck_ms, "w80_ms": w80_ms,
+        "sequential_ms": seq_ms, "sweep_capture_ms": capture_ms,
+        "checkerboard_ms": ck_ms, "w80_ms": w80_ms,
         "_runs": {"enml_scale_checkerboard": (lambda: board(pts_p, o, CHUNK),
                                               ck_ms),
                   "enml_scale_w80": (lambda: board(st.points + 1e-6, o80,
@@ -625,20 +638,30 @@ def device_profile(run) -> tuple[float, int]:
     return device_trace(run)[:2]
 
 
+# surfaces whose run replays a program with a long WHILE loop (the sweep):
+# CUPTI does not trace its trips (a window over a replayed sweep reported
+# one trip's kernels, and after a few such windows the process died of an
+# illegal memory access), and CUDA events around the run span the host's
+# gaps too, so their device ms, operations, host reads and busy share are
+# not measured (None)
+UNTRACED_SURFACES = ("enml_batch",)
+
+
 def device_analysis(device, surfaces: dict) -> dict:
     """For each surface name -> (run, wall ms, input tensors[, extra]): the
     wall, the bytes of the inputs and, on a CUDA device, the device ms,
     device operations and host reads of one rerun under the profiler, the
-    busy share (device ms over the wall) and the profiled rerun's own
-    seconds; None for those five on the CPU. `extra`, a callable, adds
-    the fields it returns (the cycle programs' capture ms, graph nodes and
-    pool MiB for the chain)."""
+    busy share (device ms over the wall) and the rerun's own seconds; None
+    for those five on the CPU and for UNTRACED_SURFACES. `extra`, a
+    callable, adds the fields it returns (the cycle programs' capture ms,
+    graph nodes and pool MiB for the chain)."""
     out = {}
     for name, (run, wall_ms, inputs, *extra) in surfaces.items():
         entry = {"wall_ms": wall_ms, "input_bytes": _nbytes(inputs),
                  "device_ms": None, "device_ops": None, "host_reads": None,
                  "busy": None, "profile_s": None}
-        if torch.device(device).type == "cuda":
+        if (torch.device(device).type == "cuda"
+                and name not in UNTRACED_SURFACES):
             t0 = time.perf_counter()
             dev_ms, ops, reads = device_trace(run)
             entry.update(device_ms=dev_ms, device_ops=ops, host_reads=reads,
@@ -839,9 +862,11 @@ def notes(s: dict, smoke: bool) -> dict:
         "tunnel_rtt_ms": "the card's own round trip (x + 1.0 on a 0-d "
                          "tensor, then a synchronise): no tunnel or relay "
                          "lies between host and card",
-        "enml_scale_sequential_ms": "one timed sweep after a warm-up on its "
-                                    "first 32 nodes (sweep_segment): eager "
-                                    "PyTorch compiles nothing",
+        "enml_scale_sequential_ms": "one timed sweep after a warm call: on "
+                                    "a card a replay of the sweep program "
+                                    "the warm call captured",
+        "sweep_capture_ms": {k: s[k].get("sweep_capture_ms")
+                             for k in ("enml", "enml_scale") if k in s},
         "sections": s["memory"]["sections"],
         "speculative": {k: spec[k] for k in (
             "pause_s", "hit", "accepted", "lm_iterations",

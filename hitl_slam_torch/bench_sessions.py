@@ -375,8 +375,8 @@ def _program_stats(st, capacity: int) -> dict | None:
     if st.points.device.type != "cuda":
         return None
     prog = cycle_program(st.points, capacity, lm.LMConfig(), False, False)
-    return {str(c): {"capture_ms": prog.capture_ms[c], "nodes": prog.nodes[c],
-                     "pool_mib": prog.pool_mib[c]} for c in prog.graphs}
+    return {str(c): {"capture_ms": g.capture_ms, "nodes": g.nodes,
+                     "pool_mib": g.pool_mib} for c, g in prog.graphs.items()}
 
 
 def chain_section(device, headline: dict, j_rep: int = J_REP,

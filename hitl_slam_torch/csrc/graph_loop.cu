@@ -103,6 +103,25 @@ extern "C" int hitl_loop_graph_nodes(void* graph, unsigned long long* count) {
   return static_cast<int>(err);
 }
 
+// Nodes of a graph by type (not counting inside child graphs): counts[t]
+// for cudaGraphNodeType t < n.
+extern "C" int hitl_loop_node_types(void* graph, unsigned long long* counts,
+                                    int n) {
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t count = 0;
+  cudaError_t err = cudaGraphGetNodes(g, nullptr, &count);
+  if (err != cudaSuccess || count == 0) return static_cast<int>(err);
+  cudaGraphNode_t* nodes = new cudaGraphNode_t[count];
+  err = cudaGraphGetNodes(g, nodes, &count);
+  for (size_t i = 0; err == cudaSuccess && i < count; ++i) {
+    cudaGraphNodeType type;
+    err = cudaGraphNodeGetType(nodes[i], &type);
+    if (err == cudaSuccess && static_cast<int>(type) < n) ++counts[type];
+  }
+  delete[] nodes;
+  return static_cast<int>(err);
+}
+
 extern "C" int hitl_loop_instantiate(void* graph, void** exec) {
   cudaGraphExec_t e = nullptr;
   cudaError_t err = cudaGraphInstantiate(&e, static_cast<cudaGraph_t>(graph),

@@ -292,6 +292,7 @@ def localize_and_save(
                 else torch.as_tensor(np.asarray(ltf_segs),
                                      dtype=st.poses.dtype,
                                      device=st.poses.device))
+        # on a card one replay of the map's sweep program
         new_poses, covs = batch_localize(
             st.points, st.normals, st.point_mask, st.poses, opts,
             ltf_segs=segs)

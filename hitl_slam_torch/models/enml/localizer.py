@@ -15,11 +15,15 @@ semantics:
     initial relative transform.
 
 The reference sweeps the trajectory as one `lax.scan`; here the sweep is a
-Python loop over node indices that slices each window with Python ints. It
-reads nothing back from the device inside the loop: no `.item()`, no
-`bool(tensor)`, no `nonzero`, and the factorizations skip their host-side
-info checks (`cholesky_ex`, `inv_ex`), so a failed factor gives non-finite
-values, as in the reference, instead of a raise or a sync.
+`device_while` over node indices held on the device, each window gathered
+at a device index (utils/device_loop.py). A trip reads nothing back: no
+`.item()`, no `bool(tensor)`, no `nonzero`, no index by a 0-dim tensor,
+and the factorizations skip their host-side info checks (`cholesky_ex`,
+`inv_ex`), so a failed factor gives non-finite values, as in the
+reference, instead of a raise or a sync. On a CUDA device the sweep, a
+segment of it and the online window solve replay captured programs
+(models/enml/program.py); eagerly, on the CPU, the sweep reads one loop
+flag a node.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from dataclasses import dataclass
 import torch
 
 from ...ops.geometry import angle_mod, norm2, perp, rotate
+from ...utils.device_loop import device_while, replays
 
 Tensor = torch.Tensor
 
@@ -385,7 +390,7 @@ def window_gn_batched(
         # pinned poses); a failed factor becomes NaN, as jnp's does
         L, info = torch.linalg.cholesky_ex(Hd)
         L = torch.where((info == 0)[:, None, None], L, torch.nan)
-        step = torch.cholesky_solve(-g[..., None], L).reshape(Bw, W, 3)
+        step = cholesky_solve(-g[..., None], L).reshape(Bw, W, 3)
         return poses + step
 
     def gn_round(poses, n_iter, want_hessian):
@@ -438,18 +443,45 @@ def single_window_localize(
     poses: Tensor,        # [W, 3] current estimates
     options: EnmlOptions = EnmlOptions(),
     ltf_segs: Tensor | None = None,  # [S, 4] vector map -> LTF factors
+    *,
+    eager: bool = False,
 ) -> Tensor:
     """One window GN solve over exactly these W poses (first pose fixed):
-    the online re-localization step, O(1) work per new node."""
-    o = options
+    the online re-localization step, O(1) work per new node. On a CUDA
+    device a replay of the shape's WindowProgram (models/enml/program.py),
+    unless `eager`."""
+    if replays(poses, eager):
+        from .program import window_program
+
+        return window_program(points, options, ltf_segs).run(
+            points, normals, point_mask, poses, ltf_segs)
+    return _single_window(points, normals, point_mask, poses, options,
+                          ltf_segs)
+
+
+def _single_window(points, normals, point_mask, poses, o: EnmlOptions,
+                   ltf_segs=None, gates=None) -> Tensor:
+    """single_window_localize's solve, eager or captured."""
     W = poses.shape[0]
     axis, d, rot, isig = _odometry_targets(poses, o)
     new_poses, _H = _window_gn(
         poses, points, normals, point_mask, axis, d, rot, isig,
         torch.ones(W - 1, dtype=poses.dtype, device=poses.device), o,
-        ltf_segs=ltf_segs,
+        ltf_segs=ltf_segs, gates=gates,
     )
     return torch.cat([new_poses[:, :2], angle_mod(new_poses[:, 2:])], -1)
+
+
+def cholesky_solve(b: Tensor, L: Tensor) -> Tensor:
+    """torch.cholesky_solve(b, L) for lower L, as its two triangular
+    solves: the same BLAS calls as LAPACK's potrs on the CPU (bit-equal),
+    and on the card cuBLAS triangular solves, which a CUDA graph captures
+    on any stream. cuSOLVER's potrs allocates scratch inside a capture on
+    every stream but the one that made the process's first cuSOLVER call
+    (scripts/linalg_capture_probe.py), and a graph's loop body may hold no
+    allocation."""
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)
 
 
 def sweep_precompute(initial_poses: Tensor, options: EnmlOptions):
@@ -465,64 +497,87 @@ def sweep_precompute(initial_poses: Tensor, options: EnmlOptions):
 
 
 def _make_sweep_step(points, normals, point_mask, pre, o: EnmlOptions,
-                     ltf_segs=None):
+                     ltf_segs=None, gates=None):
     """The per-node window solve shared by the full sweep (batch_localize)
-    and the segmented sweep (sweep_segment): step(poses, t) updates the
-    running estimates `poses` [P, 3] IN PLACE for node t (a Python int) and
-    returns the newest pose's covariance [3, 3]."""
+    and the segmented sweep (sweep_segment): step(poses, covs, t, live)
+    updates the running estimates `poses` [P, 3] and covariances `covs`
+    [P, 3, 3] IN PLACE for node t, a 0-dim int64 tensor on their device
+    (the reference's scan index). Every index is computed on the device
+    (the window start a and the newest node's row k as the reference's
+    dynamic slices clamp them; gathers and index copies in place of
+    slices), so a trip reads nothing back and one capture serves every t.
+    With `live` (a 0-dim bool), the node's updates are kept only where it
+    holds, as the reference's seg_step masks its trips past P - 1."""
     axis, d, rot, isig, rel_t, rel_th = pre
     P = points.shape[0]
     W = min(o.max_history, P)
     dev, dtype = points.device, points.dtype
-    gates = _match_gates(o, dev)
+    if gates is None:
+        gates = _match_gates(o, dev)
     ar = torch.arange(W, device=dev)
-    # row k: the window rows live when the newest node sits at row k
-    live_rows = ar[None, :] <= ar[:, None]                       # [W, W]
-    live_chain = (ar[None, :-1] < ar[:, None]).to(dtype)          # [W, W-1]
-    live3 = live_rows[:, :, None].expand(W, W, 3).reshape(W, 3 * W)
-    # pin factor-free (future-masked) window poses to identity so the
-    # inverse is well conditioned; they are decoupled from live poses
-    cov_diag = torch.where(live3, 1e-9, 1.0).to(dtype)            # [W, 3W]
+    ar3 = torch.arange(3, device=dev)
+    ar3w = torch.arange(3 * W, device=dev)
 
-    def step(poses, t: int) -> Tensor:
-        if t > 0:
+    def step(poses, covs, t: Tensor, live: Tensor | None = None) -> None:
+        t1 = t.reshape(1)
+        cur = poses.index_select(0, t1)[0]
+        if P > 1:
             # seed pose t from optimized pose t-1 (ResetGlobalPoses)
-            prev = poses[t - 1]
-            poses[t, :2] = prev[:2] + rotate(prev[2], rel_t[t - 1])
-            poses[t, 2] = prev[2] + rel_th[t - 1]
+            tp = torch.clamp(t1 - 1, min=0)
+            prev = poses.index_select(0, tp)[0]
+            seeded = torch.cat([
+                prev[:2] + rotate(prev[2], rel_t.index_select(0, tp)[0]),
+                (prev[2] + rel_th.index_select(0, tp)[0])[None]])
+            cur = torch.where(t > 0, seeded, cur)
 
         # the reference's dynamic slices clamp their start to [0, P - W]
-        a = min(max(t - W + 1, 0), P - W)
+        a = torch.clamp(t - (W - 1), 0, P - W)
         k = t - a                        # the newest node's window row
-        w_poses = poses[a:a + W]
-        w_mask = point_mask[a:a + W]
-        if k < W - 1:
-            # rows beyond pose t are future poses: mask them out
-            w_mask = w_mask & live_rows[k][:, None]
+        widx = a + ar
+        w_old = poses.index_select(0, widx)
+        w_poses = torch.where((ar == k)[:, None], cur, w_old)
+        # rows beyond pose t are future poses: mask them out
+        live_rows = widx <= t
+        w_mask = point_mask.index_select(0, widx) & live_rows[:, None]
+        cidx = widx[:-1]
         new_w_poses, H = _window_gn(
-            w_poses, points[a:a + W], normals[a:a + W], w_mask,
-            axis[a:a + W - 1], d[a:a + W - 1], rot[a:a + W - 1],
-            isig[a:a + W - 1], live_chain[k], o, ltf_segs=ltf_segs,
-            gates=gates,
+            w_poses, points.index_select(0, widx),
+            normals.index_select(0, widx), w_mask,
+            axis.index_select(0, cidx), d.index_select(0, cidx),
+            rot.index_select(0, cidx), isig.index_select(0, cidx),
+            (cidx < t).to(dtype), o, ltf_segs=ltf_segs, gates=gates,
         )
-        poses[a:a + W] = new_w_poses
+        if live is not None:
+            new_w_poses = torch.where(live, new_w_poses, w_old)
+        poses.index_copy_(0, widx, new_w_poses)
 
         # marginal covariance of the NEWEST pose (t) from this window's
         # Hessian, rotated into its pose frame; every pose gets the value
-        # of the window it arrived in (the reference's documented choice)
-        if k < W - 1:
-            m3 = live3[k]
-            H = torch.where(m3[:, None] & m3[None, :], H, 0.0)
-        H = H + torch.diag(cov_diag[k])
+        # of the window it arrived in (the reference's documented choice).
+        # Factor-free (future-masked) window poses are pinned to identity
+        # so the inverse is well conditioned; they are decoupled from live
+        # poses.
+        m3 = live_rows[:, None].expand(W, 3).reshape(3 * W)
+        H = torch.where(m3[:, None] & m3[None, :], H, 0.0)
+        H = H + torch.diag(torch.where(m3, 1e-9, 1.0).to(dtype))
         cov_full = torch.linalg.inv_ex(H)[0]
-        blk = cov_full[3 * k:3 * k + 3, 3 * k:3 * k + 3]
-        th = poses[t, 2]
+        # the block at rows and columns 3k..3k+2, gathered with the layout
+        # a slice of cov_full has (inv_ex returns LAPACK's column-major
+        # inverse, and the CPU's 3x3 products round by their operands'
+        # layout): the first three columns of a column-rolled slab of the
+        # transpose, transposed back
+        blk = cov_full.mT.index_select(0, 3 * k + ar3).index_select(
+            1, torch.remainder(3 * k + ar3w, 3 * W))[:, :3].mT
+        th = poses.index_select(0, t1)[0, 2]
         c, s = torch.cos(-th), torch.sin(-th)
         one, zero = torch.ones_like(c), torch.zeros_like(c)
         T = torch.stack([torch.stack([c, -s, zero]),
                          torch.stack([s, c, zero]),
                          torch.stack([zero, zero, one])])
-        return T @ blk @ T.T
+        cov = T @ blk @ T.T
+        if live is not None:
+            cov = torch.where(live, cov, covs.index_select(0, t1)[0])
+        covs.index_copy_(0, t1, cov[None])
 
     return step
 
@@ -534,21 +589,45 @@ def batch_localize(
     initial_poses: Tensor,  # [P, 3] odometry-integrated estimates
     options: EnmlOptions = EnmlOptions(),
     ltf_segs: Tensor | None = None,  # [S, 4] vector map -> LTF factors
+    *,
+    eager: bool = False,
 ) -> tuple[Tensor, Tensor]:
     """Full-trajectory sweep. Returns (poses [P, 3], covariances [P, 3, 3]).
     With `ltf_segs`, observations the map explains become long-term
-    features anchored to it (point-to-line factors in every window)."""
-    o = options
+    features anchored to it (point-to-line factors in every window).
+
+    The sweep is one `device_while` over the nodes, as the reference's one
+    `lax.scan`: on a CUDA device a replay of the map's SweepProgram
+    (models/enml/program.py), one WHILE node, unless `eager`; eagerly (the
+    CPU) a loop that reads one flag a node."""
+    if replays(initial_poses, eager):
+        from .program import sweep_program
+
+        return sweep_program(points, options, None, ltf_segs).run(
+            points, normals, point_mask, initial_poses, ltf_segs)
+    return _sweep(points, normals, point_mask, initial_poses, options,
+                  ltf_segs)
+
+
+def _sweep(points, normals, point_mask, initial_poses, o: EnmlOptions,
+           ltf_segs=None, gates=None):
+    """batch_localize's sweep, eager or captured."""
     P = initial_poses.shape[0]
     dtype, dev = initial_poses.dtype, initial_poses.device
-
-    pre = sweep_precompute(initial_poses, o)
-    step = _make_sweep_step(points, normals, point_mask, pre, o,
-                            ltf_segs=ltf_segs)
+    step = _make_sweep_step(points, normals, point_mask,
+                            sweep_precompute(initial_poses, o), o,
+                            ltf_segs=ltf_segs, gates=gates)
     poses = initial_poses.clone()
     covariances = torch.empty((P, 3, 3), dtype=dtype, device=dev)
-    for t in range(P):
-        covariances[t] = step(poses, t)
+    t = torch.zeros((), dtype=torch.int64, device=dev)
+    go = t < P
+
+    def node():
+        step(poses, covariances, t)
+        t.add_(1)
+        torch.lt(t, P, out=go)
+
+    device_while(go, node, P)
     # pose 0 is the gauge
     covariances[0] = torch.eye(3, dtype=dtype, device=dev) * 1e-6
     poses[:, 2] = angle_mod(poses[:, 2])
@@ -562,25 +641,53 @@ def sweep_segment(
     poses: Tensor,         # [P, 3] running estimates (prefix < t0 localized)
     covs: Tensor,          # [P, 3, 3] running covariance buffer
     pre,                   # sweep_precompute(initial_poses, options)
-    t0: int,               # first node index of this segment
+    t0,                    # first node index of this segment (an int or a
+                           # 0-dim integer tensor)
     options: EnmlOptions = EnmlOptions(),
     segment: int = 16,
     ltf_segs: Tensor | None = None,  # [S, 4] vector map -> LTF factors
+    *,
+    eager: bool = False,
 ) -> tuple[Tensor, Tensor]:
     """`segment` consecutive window solves of the trajectory sweep: the
     interactive form of batch_localize, called in a loop by a host that
     publishes progress or applies corrections between segments.
 
-    The reference computes node indices past P-1 against a clamped window
-    and masks their updates out; here they are skipped, which gives the
-    same result, so any t0 tiling of [0, P) reproduces the full sweep."""
+    Node indices past P-1 are computed against the clamped last window and
+    their updates masked out, as the reference's, so any t0 tiling of
+    [0, P) reproduces the full sweep. One `device_while` of `segment` trips:
+    on a CUDA device a replay of the SweepProgram of this segment length,
+    unless `eager`."""
+    if replays(poses, eager):
+        from .program import sweep_program
+
+        return sweep_program(points, options, segment, ltf_segs).run(
+            points, normals, point_mask, poses, covs, tuple(pre), t0,
+            ltf_segs)
+    t0 = torch.as_tensor(t0, dtype=torch.int64, device=poses.device)
+    return _sweep_segment(points, normals, point_mask, poses, covs, pre, t0,
+                          options, segment, ltf_segs)
+
+
+def _sweep_segment(points, normals, point_mask, poses, covs, pre, t0,
+                   o: EnmlOptions, segment: int, ltf_segs=None, gates=None):
+    """sweep_segment's trips from the 0-dim int64 `t0`, eager or
+    captured."""
     P = points.shape[0]
-    step = _make_sweep_step(points, normals, point_mask, pre, options,
-                            ltf_segs=ltf_segs)
+    step = _make_sweep_step(points, normals, point_mask, pre, o,
+                            ltf_segs=ltf_segs, gates=gates)
     poses = poses.clone()
     covs = covs.clone()
-    for t in range(int(t0), min(int(t0) + segment, P)):
-        covs[t] = step(poses, t)
+    j = torch.zeros((), dtype=torch.int64, device=poses.device)
+    go = j < segment
+
+    def node():
+        t = t0 + j
+        step(poses, covs, torch.clamp(t, max=P - 1), t < P)
+        j.add_(1)
+        torch.lt(j, segment, out=go)
+
+    device_while(go, node, segment)
     poses[:, 2] = angle_mod(poses[:, 2])
     return poses, covs
 

@@ -231,7 +231,8 @@ class OnlineLocalizer:
         st = make_map_state(poses, np.zeros((len(poses), 3, 3), np.float32),
                             clouds, normals, max_points=384,
                             device=self.device)
-        # ONE window GN over the trailing W nodes
+        # ONE window GN over the trailing W nodes (on a card a replay of
+        # the [W, 384] window's program)
         new_poses = single_window_localize(
             st.points, st.normals, st.point_mask, st.poses,
             self.opts).cpu().numpy()

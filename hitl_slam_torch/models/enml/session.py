@@ -154,7 +154,12 @@ class EnmlSession:
         """Run the trajectory sweep start to finish in `segment`-node
         pieces. Between pieces: apply any queued corrections, then call
         `progress_cb(session, t_done)` (publish GUI frames there).
-        Returns (poses [P, 3], covariances [P, 3, 3]) as host arrays."""
+        Returns (poses [P, 3], covariances [P, 3, 3]) as host arrays.
+
+        On a card each piece is one replay of the map's segment program
+        (models/enml/program.py), and the progress copy after it is the
+        piece's host read, as the reference reads back between its
+        per-segment programs."""
         from .localizer import sweep_precompute, sweep_segment
 
         st = self.state

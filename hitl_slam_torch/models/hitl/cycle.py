@@ -23,9 +23,7 @@ reads the host only where its caller reads the result, as the reference's
 
 from __future__ import annotations
 
-import threading
-from collections import OrderedDict
-from dataclasses import dataclass, fields
+from dataclasses import dataclass
 
 import torch
 
@@ -33,10 +31,10 @@ from ...core.state import ConstraintTable, CorrectionType
 from ...ops import em_scan as em_scan_kernel
 from ...ops.em_scan import em_scan
 from ...ops.geometry import pose_to_world
-from ...solver import bcr_kernel
 from ...solver.joint import build_problem
 from ...solver.lm import LMConfig, LMResult, solve as lm_solve
-from ...utils.device_loop import LoopGraph
+from ...utils.device_loop import (DeviceProgram, ProgramCache, clone_tree,
+                                  load_into)
 from . import em_input
 from .backprop import backprop
 from .explicit import apply_explicit, constraint_deltas
@@ -178,160 +176,83 @@ def _select_table(ok: Tensor, a: ConstraintTable,
 
 def clone_output(out: CycleOutput) -> CycleOutput:
     """A copy of `out` that no later replay overwrites."""
-    return CycleOutput(**{
-        f.name: (ConstraintTable(**{k: v.clone()
-                                    for k, v in vars(out.constraints).items()})
-                 if f.name == "constraints" else getattr(out, f.name).clone())
-        for f in fields(CycleOutput)})
+    return clone_tree(out)
 
 
-class CycleProgram:
+class CycleProgram(DeviceProgram):
     """The correction cycle as a device program on a CUDA device, for one
     map's shapes ([P, N] points), constraint capacity, LMConfig, odometry
     weighting (`odom_sigma`: whether a [P-1, 3] odom_inv_sigma is given)
     and warm start (`warm_start`: the solve starts from the damping in
     `mu`).
 
-    It holds static inputs (the map's points and mask, poses, covariances,
-    the constraint table, the selection, the write cursor `n` and `mu`)
-    and one `LoopGraph` of `cycle_solve` on them for each correction type,
-    captured at its first use, all in one memory pool and on one stream;
-    the EM refit and the LM solve are WHILE nodes, so a replay reads
-    nothing back. A replay's outputs live in the graph's memory and the
-    next replay overwrites them: callers clone what they keep. Replays run
-    one at a time (`lock`), each after the last on whatever stream it
-    ran. A failed capture or replay raises; nothing runs eagerly instead.
-
-    `capture_ms`, `nodes` and `pool_mib` record each capture: its host
-    time, the graph's nodes, and the device memory the capture reserved."""
+    Its static inputs are the map's points and mask, poses, covariances,
+    the constraint table, the selection, the write cursor `n`, `mu` and
+    odom_inv_sigma; it keeps one graph of `cycle_solve` on them for each
+    correction type (DeviceProgram's key), each captured at its first use,
+    all in one memory pool and on one stream. The EM refit and the LM
+    solve are WHILE nodes, so a replay reads nothing back. `replay(ctype)`
+    gives the CycleOutput in the graph's memory, which the next replay
+    overwrites; `run` and `chain` return copies."""
 
     def __init__(self, P: int, N: int, capacity: int, lm_config: LMConfig,
                  odom_sigma: bool, warm_start: bool, device):
-        dev = torch.device(device)
-        if dev.type != "cuda":
-            raise ValueError(f"CycleProgram runs on a CUDA device, not {dev}")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        self.device = dev
-        self.lm_config = lm_config
-        self.warm_start = warm_start
         f32 = torch.float32
-        self.points = torch.zeros((P, N, 2), dtype=f32, device=dev)
-        self.point_mask = torch.zeros((P, N), dtype=torch.bool, device=dev)
-        self.poses = torch.zeros((P, 3), dtype=f32, device=dev)
-        self.covariances = torch.zeros((P, 3, 3), dtype=f32, device=dev)
-        self.table = ConstraintTable.empty(capacity, dev)
-        self.sel = torch.zeros((4, 2), dtype=f32, device=dev)
-        self.n = torch.zeros((), dtype=torch.int32, device=dev)
-        self.mu = torch.full((), lm_config.initial_mu, dtype=f32, device=dev)
-        self.odom_inv_sigma = (torch.ones((P - 1, 3), dtype=f32, device=dev)
-                               if odom_sigma else None)
-        self.ticket = em_scan_kernel.new_ticket(dev)
-        for counter in (em_scan_kernel.launches, bcr_kernel.launches):
-            counter.prepare(dev)
-        self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(dev)
-        self.graphs: dict[int, LoopGraph] = {}
-        self.capture_ms: dict[int, float] = {}
-        self.nodes: dict[int, int] = {}
-        self.pool_mib: dict[int, float] = {}
-        self.lock = threading.Lock()
-        self._done = None     # event after the last replay and its reads
+        example = (torch.empty((P, N, 2), dtype=f32),
+                   torch.empty((P, N), dtype=torch.bool),
+                   torch.empty((P, 3), dtype=f32),
+                   torch.empty((P, 3, 3), dtype=f32),
+                   ConstraintTable.empty(capacity, "cpu"),
+                   torch.empty((4, 2), dtype=f32),
+                   torch.empty((), dtype=torch.int32),
+                   torch.empty((), dtype=f32),
+                   torch.empty((P - 1, 3), dtype=f32) if odom_sigma else None)
 
-    # -- inputs --------------------------------------------------------------
+        def solve(points, point_mask, poses, covariances, table, sel, n, mu,
+                  odom_inv_sigma, ctype):
+            with em_scan_kernel.capture_ticket(self.ticket):
+                return cycle_solve(
+                    points, point_mask, poses, covariances, table, ctype,
+                    sel, n, lm_config=lm_config,
+                    odom_inv_sigma=odom_inv_sigma,
+                    mu0=mu if warm_start else None)
 
-    def load(self, points: Tensor, point_mask: Tensor, poses: Tensor,
-             covariances: Tensor, constraints: ConstraintTable, n,
-             odom_inv_sigma: Tensor | None = None) -> None:
-        """Copy a cycle's inputs into the static buffers (device to device;
-        `n` a Python int or a scalar tensor) and set `mu` to the config's
-        initial damping."""
-        self.points.copy_(points)
-        self.point_mask.copy_(point_mask)
-        self.poses.copy_(poses)
-        self.covariances.copy_(covariances)
-        for name, buf in vars(self.table).items():
-            buf.copy_(getattr(constraints, name))
-        if isinstance(n, Tensor):
-            self.n.copy_(n)
-        else:
-            self.n.fill_(int(n))
-        self.mu.fill_(self.lm_config.initial_mu)
-        if (odom_inv_sigma is None) != (self.odom_inv_sigma is None):
-            raise ValueError("CycleProgram: odom_inv_sigma given to a program "
-                             "made without it, or the reverse")
-        if odom_inv_sigma is not None:
-            self.odom_inv_sigma.copy_(odom_inv_sigma)
-
-    # -- capture and replay ----------------------------------------------------
-
-    def _capture(self, ctype: int) -> LoopGraph:
-        dev = self.device
-
-        def run():
-            return cycle_solve(
-                self.points, self.point_mask, self.poses, self.covariances,
-                self.table, ctype, self.sel, self.n,
-                lm_config=self.lm_config, odom_inv_sigma=self.odom_inv_sigma,
-                mu0=self.mu if self.warm_start else None)
-
-        # what PyTorch makes at a library's first call on a stream (the
-        # cuBLAS handle and its workspace) is made here, outside the graph
-        with torch.cuda.stream(self.stream):
-            a = torch.ones((2, 2, 2), device=dev)
-            torch.bmm(a, a)
-            a[0] @ a[0]
-        reserved = torch.cuda.memory_reserved(dev)
-        with em_scan_kernel.capture_ticket(self.ticket):
-            g = LoopGraph(run, dev, pool=self.pool, stream=self.stream)
-        self.capture_ms[ctype] = g.capture_ms
-        self.nodes[ctype] = g.nodes
-        self.pool_mib[ctype] = (torch.cuda.memory_reserved(dev)
-                                - reserved) / 2 ** 20
-        self.graphs[ctype] = g
-        return g
-
-    def graph(self, ctype: int) -> LoopGraph:
-        """The graph of `ctype`, captured now if it is the first use."""
-        g = self.graphs.get(int(ctype))
-        return g if g is not None else self._capture(int(ctype))
+        super().__init__(solve, example, device)
+        self.lm_config = lm_config
+        self.odom_sigma = odom_sigma
+        self.ticket = em_scan_kernel.new_ticket(self.device)
 
     def replay(self, ctype: int) -> CycleOutput:
         """Replay the cycle of `ctype` on the loaded inputs (capturing it
-        first at its first use); the graph's outputs."""
-        g = self.graph(ctype)
-        g.replay()
-        return g.outputs[0]
+        first at its first use); the graph's CycleOutput."""
+        return super().replay(int(ctype))[0]
 
     def solve_iterations(self, ctype: int) -> Tensor:
         """The LM iterations of the last replay of `ctype` (every solve's,
         valid or not), in the graph's memory."""
         return self.graphs[int(ctype)].outputs[1].iterations
 
-    def _enter(self) -> torch.cuda.Stream:
-        stream = torch.cuda.current_stream(self.device)
-        if self._done is not None:
-            stream.wait_event(self._done)
-        return stream
-
-    def _leave(self, stream) -> None:
-        self._done = torch.cuda.Event()
-        self._done.record(stream)
+    def _inputs(self, points, point_mask, poses, covariances, constraints,
+                sel, n, odom_inv_sigma) -> tuple:
+        """run's inputs for DeviceProgram, `mu` the config's initial
+        damping."""
+        if (odom_inv_sigma is None) == self.odom_sigma:
+            raise ValueError("CycleProgram: odom_inv_sigma given to a program "
+                             "made without it, or the reverse")
+        return (points, point_mask, poses, covariances, constraints, sel, n,
+                self.lm_config.initial_mu, odom_inv_sigma)
 
     def run(self, ctype: int, points: Tensor, point_mask: Tensor,
             poses: Tensor, covariances: Tensor, constraints: ConstraintTable,
             sel: Tensor, n,
             odom_inv_sigma: Tensor | None = None) -> CycleOutput:
-        """One cycle as a replay, on the current stream: load, replay, and
-        a copy of the outputs that later replays leave alone."""
-        with self.lock:
-            stream = self._enter()
-            self.load(points, point_mask, poses, covariances, constraints, n,
-                      odom_inv_sigma)
-            self.sel.copy_(sel)
-            out = clone_output(self.replay(ctype))
-            self._leave(stream)
-        return out
+        """One cycle as a replay, on the current stream (`n` a Python int
+        or a scalar tensor): load, replay, and a copy of the outputs that
+        later replays leave alone."""
+        return super().run(
+            *self._inputs(points, point_mask, poses, covariances,
+                          constraints, sel, n, odom_inv_sigma),
+            key=int(ctype))
 
     def chain(self, ctypes, sels: Tensor, points: Tensor, point_mask: Tensor,
               poses: Tensor, covariances: Tensor, constraints: ConstraintTable,
@@ -339,14 +260,15 @@ class CycleProgram:
         """queue_chain on the device: K replays, the carry selected on the
         device between them, nothing read back. Returns queue_chain's
         tuple, copies that later replays leave alone."""
-        with self.lock:
-            stream = self._enter()
-            self.load(points, point_mask, poses, covariances, constraints, n0,
-                      odom_inv_sigma)
+        _, _, poses_c, covs_c, table_c, sel_c, n_c, mu_c, _ = self.inputs
+        with self.turn():
+            load_into(self.inputs, self._inputs(
+                points, point_mask, poses, covariances, constraints,
+                sel_c, n0, odom_inv_sigma))
             zero = torch.zeros((), dtype=torch.int32, device=self.device)
             ys = []
             for k, ctype in enumerate(ctypes):
-                self.sel.copy_(sels[k])
+                sel_c.copy_(sels[k])
                 out = self.replay(int(ctype))
                 ok = (out.verified & out.order_valid
                       & torch.isfinite(out.lm_final_cost))
@@ -355,47 +277,33 @@ class CycleProgram:
                            n_new, out.lm_iterations.clone(),
                            out.lm_initial_cost.clone(),
                            out.lm_final_cost.clone()))
-                self.poses.copy_(torch.where(ok, out.poses, self.poses))
-                self.covariances.copy_(
-                    torch.where(ok, out.covariances, self.covariances))
-                for name, buf in vars(self.table).items():
+                poses_c.copy_(torch.where(ok, out.poses, poses_c))
+                covs_c.copy_(torch.where(ok, out.covariances, covs_c))
+                for name, buf in vars(table_c).items():
                     buf.copy_(torch.where(ok, getattr(out.constraints, name),
                                           buf))
-                self.mu.copy_(torch.where(ok, out.lm_final_mu, self.mu))
-                self.n.add_(n_new)
+                mu_c.copy_(torch.where(ok, out.lm_final_mu, mu_c))
+                n_c.add_(n_new)
             per_cycle = (tuple(torch.stack(col) for col in zip(*ys))
                          if ys else ())
-            result = (self.poses.clone(), self.covariances.clone(),
-                      ConstraintTable(**{k: v.clone() for k, v
-                                         in vars(self.table).items()}),
-                      self.n.clone(), per_cycle)
-            self._leave(stream)
-        return result
+            return (poses_c.clone(), covs_c.clone(), clone_tree(table_c),
+                    n_c.clone(), per_cycle)
 
 
-_programs: OrderedDict = OrderedDict()
-_programs_lock = threading.Lock()
-MAX_PROGRAMS = 4     # programs kept (each holds its graphs' memory)
+_programs = ProgramCache()     # each program holds its graphs' memory
 
 
 def cycle_program(points: Tensor, capacity: int, lm_config: LMConfig,
                   odom_sigma: bool, warm_start: bool) -> CycleProgram:
     """The CycleProgram of a map with `points` ([P, N, 2] on a CUDA device)
     and these settings: the one made before, or a new one; the least
-    recently used beyond MAX_PROGRAMS are dropped."""
+    recently used beyond the cache's size are dropped."""
     P, N = points.shape[0], points.shape[1]
     dev = points.device
     key = (P, N, int(capacity), lm_config, bool(odom_sigma),
            bool(warm_start), dev.type, dev.index)
-    with _programs_lock:
-        prog = _programs.pop(key, None)
-        if prog is None:
-            prog = CycleProgram(P, N, capacity, lm_config, odom_sigma,
-                                warm_start, dev)
-        _programs[key] = prog
-        while len(_programs) > MAX_PROGRAMS:
-            _programs.popitem(last=False)
-    return prog
+    return _programs.get(key, lambda: CycleProgram(
+        P, N, capacity, lm_config, odom_sigma, warm_start, dev))
 
 
 def queue_chain(

@@ -30,7 +30,8 @@ import torch
 
 from ..core.state import ConstraintTable
 from ..solver.joint import JointProblem, build_problem
-from ..solver.lm import LMConfig, LMResult, solve_batched
+from ..solver.lm import LMConfig, LMResult, batched_program, solve_batched
+from ..utils.device_loop import replays
 from . import mesh as M
 
 Tensor = torch.Tensor
@@ -97,14 +98,24 @@ def batched_solve(
     table: ConstraintTable,   # leaves with a leading [B]
     config: LMConfig = LMConfig(),
     device="cuda",
+    *,
+    linear_solver=None,
+    eager: bool = False,
 ) -> LMResult:
     """Build every replica's problem and run one batched LM over them on
     `device`: an LMResult of [B, P, 3] poses and [B] costs, iteration
     counts, convergence flags and exit damping. Replicas placed by
     `shard_replicas` run where they were placed, one batched LM a device
-    group, and come back in replica order on the first group's device."""
+    group, and come back in replica order on the first group's device.
+    `linear_solver` as in solve_batched (None: the device's default).
+
+    On a CUDA device the build and the LM are one replay of
+    `replica_program` for (B, P, table capacity, config), the reference's
+    one jitted vmap, unless `eager`."""
     if isinstance(poses, M.Placed):
-        out = [batched_solve(p, tb, config, grp.device) for p, tb, grp in
+        out = [batched_solve(p, tb, config, grp.device,
+                             linear_solver=linear_solver, eager=eager)
+               for p, tb, grp in
                zip(poses.shares, table.shares, poses.groups)]
         if len(out) == 1:
             return out[0]
@@ -115,7 +126,20 @@ def batched_solve(
     poses = torch.as_tensor(poses, dtype=torch.float32, device=device)
     table = ConstraintTable(**{f.name: getattr(table, f.name).to(device)
                                for f in fields(table)})
-    return solve_batched(build_problems(poses, table), poses, config)
+    if replays(poses, eager):
+        return replica_program(poses, table, config,
+                               linear_solver).run(poses, table)[0]
+    return solve_batched(build_problems(poses, table), poses, config,
+                         linear_solver, eager=eager)
+
+
+def replica_program(poses: Tensor, table: ConstraintTable,
+                    config: LMConfig = LMConfig(), linear_solver=None):
+    """batched_solve's program for [B, P, 3] `poses` and a [B, capacity]
+    `table` on a CUDA device: the batched LM's program with the build
+    (lm.batched_program)."""
+    return batched_program((poses, table), config, linear_solver,
+                           build=build_problems)
 
 
 def shard_replicas(mesh: M.Mesh, poses_b: Tensor, table_b: ConstraintTable):

@@ -20,8 +20,10 @@ replica dimension, what the reference computes as a `vmap` of `solve`
 (parallel/replicas.py): every replica keeps its own damping, iteration count
 and exit, and a step updates the state of the replicas that are still
 active (not done, under the iteration cap) only. The whole batch stays in
-every step, so one batched linear solve runs a step; the loop reads one flag
-(any replica active) per step.
+every step, so one batched linear solve runs a step. Its steps are a
+`device_while` too: eagerly one host read (any replica active) a step, on
+a CUDA device a replay of a captured program (`DeviceProgram`) that reads
+nothing back.
 
 Default linear solver: the CUDA block-cyclic-reduction kernel for CUDA
 tensors (its batched route for `solve_batched`), its plain torch version for
@@ -38,7 +40,8 @@ from typing import Callable
 
 import torch
 
-from ..utils.device_loop import device_while
+from ..utils.device_loop import (DeviceProgram, ProgramCache, device_while,
+                                 replays, signature)
 from .assembly_soa import normal_equations_soa, soa_constants
 from .joint import JointProblem, normal_equations
 
@@ -210,6 +213,7 @@ def solve_batched(
     linear_solver: Callable[[Tensor, Tensor, Tensor], Tensor] | None = None,
     *,
     accepts: list | None = None,
+    eager: bool = False,
 ) -> LMResult:
     """LM of B problems at once: `problem_b` holds B problems stacked on a
     leading dimension (every tensor [B, ...]), poses0_b is [B, P, 3]. Each
@@ -218,7 +222,63 @@ def solve_batched(
     reference's `lax.while_loop` does. Returns an LMResult of [B] (and
     [B, P, 3]) tensors. A list passed as `accepts` receives each step's
     [B] accept flags, False where a replica was not active, so replica r's
-    accept sequence is the first iterations[r] entries of its column."""
+    accept sequence is the first iterations[r] entries of its column.
+
+    The steps are the body of a `device_while` over a [B] carry (x, D, U,
+    g, c, mu, nu, iterations, done, active), its condition `active.any()`
+    kept on the device. On a CUDA device a call replays the captured
+    program of its shapes, config and linear solver (one WHILE node),
+    unless `eager`; eagerly a loop that reads one flag a step. Inside a
+    LoopGraph capture `accepts` receives one [max_iterations, B] buffer
+    instead, whose first max(iterations) rows a replay writes."""
+    if replays(poses0_b, eager):
+        out, flags = batched_program((problem_b, poses0_b), config,
+                                     linear_solver).run(problem_b, poses0_b)
+        if accepts is not None:
+            accepts.extend(flags[:int(out.iterations.max())].unbind(0))
+        return out
+    return _solve_batched(problem_b, poses0_b, config, linear_solver,
+                          accepts=accepts)
+
+
+_batched_programs = ProgramCache()
+
+
+def batched_program(example: tuple, config: LMConfig = LMConfig(),
+                    linear_solver: Callable | None = None,
+                    build: Callable | None = None) -> DeviceProgram:
+    """The batched LM's program on a CUDA device for inputs shaped as
+    `example`, `config` and `linear_solver` (None: the device's default):
+    the one made before, or a new one (captured at its first run). Its
+    inputs are (problem_b, poses0_b), or with `build` (poses0_b, table_b),
+    the problems built in the graph by build(poses0_b, table_b). A run
+    returns (the LMResult, the [max_iterations, B] accept flags)."""
+    dev = (example[1] if build is None else example[0]).device
+    # resolved before the capture, which may then count its launches
+    solver = linear_solver or _default_linear_solver(dev, batched=True)
+    if build is None:
+        def fn(problem_b, poses0_b):
+            return _solve_batched_captured(problem_b, poses0_b, config,
+                                           solver)
+    else:
+        def fn(poses0_b, table_b):
+            return _solve_batched_captured(build(poses0_b, table_b),
+                                           poses0_b, config, solver)
+    key = (signature(example), config, solver, build, dev.index)
+    return _batched_programs.get(key, lambda: DeviceProgram(fn, example, dev))
+
+
+def _solve_batched_captured(problem_b, poses0_b, config, linear_solver):
+    """solve_batched's program: its result and the accept buffer."""
+    flags = []
+    out = _solve_batched(problem_b, poses0_b, config, linear_solver,
+                         accepts=flags)
+    return out, flags[0]
+
+
+def _solve_batched(problem_b, poses0_b, config, linear_solver=None, *,
+                   accepts=None) -> LMResult:
+    """solve_batched's carry form, eager or captured."""
     if linear_solver is None:
         linear_solver = _default_linear_solver(poses0_b.device, batched=True)
     assemble = _assembler(problem_b, True)
@@ -233,14 +293,21 @@ def solve_batched(
 
     D, U, g, c = assemble(poses0_b)
     c0 = c
-    x = poses0_b
+    x = poses0_b.clone()
+    c = c.clone()
     mu, nu = full(config.initial_mu), full(2.0)
     two = _scalar(2.0, poses0_b)
     third = _scalar(1.0 / 3.0, poses0_b)
     it = torch.zeros((B,), dtype=torch.int32, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     active = ~done & (it < config.max_iterations)
-    while bool(active.any()):
+    go = active.any()
+    # row s: step s's accept flags (the steps a replica was active in)
+    flags = torch.zeros((config.max_iterations, B), dtype=torch.bool,
+                        device=dev)
+    step_no = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def step_():
         diag = torch.clamp(torch.diagonal(D, dim1=-2, dim2=-1),
                            config.min_diagonal, config.max_diagonal)
         D_damped = D + rows(mu, D) * torch.diag_embed(diag)
@@ -255,12 +322,11 @@ def solve_batched(
 
         accept = (rho > 0) & torch.isfinite(c_new)
         acc = accept & active          # adopt the trial point
-        if accepts is not None:
-            accepts.append(acc)
-        x = torch.where(rows(acc, x), x_new, x)
-        D = torch.where(rows(acc, D), D_new, D)
-        U = torch.where(rows(acc, U), U_new, U)
-        g = torch.where(rows(acc, g), g_new, g)
+        flags.index_copy_(0, step_no[None], acc[None])
+        x.copy_(torch.where(rows(acc, x), x_new, x))
+        D.copy_(torch.where(rows(acc, D), D_new, D))
+        U.copy_(torch.where(rows(acc, U), U_new, U))
+        g.copy_(torch.where(rows(acc, g), g_new, g))
         c_next = torch.where(accept, c_new, c)
 
         t = 2.0 * rho - 1.0
@@ -276,11 +342,20 @@ def solve_batched(
                  <= config.parameter_tolerance
                  * (xnorm + config.parameter_tolerance))
         mdone = mu_next >= config.mu_collapse
-        c = torch.where(active, c_next, c)
-        mu = torch.where(active, mu_next, mu)
-        nu = torch.where(active, nu_next, nu)
-        done = torch.where(active, done | fdone | sdone | mdone, done)
-        it = torch.where(active, it + 1, it)
-        active = ~done & (it < config.max_iterations)
+        c.copy_(torch.where(active, c_next, c))
+        mu.copy_(torch.where(active, mu_next, mu))
+        nu.copy_(torch.where(active, nu_next, nu))
+        done.copy_(torch.where(active, done | fdone | sdone | mdone, done))
+        it.copy_(torch.where(active, it + 1, it))
+        active.copy_(~done & (it < config.max_iterations))
+        torch.any(active, out=go)
+        step_no.add_(1)
+
+    steps = device_while(go, step_, config.max_iterations)
+    if accepts is not None:
+        if steps is None:
+            accepts.append(flags)
+        else:
+            accepts.extend(flags[:steps].unbind(0))
     return LMResult(poses=x, final_cost=c, initial_cost=c0, iterations=it,
                     converged=done, final_mu=mu)

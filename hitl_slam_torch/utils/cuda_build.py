@@ -50,6 +50,7 @@ class LaunchCounter:
         self.name = name
         self._host = 0
         self._device: dict = {}
+        counters.append(self)
 
     def prepare(self, device) -> None:
         """Make the device counter for captures on `device` (a CUDA
@@ -84,6 +85,26 @@ class LaunchCounter:
         self._host = int(value)
         for c in self._device.values():
             c.zero_()
+
+
+counters: list[LaunchCounter] = []     # every counter made, in order
+
+
+def all_counters() -> list[LaunchCounter]:
+    """Every kernel's launch counter, and any other made so far. The
+    kernel wrappers' modules are imported here, so that their counters
+    exist before a capture whatever the caller imported: a wrapper first
+    imported inside a capture could not count its launches there."""
+    from ..ops import em_scan  # noqa: F401
+    from ..solver import bcr_kernel  # noqa: F401
+
+    return list(counters)
+
+
+def prepare_counters(device) -> None:
+    """Make every kernel's device counter for captures on `device`."""
+    for counter in all_counters():
+        counter.prepare(device)
 
 
 def require(kernel: str, name: str, t, shape: tuple, dtype, device,
@@ -209,6 +230,7 @@ def library() -> ctypes.CDLL:
                            ("hitl_loop_append", [vp, pp, vp]),
                            ("hitl_loop_append_while", [vp, pp, vp, vp]),
                            ("hitl_loop_graph_nodes", [vp, ull]),
+                           ("hitl_loop_node_types", [vp, ull, i]),
                            ("hitl_loop_instantiate", [vp, pp]),
                            ("hitl_loop_launch", [vp, vp]),
                            ("hitl_loop_destroy", [vp, vp])):

@@ -33,9 +33,12 @@ scripts/graph_loop_probe.py checks them on the card).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
 import time
 import warnings
+from collections import OrderedDict
+from contextlib import contextmanager
 from typing import Callable
 
 import torch
@@ -81,7 +84,8 @@ class LoopGraph:
     is the host time of the capture and instantiation, `nodes` the graph's
     nodes (those of every captured piece, each loop body once, and the
     three a loop adds: its first test, the WHILE node, the test after a
-    trip)."""
+    trip), `body_nodes` each loop's body nodes (one trip's), `pool_mib`
+    the device memory the capture reserved."""
 
     def __init__(self, fn: Callable[[], object], device, pool=None,
                  stream: torch.cuda.Stream | None = None):
@@ -91,6 +95,7 @@ class LoopGraph:
         self.stream = (torch.cuda.Stream(self.device) if stream is None
                        else stream)
         self.nodes = 0
+        self.body_nodes: list[int] = []
         self._pieces: list = []     # captured graphs: their memory stays
         self._keep: list = []       # loop flags the graph reads
         self._graph = ctypes.c_void_p()
@@ -100,6 +105,7 @@ class LoopGraph:
         self._check(self._lib.hitl_loop_graph_new(ctypes.byref(self._graph)),
                     "graph create")
         torch.cuda.synchronize(self.device)
+        reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self.stream):
@@ -119,6 +125,8 @@ class LoopGraph:
             self._graph, ctypes.byref(self._exec)), "graph instantiate")
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.pool_mib = (torch.cuda.memory_reserved(self.device)
+                         - reserved) / 2 ** 20
 
     # -- capture -----------------------------------------------------------
 
@@ -174,12 +182,25 @@ class LoopGraph:
         body()
         trips.add_(1)
         torch.logical_and(cond, trips < max_trips, out=go)
-        raw, _ = self._close()
-        self._check(self._lib.hitl_loop_append_while(
-            self._graph, ctypes.byref(self._tail), go.data_ptr(), raw),
-            "append while")
+        raw, n = self._close()
+        self.body_nodes.append(n)
+        code = self._lib.hitl_loop_append_while(
+            self._graph, ctypes.byref(self._tail), go.data_ptr(), raw)
+        if code != 0:
+            self._check(code, f"append while (the trip's nodes by type: "
+                              f"{self.node_types(raw)})")
         self.nodes += 3
         self._begin()
+
+    def node_types(self, graph) -> dict[int, int] | str:
+        """The nodes of a captured piece (a raw cudaGraph_t) by
+        cudaGraphNodeType, for an error message (the error's text if they
+        cannot be read)."""
+        counts = (ctypes.c_ulonglong * 16)()
+        code = self._lib.hitl_loop_node_types(graph, counts, 16)
+        if code != 0:
+            return self._lib.hitl_cuda_error_string(code).decode()
+        return {t: int(c) for t, c in enumerate(counts) if c}
 
     # -- replay ------------------------------------------------------------
 
@@ -194,3 +215,164 @@ class LoopGraph:
         if lib is not None and (self._exec.value or self._graph.value):
             lib.hitl_loop_destroy(self._graph, self._exec)
             self._graph = self._exec = ctypes.c_void_p()
+
+
+# -- programs: a function of static inputs, captured once ---------------------
+
+def _map(fn, tree, *rest):
+    """fn applied to each tensor of `tree` (a tensor, a tuple or list, a
+    dataclass of them, nested) and the leaves in the same places of
+    `rest`, rebuilt in tree's shape; other leaves are kept."""
+    if isinstance(tree, Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, *xs) for xs in zip(tree, *rest,
+                                                      strict=True))
+    if dataclasses.is_dataclass(tree):
+        return type(tree)(**{f.name: _map(fn, getattr(tree, f.name),
+                                          *(getattr(r, f.name) for r in rest))
+                             for f in dataclasses.fields(tree)})
+    return tree
+
+
+def static_like(tree, device):
+    """Contiguous buffers on `device` shaped as the tensors of `tree`."""
+    return _map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=device),
+                tree)
+
+
+def load_into(dst, src) -> None:
+    """Copy the tensors of `src` into the like-placed buffers of `dst`
+    (static_like's tree): device to device, or host to device; a Python
+    number fills its buffer."""
+    _map(lambda d, s: d.copy_(s) if isinstance(s, Tensor) else d.fill_(s),
+         dst, src)
+
+
+def clone_tree(tree):
+    """A copy of the tensors of `tree` that no later replay overwrites."""
+    return _map(torch.clone, tree)
+
+
+def signature(tree) -> tuple:
+    """The shapes and dtypes of `tree`'s tensors and its other leaves: what
+    a program captured for it needs of the next inputs."""
+    if isinstance(tree, Tensor):
+        return (tuple(tree.shape), tree.dtype)
+    if isinstance(tree, (tuple, list)):
+        return tuple(signature(x) for x in tree)
+    if dataclasses.is_dataclass(tree):
+        return tuple(signature(getattr(tree, f.name))
+                     for f in dataclasses.fields(tree))
+    return (tree,)
+
+
+def replays(t: Tensor, eager: bool = False) -> bool:
+    """Whether an entry point given `t` replays its program: on a CUDA
+    device, unless the caller asks for eager execution or a capture is
+    open (the entry point is then part of that capture)."""
+    return (t.device.type == "cuda" and not eager
+            and not torch.cuda.is_current_stream_capturing())
+
+
+class DeviceProgram:
+    """`fn` as a device program on a CUDA device: static input buffers
+    shaped as `example` (static_like), and `LoopGraph`s of `fn` on them,
+    each captured at its first use, all in the program's own memory pool
+    and on its own stream. A program holds one graph by `key`: the graph
+    of key None captures `fn(*inputs)`, that of any other key `fn(*inputs,
+    key)` (the cycle keeps one a correction type). `run` copies its inputs
+    into the buffers, replays a graph on the current stream, and returns a
+    copy of its outputs that later replays leave alone. Uses go one at a
+    time (`turn`), each after the last on whatever stream it ran. A failed
+    capture or replay raises; nothing runs eagerly instead.
+
+    `warm()`, if given, runs on the program's stream before a capture:
+    what a library makes at its first call on a stream (a handle, a
+    workspace) is made there, outside the graph. Each graph records its
+    capture (LoopGraph's `capture_ms`, `nodes`, `body_nodes`,
+    `pool_mib`)."""
+
+    def __init__(self, fn: Callable, example, device,
+                 warm: Callable[[], None] | None = None):
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            raise ValueError(f"a device program runs on a CUDA device, not "
+                             f"{dev}")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
+        self.fn = fn
+        self.inputs = static_like(example, dev)
+        self._warm = warm
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(dev)
+        self.graphs: dict = {}
+        self.lock = threading.Lock()
+        self._done = None     # event after the last use and its copies
+
+    def graph(self, key=None) -> LoopGraph:
+        """The graph of `key`, captured now if it is the first use."""
+        g = self.graphs.get(key)
+        if g is not None:
+            return g
+        dev = self.device
+        cuda_build.prepare_counters(dev)
+        with torch.cuda.stream(self.stream):
+            a = torch.ones((2, 2, 2), device=dev)
+            torch.bmm(a, a)
+            a[0] @ a[0]
+            if self._warm is not None:
+                self._warm()
+        args = self.inputs if key is None else (*self.inputs, key)
+        g = LoopGraph(lambda: self.fn(*args), dev, pool=self.pool,
+                      stream=self.stream)
+        self.graphs[key] = g
+        return g
+
+    def replay(self, key=None):
+        """Replay the graph of `key` on the loaded inputs (capturing it
+        first at its first use): its outputs, in the graph's memory, which
+        the next replay overwrites."""
+        g = self.graph(key)
+        g.replay()
+        return g.outputs
+
+    @contextmanager
+    def turn(self):
+        """Hold the program for one use on the current stream: after the
+        last use, whatever stream it ran on, and alone."""
+        with self.lock:
+            stream = torch.cuda.current_stream(self.device)
+            if self._done is not None:
+                stream.wait_event(self._done)
+            yield
+            self._done = torch.cuda.Event()
+            self._done.record(stream)
+
+    def run(self, *inputs, key=None):
+        """Load `inputs`, replay the graph of `key`, and return a copy of
+        its outputs."""
+        with self.turn():
+            load_into(self.inputs, inputs)
+            return clone_tree(self.replay(key))
+
+
+class ProgramCache:
+    """Programs by key, the least recently used beyond `size` dropped (each
+    holds its graphs' memory). Thread-safe."""
+
+    def __init__(self, size: int = 4):
+        self.size = size
+        self._programs: OrderedDict = OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, key, make: Callable[[], DeviceProgram]) -> DeviceProgram:
+        with self._lock:
+            prog = self._programs.pop(key, None)
+            if prog is None:
+                prog = make()
+            self._programs[key] = prog
+            while len(self._programs) > self.size:
+                self._programs.popitem(last=False)
+        return prog

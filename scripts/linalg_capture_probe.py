@@ -1,0 +1,162 @@
+"""Probe how the EnML window solve's factorizations enter a CUDA graph on
+the card.
+
+The sweep's window solve calls `torch.linalg.cholesky_ex` and
+`torch.cholesky_solve` on one [1, 3W, 3W] system a GN step and
+`torch.linalg.inv_ex` on the [3W, 3W] Hessian a node
+(models/enml/localizer.py). PyTorch may send such calls to MAGMA, which
+synchronizes with the host and cannot be captured, or to cuSOLVER and
+cuBLAS, which can; and a library may allocate scratch memory inside a
+capture (stream-ordered allocation), which puts memory-allocation nodes
+into the graph, nodes a conditional (WHILE) body or a child graph may not
+hold. For W in (10, 80) this prints, for each capture: whether it held,
+its nodes by type (0 kernel, 1 memcpy, 2 memset, 10 allocation, 11 free),
+and whether its replay is bit-equal to the eager calls:
+
+  1. each call alone, batched ([1, n, n]) and unbatched ([n, n]), the
+     three together, and cholesky_solve as the sweep runs it (two
+     triangular solves, localizer.py::cholesky_solve), on a side stream A, a side stream B, A again, and
+     the stream that ran the process's first cuSOLVER call (after one
+     eager run on the default stream);
+  2. the three calls under each preferred library ("default", "cusolver",
+     "magma") on a fresh side stream.
+
+Run on the card: `python scripts/linalg_capture_probe.py` (~30 s with the
+build of the graph helper). Prints one JSON line last; exits 1 without
+CUDA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from hitl_slam_torch.utils import cuda_build  # noqa: E402
+
+NODE_TYPES = 16
+
+
+def _system(n: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """An SPD [1, n, n] system and a [1, n, 1] right-hand side, seeded."""
+    g = torch.Generator().manual_seed(n)
+    a = torch.randn((n, n), generator=g)
+    H = (a @ a.T + n * torch.eye(n))[None].to(dev)
+    b = torch.randn((1, n, 1), generator=g).to(dev)
+    return H, b
+
+
+def _all(H, b):
+    L = torch.linalg.cholesky_ex(H)[0]
+    x = torch.cholesky_solve(b, L)
+    inv = torch.linalg.inv_ex(H[0])[0]
+    return x, inv
+
+
+CALLS = {
+    "cholesky_ex [1,n,n]": lambda H, b: torch.linalg.cholesky_ex(H)[0],
+    "cholesky_ex [n,n]": lambda H, b: torch.linalg.cholesky_ex(H[0])[0],
+    "cholesky_solve [1,n,n]": lambda H, b: torch.cholesky_solve(
+        b, torch.linalg.cholesky_ex(H)[0]),
+    "cholesky_solve [n,n]": lambda H, b: torch.cholesky_solve(
+        b[0], torch.linalg.cholesky_ex(H[0])[0]),
+    "inv_ex [n,n]": lambda H, b: torch.linalg.inv_ex(H[0])[0],
+    "all three": _all,
+    "two solve_triangular [1,n,n]": lambda H, b: _triangular(H, b),
+    "the sweep's three": lambda H, b: (
+        _triangular(H, b), torch.linalg.inv_ex(H[0])[0]),
+}
+
+
+def _triangular(H, b):
+    """cholesky_solve as the window solve runs it: two triangular solves
+    with the Cholesky factor (localizer.py::cholesky_solve)."""
+    L = torch.linalg.cholesky_ex(H)[0]
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)
+
+
+def _types(lib, g) -> dict[int, int]:
+    counts = (ctypes.c_ulonglong * NODE_TYPES)()
+    code = lib.hitl_loop_node_types(ctypes.c_void_p(g.raw_cuda_graph()),
+                                    counts, NODE_TYPES)
+    if code:
+        return {"error": code}
+    return {t: int(c) for t, c in enumerate(counts) if c}
+
+
+def _capture(lib, fn, H, b, stream) -> dict:
+    """fn(H, b) warmed on `stream`, then captured there."""
+    dev = H.device
+    want = fn(H, b)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        fn(H, b)
+    torch.cuda.synchronize(dev)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    try:
+        with torch.cuda.graph(g, stream=stream):
+            out = fn(H, b)
+    except RuntimeError as e:
+        torch.cuda.synchronize(dev)
+        return {"captured": False, "error": str(e).splitlines()[0][:160]}
+    types = _types(lib, g)
+    g.replay()
+    torch.cuda.synchronize(dev)
+    outs = out if isinstance(out, tuple) else (out,)
+    wants = want if isinstance(want, tuple) else (want,)
+    return {"captured": True, "node_types": types,
+            "replay_bit_equal": all(torch.equal(a, w)
+                                    for a, w in zip(outs, wants))}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("linalg_capture_probe: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    lib = cuda_build.library()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    print(f"[device] {smi}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}")
+    rows = {}
+    first = torch.cuda.Stream(dev)
+    for W in (10, 80):
+        H, b = _system(3 * W, dev)
+        if W == 10:
+            # the process's first cuSOLVER call, on `first`
+            with torch.cuda.stream(first):
+                _all(H, b)
+            torch.cuda.synchronize(dev)
+        _all(H, b)                     # an eager run on the default stream
+        res = {}
+        a, c = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+        for name, fn in CALLS.items():
+            for where, s in (("side A", a), ("side B", c), ("side A again", a),
+                             ("first stream", first)):
+                res[f"{name}, {where}"] = _capture(lib, fn, H, b, s)
+        prev = torch.backends.cuda.preferred_linalg_library()
+        for lib_name in ("default", "cusolver", "magma"):
+            torch.backends.cuda.preferred_linalg_library(lib_name)
+            try:
+                res[f"all three, {lib_name}, side"] = _capture(
+                    lib, _all, H, b, torch.cuda.Stream(dev))
+            finally:
+                torch.backends.cuda.preferred_linalg_library(prev)
+        for k, v in res.items():
+            print(f"[linalg] W = {W}: {k}: {v}")
+        rows[str(W)] = res
+    print(json.dumps({"linalg_capture": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -107,6 +107,21 @@ def test_launch_counter_eager_and_reset():
     assert c.count == 0
 
 
+def test_every_kernel_counter_exists_before_a_capture():
+    """In a fresh process that imported only the program layer, the
+    counters a capture prepares are every kernel wrapper's: none depends on
+    what the caller imported first."""
+    import subprocess
+
+    code = ("from hitl_slam_torch.utils import cuda_build, device_loop; "
+            "print(' '.join(c.name for c in cuda_build.all_counters()))")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
+                         capture_output=True, text=True).stdout.split()
+    assert {"em_scan", "bcr_solve", "bcr_solve_batched",
+            "bcr_solve_multi"} <= set(out)
+
+
 def test_capture_ticket_restores():
     from hitl_slam_torch.ops import em_scan as E
 

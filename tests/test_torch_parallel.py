@@ -189,3 +189,154 @@ def test_default_batched_linear_solver():
     assert _default_linear_solver("cpu", batched=True) is tridiag.bcr_solve
     assert (_default_linear_solver("cuda", batched=True)
             is bcr_kernel.bcr_solve_cuda_batched)
+
+
+# ------------------------------------------------------------ carry form
+
+def _batched_loop(problem_b, poses0_b, config, accepts):
+    """solve_batched as its step loop was before the carry form (a host
+    read of `active.any()` a step)."""
+    from hitl_slam_torch.solver import lm as L, tridiag
+
+    assemble = L._assembler(problem_b, True)
+    B = poses0_b.shape[0]
+
+    def full(v):
+        return torch.full((B,), v, dtype=poses0_b.dtype)
+
+    def rows(m, x):
+        return m.reshape(B, *([1] * (x.dim() - 1)))
+
+    D, U, g, c = assemble(poses0_b)
+    c0, x = c, poses0_b
+    mu, nu = full(config.initial_mu), full(2.0)
+    two = torch.full((), 2.0)
+    third = torch.full((), 1.0 / 3.0)
+    it = torch.zeros((B,), dtype=torch.int32)
+    done = torch.zeros((B,), dtype=torch.bool)
+    active = ~done & (it < config.max_iterations)
+    while bool(active.any()):
+        diag = torch.clamp(torch.diagonal(D, dim1=-2, dim2=-1),
+                           config.min_diagonal, config.max_diagonal)
+        D_damped = D + rows(mu, D) * torch.diag_embed(diag)
+        step = tridiag.bcr_solve(D_damped, U, -g)
+        x_new = x + step
+        D_new, U_new, g_new, c_new = assemble(x_new)
+        pred = 0.5 * torch.sum(
+            (step * (rows(mu, step) * diag * step - g)).flatten(-2), dim=-1)
+        rho = (c - c_new) / torch.clamp(pred, min=1e-30)
+        accept = (rho > 0) & torch.isfinite(c_new)
+        acc = accept & active
+        accepts.append(acc)
+        x = torch.where(rows(acc, x), x_new, x)
+        D = torch.where(rows(acc, D), D_new, D)
+        U = torch.where(rows(acc, U), U_new, U)
+        g = torch.where(rows(acc, g), g_new, g)
+        c_next = torch.where(accept, c_new, c)
+        tt = 2.0 * rho - 1.0
+        factor = torch.maximum(third, 1.0 - tt * (tt * tt))
+        mu_next = torch.clamp(torch.where(accept, mu * factor, mu * nu),
+                              1e-32, 1e32)
+        nu_next = torch.where(accept, two, nu * 2.0)
+        fdone = accept & (torch.abs(c - c_new)
+                          <= config.function_tolerance * c)
+        xnorm = torch.sqrt(torch.sum((x * x).flatten(-2), dim=-1))
+        sdone = (torch.sqrt(torch.sum((step * step).flatten(-2), dim=-1))
+                 <= config.parameter_tolerance
+                 * (xnorm + config.parameter_tolerance))
+        mdone = mu_next >= config.mu_collapse
+        c = torch.where(active, c_next, c)
+        mu = torch.where(active, mu_next, mu)
+        nu = torch.where(active, nu_next, nu)
+        done = torch.where(active, done | fdone | sdone | mdone, done)
+        it = torch.where(active, it + 1, it)
+        active = ~done & (it < config.max_iterations)
+    return x, c, c0, it, done, mu
+
+
+@pytest.mark.parametrize("max_iterations", [40, 4, 0])
+def test_solve_batched_carry_form_bit_equal_to_loop(replicas,
+                                                    max_iterations):
+    """The carry-form solve_batched against its step loop before (kept
+    above): poses, costs, damping, iterations, convergence and the accept
+    list bit-equal on the CPU, with an iteration cap that stops every
+    replica (4) and none (0); its host reads are device_while's exit
+    tests, one a step and the failing one."""
+    from test_torch_device_program import _HostReads
+
+    from hitl_slam_torch.parallel.replicas import (build_problems,
+                                                   make_perturbed_replicas)
+    from hitl_slam_torch.solver import lm as TL
+
+    poses, table, _, _ = replicas
+    reps, tb = make_perturbed_replicas(poses, table_to_torch(table), B)
+    prob = build_problems(reps, tb)
+    config = TL.LMConfig(max_iterations=max_iterations)
+    acc_new, acc_old = [], []
+    with _HostReads() as mode:
+        got = TL.solve_batched(prob, reps, config, accepts=acc_new)
+    x, c, c0, it, done, mu = _batched_loop(prob, reps, config, acc_old)
+    assert torch.equal(got.poses, x) and torch.equal(got.final_cost, c)
+    assert torch.equal(got.initial_cost, c0)
+    assert torch.equal(got.iterations, it) and torch.equal(got.converged,
+                                                           done)
+    assert torch.equal(got.final_mu, mu)
+    assert len(acc_new) == len(acc_old)
+    assert all(torch.equal(a, b) for a, b in zip(acc_new, acc_old))
+    steps = len(acc_old)
+    assert len(mode.reads) == steps + (steps < max_iterations)
+    assert all(inside for _, inside in mode.reads)
+
+
+def test_solve_batched_carry_form_matches_jax_at_a_cap(replicas):
+    """At a cap of 6 iterations, which stops replicas mid-descent: the
+    carry form against the JAX package's batched_solve at the same cap
+    (iteration counts and convergence equal, costs and poses within
+    test_batched_solve_matches_jax's tolerances)."""
+    from hitl_slam_torch.parallel.replicas import (batched_solve,
+                                                   make_perturbed_replicas)
+    from hitl_slam_torch.solver.lm import LMConfig
+    from hitl_slam_tpu.parallel import replicas as JR
+    from hitl_slam_tpu.solver.lm import LMConfig as JConfig
+
+    poses, table, jreps, _ = replicas
+    jout = JR.batched_solve(jnp.asarray(jreps), JR.make_perturbed_replicas(
+        poses, table, num_replicas=B)[1], JConfig(max_iterations=6))
+    jout = jax.tree_util.tree_map(np.asarray, jout)
+    reps, tb = make_perturbed_replicas(poses, table_to_torch(table), B)
+    out = batched_solve(reps, tb, LMConfig(max_iterations=6), device="cpu")
+    np.testing.assert_array_equal(n(out.iterations), jout.iterations)
+    np.testing.assert_array_equal(n(out.converged), jout.converged)
+    np.testing.assert_allclose(n(out.final_cost), jout.final_cost, rtol=1e-4)
+    np.testing.assert_allclose(n(out.poses), jout.poses, atol=1e-4)
+
+
+def test_solve_batched_step_reads_nothing_back(replicas):
+    """One step of the carry form, run as device_while's body outside the
+    loop: no read back to the host."""
+    from test_torch_device_program import _HostReads
+
+    from hitl_slam_torch.parallel.replicas import (build_problems,
+                                                   make_perturbed_replicas)
+    from hitl_slam_torch.solver import lm as TL
+    from hitl_slam_torch.utils import device_loop
+
+    poses, table, _, _ = replicas
+    reps, tb = make_perturbed_replicas(poses, table_to_torch(table), B)
+    prob = build_problems(reps, tb)
+    bodies = []
+
+    def one_trip(cond, body, max_trips):
+        bodies.append(body)
+        return 0
+
+    orig = TL.device_while
+    TL.device_while = one_trip
+    try:
+        TL.solve_batched(prob, reps, TL.LMConfig(max_iterations=5))
+    finally:
+        TL.device_while = orig
+    assert device_loop.device_while is orig and len(bodies) == 1
+    with _HostReads() as mode:
+        bodies[0]()
+    assert mode.reads == []
