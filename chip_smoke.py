@@ -19,7 +19,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      counts are zeroed just before it and checked just after
      (em_scan = 2 x cycles, bcr = LM iterations), and the run_queue's
      repaired map is phase 15's;
-  5. the post-human STF refine on the repaired 1024-pose map:
+  5. the post-human STF refine on the repaired 1024-pose map (each refine
+     and each half a replay of its device program, phase 21):
      post_optimize(matcher="auto") (accepted, cost not increased, finite,
      pose 0 unmoved, matches found, a second run bit-equal, undo() back to
      the pre-refine poses with the input history untouched), the same
@@ -125,7 +126,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      accepted, the first repetition within the loose golden of the
      sequential session), the 8192-pose joint solve alone, the 8192-pose
      session (3 cycles accepted, rows equal, the ground-truth error falls
-     and ends within 0.05 m of JAX's) with the refine at scale (PCG, cost
+     and ends within 0.05 m of JAX's) with the refine at scale (a replay
+     of its program, phase 21; PCG, cost
      falls, finite; the same refine from JAX's poses and rows within 1e-2
      of JAX's final cost), the 16384-pose session (the same gates, and its
      last cycle's cost within 5e-3 of the f64 cpu_lm_solve's) with the
@@ -141,7 +143,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      each bit-equal to a non-speculative replay on the card) and the two
      forced misses (reselect, drift: no hit, each equal to its replay),
      32 replicas of the headline's final state on the batched route, the
-     refine of that state (its final cost within 1e-2 of the f64
+     refine of that state (replays of its programs; its final cost within
+     1e-2 of the f64
      cpu_refine_solve on the same factors), EnML on the reference's
      160-scan stream, the bag's ingest (the native scanner built, both
      routes exact); each section's launches counted (em_scan = 2 x
@@ -183,16 +186,32 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      MiB (the busy share not measured); `[program]` lines and one
      `{"enml_program":
      {...}}` line;
- 21. times at the main path's shapes: each kernel by CUDA events (host
+ 21. the post-human refine as a device program (models/hitl/refine.py:
+     one CUDA graph of the match and the LM whose CG loop is a WHILE node
+     inside the LM's WHILE node, and each half a program of its own;
+     phases 5, 17 and 18 already ran them): on phase 5's repaired
+     1024-pose map (auto, which picks dense_fused, then dense, pcg and the
+     pair matcher) and phase 17's 8192-pose session state (pcg, the pair
+     matcher, the record's capacities), a replay against eager
+     post_human_refine (`eager=True`) from the same state (LM and CG
+     iterations, matches and every drop counter equal; poses and costs
+     bit-equal wherever two eager runs are, else within phase 5's pose
+     bound and phase 17's cost bound; the standard that held is printed);
+     one host read a refine and one a post_optimize (auto and pair); each
+     under torch.cuda.set_sync_debug_mode("error"); no kernel launched;
+     eager and program walls and halves, graph nodes by WHILE level,
+     capture ms, pool MiB and peak memory; `[program]` lines and one
+     `{"refine_program": {...}}` line;
+ 22. times at the main path's shapes: each kernel by CUDA events (host
      overhead included) and by torch.profiler (its own device time), its
      plain version, its bound from the shapes, and for BCR
      torch.linalg.solve on the dense system; BCR also at n = 64, 16384
      and 32768;
- 22. a `{"kernels": [...]}` line with launches (phases 17's, 18's, 19's
+ 23. a `{"kernels": [...]}` line with launches (phases 17's, 18's, 19's
      and 20's also apart), agreement, times and bounds (the batched
      route's launches from phases 15, 18 and 20, the multi route's from
      phase 16; em_scan and BCR also at phase 17's shapes);
- 23. the last line: {"ok": true, "device": {...}}.
+ 24. the last line: {"ok": true, "device": {...}}.
 
 scripts/compare_checkouts.py times two checkouts' kernels and replays
 against each other on one card with the helpers here.
@@ -770,7 +789,7 @@ def phase_refine(torch, data, entries, capacity):
           == history, "undo of the refine touched the input history")
     log("[refine] undo: pre-refine poses restored bit for bit, input "
         "history untouched")
-    return results
+    return repaired
 
 
 # ---------------------------------------------------------------- phase 6
@@ -4143,6 +4162,201 @@ def _prefix(st, K):
 
 # ---------------------------------------------------------------- phase 21
 
+# a replay of the refine's program against eager post_human_refine from the
+# same state, where two eager runs differ: poses within phase 5's PCG-
+# against-dense bound, costs within phase 17's refine cost bound
+REFINE_PROGRAM_POSE_TOL, REFINE_PROGRAM_COST_RTOL = PCG_ATOL, REFINE_COST_RTOL
+REFINE_PROGRAM_INTS = ("iterations", "cg_iterations", "num_matches",
+                       "pairs_dropped", "match_dropped", "vote_dropped",
+                       "elect_dropped")
+# the phase should finish within this many seconds
+REFINE_PROGRAM_SECONDS = 60.0
+
+
+def _refine_ints(out) -> dict:
+    return {k: None if getattr(out, k) is None else int(getattr(out, k))
+            for k in REFINE_PROGRAM_INTS}
+
+
+def _refine_floats(out) -> tuple:
+    return (out.poses, out.initial_cost, out.final_cost)
+
+
+def _refine_case(torch, name, st, kw, half_kw):
+    """post_human_refine(**kw) on `st`: eager (eager=True) twice, then the
+    program (its first call captures); the integers equal, the floats
+    bit-equal where the two eager runs are, else within the bounds; no
+    kernel launched; one host read a refine; no synchronising call under
+    sync debug mode "error"; the halves (match_factors, solve_factors with
+    `half_kw`) eager and as programs; walls, graph nodes by WHILE level,
+    capture ms, pool MiB and peak memory. Returns the row."""
+    from hitl_slam_torch.models.hitl import refine as R
+    from hitl_slam_torch.solver import bcr_kernel as B
+
+    args = (st.points, st.normals, st.point_mask, st.poses, st.constraints)
+
+    def refine(eager=False):
+        return R.post_human_refine(*args, **kw, eager=eager)
+
+    eager, eager_ms = _timed_runs(lambda: refine(eager=True), 2)
+    _sync()
+    _reset_counts()
+    if DEVICE != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rep = refine()
+    _sync()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    peak = _peak_memory_mb(torch)
+    launches = (*_read_counts(), B.batched_launches.count,
+                B.multi_launches.count)
+    check(launches == (0, 0, 0, 0),
+          f"{name}: kernel launches {launches} on a path with none")
+    ints, want = _refine_ints(rep), _refine_ints(eager[0])
+    check(ints == want and _refine_ints(eager[1]) == want,
+          f"{name}: replay integers {ints}, eager {want}")
+    check(ints["num_matches"] > 0 and ints["iterations"] > 0,
+          f"{name}: {ints}")
+    e1, e2 = _refine_floats(eager[0]), _refine_floats(eager[1])
+    got = _refine_floats(rep)
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))  # noqa
+    eager_equal, replay_equal = same(e1, e2), same(got, e1)
+    dpose = float((got[0] - e1[0]).abs().max())
+    dcost = max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+                for a, b in zip(got[1:], e1[1:]))
+    if eager_equal:
+        check(replay_equal, f"{name}: two eager runs are bit-equal, the "
+              f"replay is not (poses {dpose:.3e}, costs {dcost:.3e})")
+    else:
+        check(dpose <= REFINE_PROGRAM_POSE_TOL
+              and dcost <= REFINE_PROGRAM_COST_RTOL,
+              f"{name}: replay {dpose:.3e} / {dcost:.3e} from eager (> "
+              f"{REFINE_PROGRAM_POSE_TOL} / {REFINE_PROGRAM_COST_RTOL})")
+    check(bool(torch.isfinite(got[0]).all())
+          and float(got[2]) <= float(got[1]),
+          f"{name}: poses not finite or cost rose {float(got[1])} -> "
+          f"{float(got[2])}")
+    g = R.refine_program(*args, **kw).graph()
+    reads = _one_read(torch, name, lambda: refine().poses.cpu())
+    _no_sync(torch, name, refine)
+    program_ms = _timed_runs(refine, 3)[1]
+
+    # the halves, each eager and as its own program
+    def match(eager=False):
+        return R.match_factors(*args[:4], **half_kw["match"], eager=eager)
+
+    def solve(stf, eager=False):
+        return R.solve_factors(st.poses, st.constraints, stf,
+                               **half_kw["solve"], eager=eager)
+
+    stf = match()[0]
+    solve(stf)
+    halves = {}
+    for h, fn in (("match", lambda e: match(eager=e)),
+                  ("solve", lambda e: solve(stf, eager=e))):
+        halves[f"{h}_eager_ms"] = _timed_runs(lambda: fn(True), 2)[1]
+        halves[f"{h}_program_ms"] = _timed_runs(lambda: fn(False), 3)[1]
+    row = dict(poses=st.num_poses, points=st.max_points, **ints,
+               standard="bit-equal" if replay_equal else "tolerance",
+               eager_bit_equal=eager_equal, max_pose_diff=dpose,
+               cost_rel_diff=dcost, initial_cost=float(got[1]),
+               final_cost=float(got[2]), eager_ms=eager_ms,
+               first_call_ms=first_ms, program_ms=program_ms, **halves,
+               host_reads=reads, launches=list(launches),
+               capture_ms=g.capture_ms, graph_nodes=g.nodes,
+               loop_levels=g.levels, body_nodes=g.body_nodes,
+               level_nodes=g.level_nodes, pool_mib=g.pool_mib,
+               peak_mib=peak)
+    log(f"[program] refine {name} ({st.num_poses} poses x "
+        f"{st.max_points} points): replay {row['standard']} to eager "
+        f"(poses {dpose:.1e}, costs {dcost:.1e}, eager runs bit-equal "
+        f"{eager_equal}); LM {ints['iterations']}, CG "
+        f"{ints['cg_iterations']}, matches {ints['num_matches']}, dropped "
+        f"match {ints['match_dropped']} pairs {ints['pairs_dropped']} vote "
+        f"{ints['vote_dropped']} elect {ints['elect_dropped']}; "
+        f"{eager_ms:.2f} ms eager, {program_ms:.2f} ms program (first call "
+        f"{first_ms:.1f} ms); match {halves['match_eager_ms']:.2f} / "
+        f"{halves['match_program_ms']:.2f} ms, solve "
+        f"{halves['solve_eager_ms']:.2f} / {halves['solve_program_ms']:.2f}"
+        f" ms (eager / program); host reads {reads['total']}; launches "
+        f"{launches}; capture {g.capture_ms:.1f} ms, {g.nodes} graph nodes, "
+        f"nodes by WHILE level {g.level_nodes}, loops' levels {g.levels}, "
+        f"pool {g.pool_mib:.1f} MiB, peak {peak:.0f} MiB")
+    return row
+
+
+def _post_optimize_reads(torch, repaired) -> dict:
+    """post_optimize on a fresh engine at `repaired`: one host read with
+    the global matcher's matches (auto) and with the pair matcher."""
+    from hitl_slam_torch.models.hitl.engine import HitLSLAM
+
+    out = {}
+    for matcher in ("auto", "pair"):
+        eng = HitLSLAM(device=DEVICE)
+        eng.init_from_state(repaired)
+        eng.post_optimize(matcher=matcher)       # captures
+        reads = _dispatched_reads(torch, lambda: out.__setitem__(
+            matcher, eng.post_optimize(matcher=matcher)))
+        rep = out[matcher]
+        check(reads["total"] == 1 and rep.accepted,
+              f"post_optimize({matcher}): {reads} host reads, not one")
+        out[matcher] = dict(reads=reads, reason=rep.reason,
+                            lm_iterations=rep.lm_iterations)
+    log(f"[program] post_optimize on the repaired map: host reads "
+        + "; ".join(f"{m} {r['reads']['total']} ({r['reason']})"
+                    for m, r in out.items()))
+    return out
+
+
+def phase_refine_program(torch, smi, repaired, s8192):
+    """The post-human refine as a device program (models/hitl/refine.py:
+    one CUDA graph of the match and the LM, the CG loop a WHILE node
+    inside the LM's; phases 5, 17 and 18 already ran it): phase 5's
+    repaired 1024-pose map (auto, which picks dense_fused, then dense, pcg
+    and the pair matcher) and phase 17's 8192-pose session state (pcg, the
+    pair matcher, the record's capacities), each replay against eager, its
+    host reads and sync, its halves; post_optimize's host reads. Returns
+    the record."""
+    from hitl_slam_torch import bench_sessions as S
+    from hitl_slam_torch.solver.lm import LMConfig
+
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    cfg = LMConfig(max_iterations=30)
+    cases = {}
+    for name, kw in (("dense_fused", dict(config=cfg)),
+                     ("dense", dict(config=cfg, solver="dense")),
+                     ("pcg", dict(config=cfg, solver="pcg")),
+                     ("pair", dict(config=cfg, matcher="pair"))):
+        half = dict(match=dict(matcher=kw.get("matcher", "global"),
+                               capacity=65536, max_pairs=8192, bucket=64,
+                               max_cells=None),
+                    solve=dict(config=cfg, include_chain=True,
+                               solver=kw.get("solver", "auto"),
+                               max_pairs=8192))
+        cases[f"1024_{name}"] = _refine_case(torch, f"1024 {name}", repaired,
+                                             kw, half)
+    big = S.REFINE_AT_SCALE
+    cfg8 = LMConfig(max_iterations=big["max_iterations"])
+    kw = dict(capacity=big["capacity"], config=cfg8, matcher=big["matcher"],
+              max_pairs=big["max_pairs"])
+    half = dict(match=dict(matcher=big["matcher"], capacity=big["capacity"],
+                           max_pairs=big["max_pairs"], bucket=64,
+                           max_cells=None),
+                solve=dict(config=cfg8, include_chain=True, solver="auto",
+                           max_pairs=big["max_pairs"]))
+    cases["8192_pair_pcg"] = _refine_case(torch, "8192 pair pcg", s8192, kw,
+                                          half)
+    out["cases"] = cases
+    out["post_optimize"] = _post_optimize_reads(torch, repaired)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[program] refine programs: {out['seconds']:.1f} s (budget "
+        f"{REFINE_PROGRAM_SECONDS:.0f} s)")
+    return out
+
+
+# ---------------------------------------------------------------- phase 22
+
 def phase_times(torch, state, log_entries):
     """Each kernel at the main path's shapes (em_scan on the golden_large
     map, BCR at its 1024 poses), beside its plain version, its bound and
@@ -4253,7 +4467,7 @@ def main() -> int:
                                          large_log)
     check(n_em > 0 and n_bcr > 0, "a kernel was not launched on the main path")
     # ---- 5. the refine ----
-    phase_refine(torch, large, large_log, 16384)
+    refine_map = phase_refine(torch, large, large_log, 16384)
     # ---- 6. one speculative correction ----
     s_em, s_bcr = phase_speculative(torch, large, large_log[0], 16384)
     n_em, n_bcr = n_em + s_em, n_bcr + s_bcr
@@ -4305,6 +4519,7 @@ def main() -> int:
     # ---- 19. the cycle as a device program ----
     program, p_em, p_bcr = phase_program(torch, smi, large, large_log,
                                          sections)
+    s8192 = sections["scale_8192"]["_session"]["engine"].state
     del sections
     print(json.dumps({"program": program}), flush=True)
     # ---- 20. EnML and the replica LM as device programs ----
@@ -4312,10 +4527,14 @@ def main() -> int:
                                                  scale_state, repaired)
     del scale_state
     print(json.dumps({"enml_program": enml_program}), flush=True)
+    # ---- 21. the refine as a device program ----
+    refine_program = phase_refine_program(torch, smi, refine_map, s8192)
+    del s8192
+    print(json.dumps({"refine_program": refine_program}), flush=True)
     log(smi)
-    # ---- 21. times ----
+    # ---- 22. times ----
     times = phase_times(torch, state, large_log)
-    # ---- 22. kernels line ----
+    # ---- 23. kernels line ----
     kernels = [
         {"name": "em_scan", "route": "cuda",
          "source": "hitl_slam_torch/csrc/em_scan.cu",
@@ -4354,7 +4573,7 @@ def main() -> int:
     ]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    # ---- 23. contract line ----
+    # ---- 24. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -120,22 +120,33 @@ def refine_split(sync, state, matcher: str, max_iterations: int,
                  solver: str = "auto") -> dict:
     """The refine as its two halves, timed apart: what
     refine.post_human_refine does at its default capacities, with a
-    synchronise (`sync()`) after the match. The refined poses come back
-    under "poses"."""
+    synchronise (`sync()`) after the match. On a card each half is a
+    replay of its device program, captured by an untimed first run. The
+    refined poses come back under "poses"."""
     from .models.hitl import refine as R
     from .solver.lm import LMConfig
+    from .utils.device_loop import replays
 
     st = state
+    config = LMConfig(max_iterations=max_iterations)
+
+    def match():
+        return R.match_factors(st.points, st.normals, st.point_mask,
+                               st.poses, matcher, capacity=65536,
+                               max_pairs=8192, bucket=64, max_cells=None)
+
+    def solve(stf):
+        return R.solve_factors(st.poses, st.constraints, stf, config, True,
+                               solver, 8192)
+
+    if replays(st.poses):
+        solve(match()[0])
     sync()
     t0 = time.perf_counter()
-    stf, match_dropped, vote_dropped, elect_dropped = R.match_factors(
-        st.points, st.normals, st.point_mask, st.poses, matcher,
-        capacity=65536, max_pairs=8192, bucket=64, max_cells=None)
+    stf, match_dropped, vote_dropped, elect_dropped = match()
     sync()
     t1 = time.perf_counter()
-    out = R.solve_factors(st.poses, st.constraints, stf,
-                          LMConfig(max_iterations=max_iterations), True,
-                          solver, 8192)
+    out = solve(stf)
     sync()
     t2 = time.perf_counter()
 
@@ -146,7 +157,7 @@ def refine_split(sync, state, matcher: str, max_iterations: int,
         "matcher": matcher, "solver": solver,
         "match_ms": (t1 - t0) * 1e3, "solve_ms": (t2 - t1) * 1e3,
         "lm_iterations": int(out.iterations),
-        "cg_iterations": out.cg_iterations,
+        "cg_iterations": count(out.cg_iterations),
         "num_matches": int(out.num_matches),
         "initial_cost": float(out.initial_cost),
         "final_cost": float(out.final_cost),

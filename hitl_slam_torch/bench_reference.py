@@ -325,8 +325,8 @@ def headline_refine_section(device, state) -> dict:
     solve took them, `_f64_poses` its poses, `_run` reruns the timed
     refine, `_inputs` are its input tensors."""
     from .baselines.cpu_refine import cpu_refine_solve, stf_to_numpy
-    from .models.hitl.refine import match_factors_global, post_human_refine
-    from .solver.stf_solve import stf_lm_solve
+    from .models.hitl.refine import (match_factors, post_human_refine,
+                                     solve_factors)
 
     sync = S.synchronizer(device)
     st = state
@@ -340,12 +340,12 @@ def headline_refine_section(device, state) -> dict:
         return out
 
     def match(points):
-        return match_factors_global(points, st.normals, st.point_mask,
-                                    st.poses, capacity=REFINE_CAPACITY)[0]
+        return match_factors(points, st.normals, st.point_mask, st.poses,
+                             "global", REFINE_CAPACITY, 8192, 64, None)[0]
 
     def solve(poses, stf):
-        out = stf_lm_solve(poses, st.constraints, stf, config=REFINE_CONFIG,
-                           fused_eval=True)
+        out = solve_factors(poses, st.constraints, stf, REFINE_CONFIG, True,
+                            "dense_fused", 8192)
         float(out.final_cost)
         return out
 

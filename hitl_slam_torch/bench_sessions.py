@@ -46,6 +46,7 @@ from .core.state import ConstraintTable, CorrectionType, SingleInput
 from .io.figure8 import generate_figure8, synthesize_correction
 from .models.hitl.engine import HitLSLAM
 from .solver import joint, lm
+from .utils.device_loop import replays
 
 HEADLINE_MAP = dict(num_poses=1024, num_rays=180, seed=7,
                     drift_theta_bias=6e-4, num_laps=2)
@@ -599,7 +600,8 @@ def refine_at_scale(device, state) -> dict:
     solver `auto` picks (PCG above refine.DENSE_POSE_LIMIT poses): one warm
     run, then two timed runs (points moved by 1e-6 (k + 1)), the minimum
     and both samples; then its two halves timed apart (the pair
-    match, then the LM over its factors); matches, the drop counters,
+    match, then the LM over its factors; on a card each a replay of its
+    program, captured by an untimed first run); matches, the drop counters,
     iterations and costs of the untimed run. `_poses`: its refined
     poses; `_run` reruns one timed refine, `_inputs` are its input
     tensors."""
@@ -624,16 +626,25 @@ def refine_at_scale(device, state) -> dict:
                                 **kw)
         float(o.final_cost)
         times.append((time.perf_counter() - t0) * 1e3)
+
+    def match():
+        return R.match_factors(st.points, st.normals, st.point_mask,
+                               st.poses, REFINE_AT_SCALE["matcher"],
+                               REFINE_AT_SCALE["capacity"],
+                               REFINE_AT_SCALE["max_pairs"], 64, None)[0]
+
+    def solve(stf):
+        return R.solve_factors(st.poses, st.constraints, stf, cfg, True,
+                               "auto", REFINE_AT_SCALE["max_pairs"])
+
+    if replays(st.poses):
+        solve(match())
     sync()
     t0 = time.perf_counter()
-    stf, *_ = R.match_factors(st.points, st.normals, st.point_mask, st.poses,
-                              REFINE_AT_SCALE["matcher"],
-                              REFINE_AT_SCALE["capacity"],
-                              REFINE_AT_SCALE["max_pairs"], 64, None)
+    stf = match()
     sync()
     t1 = time.perf_counter()
-    R.solve_factors(st.poses, st.constraints, stf, cfg, True, "auto",
-                    REFINE_AT_SCALE["max_pairs"])
+    solve(stf)
     sync()
     t2 = time.perf_counter()
 

@@ -4,12 +4,14 @@
 // A LoopGraph is a chain of nodes. Straight-line work enters it as a child
 // graph node (a copy of a graph PyTorch captured); a loop as a one-thread
 // kernel node that copies a device bool into a conditional handle (the test
-// before the first trip), then a conditional node of type WHILE whose body
-// is a child graph node (the trip, also captured by PyTorch) followed by the
-// same one-thread kernel (the test before the next trip). The WHILE node
-// runs its body while the handle holds a nonzero value, so a replay decides
-// every trip on the device and reads nothing back, as the reference's
-// lax.while_loop does. Returns are CUDA error codes.
+// before the first trip), then a conditional node of type WHILE. The WHILE
+// node's body graph is a chain of its own: the trip's pieces as child graph
+// nodes, any loop inside the trip as the same pair of nodes (its handle
+// made on the body graph that holds it), and last the same one-thread
+// kernel (the test before the next trip). The WHILE node runs its body
+// while the handle holds a nonzero value, so a replay decides every trip on
+// the device and reads nothing back, as the reference's lax.while_loop
+// does. Returns are CUDA error codes.
 
 #include <cuda_runtime.h>
 
@@ -57,23 +59,26 @@ extern "C" int hitl_loop_append(void* graph, void** tail, void* piece) {
   return static_cast<int>(err);
 }
 
-// Append a loop after *tail: while the device bool at `flag` holds, run a
-// copy of the captured graph `body` (which recomputes the bool). *tail
-// becomes the WHILE node.
-extern "C" int hitl_loop_append_while(void* graph, void** tail,
-                                      const void* flag, void* body) {
+// Append a loop after *tail in `graph` (the top graph or a loop's body):
+// while the device bool at `flag` holds, run the body graph returned in
+// *body, which the caller fills (hitl_loop_append, hitl_loop_add_while)
+// and then closes with hitl_loop_close_body. *tail becomes the WHILE node;
+// *handle is its conditional handle, made on `graph`.
+extern "C" int hitl_loop_add_while(void* graph, void** tail, const void* flag,
+                                   void** body,
+                                   unsigned long long* handle) {
   cudaGraph_t g = static_cast<cudaGraph_t>(graph);
-  const bool* f = static_cast<const bool*>(flag);
-  cudaGraphConditionalHandle handle;
-  cudaError_t err = cudaGraphConditionalHandleCreate(&handle, g, 0, 0);
+  cudaGraphConditionalHandle h;
+  cudaError_t err = cudaGraphConditionalHandleCreate(&h, g, 0, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaGraphNode_t first;
-  err = add_test(g, static_cast<cudaGraphNode_t>(*tail), handle, f, &first);
+  err = add_test(g, static_cast<cudaGraphNode_t>(*tail), h,
+                 static_cast<const bool*>(flag), &first);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   cudaGraphNodeParams p = {};
   p.type = cudaGraphNodeTypeConditional;
-  p.conditional.handle = handle;
+  p.conditional.handle = h;
   p.conditional.type = cudaGraphCondTypeWhile;
   p.conditional.size = 1;
   cudaGraphNode_t loop;
@@ -83,15 +88,22 @@ extern "C" int hitl_loop_append_while(void* graph, void** tail,
   err = cudaGraphAddNode(&loop, g, &first, 1, &p);
 #endif
   if (err != cudaSuccess) return static_cast<int>(err);
+  *body = p.conditional.phGraph_out[0];
+  *handle = h;
+  *tail = loop;
+  return 0;
+}
 
-  cudaGraph_t inner = p.conditional.phGraph_out[0];
-  cudaGraphNode_t trip, next;
-  err = cudaGraphAddChildGraphNode(&trip, inner, nullptr, 0,
-                                   static_cast<cudaGraph_t>(body));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = add_test(inner, trip, handle, f, &next);
-  if (err == cudaSuccess) *tail = loop;
-  return static_cast<int>(err);
+// End a loop's body graph (its last node `tail`, null when it has none):
+// the test of `flag` into `handle` before the next trip.
+extern "C" int hitl_loop_close_body(void* body, void* tail,
+                                    unsigned long long handle,
+                                    const void* flag) {
+  cudaGraphNode_t next;
+  return static_cast<int>(add_test(static_cast<cudaGraph_t>(body),
+                                   static_cast<cudaGraphNode_t>(tail),
+                                   handle, static_cast<const bool*>(flag),
+                                   &next));
 }
 
 // Nodes of a graph, not counting inside child graphs.

@@ -379,7 +379,12 @@ class HitLSLAM:
         matcher="auto": try the global 1-NN grid first; if every bundle dies
         at the >= 10-per-pair gate (the fragmentation mode of heavily
         re-traversed maps), run again with the per-pair matcher.
-        "global"/"pair" force one path."""
+        "global"/"pair" force one path.
+
+        On a card each refine is a replay of its device program
+        (refine.post_human_refine), and the report's scalars, the match
+        count that decides the fallback among them, come back in one host
+        read: one read a call, two when the pair matcher runs again."""
         from .refine import post_human_refine
 
         self._discard_speculative()
@@ -388,31 +393,34 @@ class HitLSLAM:
         self.prev_covariances = st.covariances
         self.prev_num_constraints = self.num_constraints
         cfg = LMConfig(max_iterations=max_iterations)
-        used = "pair" if matcher == "pair" else "global"
-        out = post_human_refine(
-            st.points, st.normals, st.point_mask, st.poses, st.constraints,
-            config=cfg, matcher=used,
-        )
-        if matcher == "auto" and int(out.num_matches) == 0:
-            used = "pair"
+
+        def refine(used):
             out = post_human_refine(
                 st.points, st.normals, st.point_mask, st.poses,
                 st.constraints, config=cfg, matcher=used,
             )
+            labels = [("pairs_dropped", out.pairs_dropped),
+                      ("vote_dropped", out.vote_dropped),
+                      ("elect_dropped", out.elect_dropped)]
+            labels = [(k, v) for k, v in labels if v is not None]
+            scalars = _read_scalars(
+                out.num_matches, out.iterations, out.initial_cost,
+                out.final_cost, out.match_dropped, *[v for _, v in labels])
+            return out, [k for k, _ in labels], scalars
+
+        used = "pair" if matcher == "pair" else "global"
+        out, labels, scalars = refine(used)
+        if matcher == "auto" and scalars[0] == 0:
+            used = "pair"
+            out, labels, scalars = refine(used)
         self.state = st.replace(poses=out.poses)
         # the prev_* snapshot now belongs to this refine: undo reverts it
         # without marking the last human input undone
         self._undo_is_refine = True
-        labels = [("pairs_dropped", out.pairs_dropped),
-                  ("vote_dropped", out.vote_dropped),
-                  ("elect_dropped", out.elect_dropped)]
-        labels = [(k, v) for k, v in labels if v is not None]
-        lm_it, c0, c1, match_dropped, *drops = _read_scalars(
-            out.iterations, out.initial_cost, out.final_cost,
-            out.match_dropped, *[v for _, v in labels])
+        _, lm_it, c0, c1, match_dropped, *drops = scalars
         # capacity violations beyond lost rows surface in the reason text
         extra = "".join(f", {k}={int(v)}"
-                        for (k, _), v in zip(labels, drops) if int(v) > 0)
+                        for k, v in zip(labels, drops) if int(v) > 0)
         return CycleReport(
             True, reason=f"post-human STF refinement ({used} matcher{extra})",
             lm_iterations=int(lm_it), initial_cost=c0, final_cost=c1,

@@ -106,6 +106,20 @@ def _preshuffle(M: int) -> np.ndarray:
         kind="stable")
 
 
+def preshuffle_on(M: int, device) -> Tensor:
+    """_preshuffle(M) on `device`, copied there once (a device program
+    calls this before its capture, which cannot copy from the host)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _preshuffle_on(M, dev)
+
+
+@functools.lru_cache(maxsize=8)
+def _preshuffle_on(M: int, dev: torch.device) -> Tensor:
+    return torch.as_tensor(_preshuffle(M), device=dev)
+
+
 def grid_match(
     world_pts: Tensor,     # [P, N, 2]
     world_nrm: Tensor,     # [P, N, 2]
@@ -156,7 +170,7 @@ def grid_match(
     key = torch.where(binnable, ix * SPAN + iy, _INT32_MAX)   # masked -> end
 
     pos = torch.arange(M, device=dev)
-    perm = torch.as_tensor(_preshuffle(M), device=dev)
+    perm = preshuffle_on(M, dev)
     order = perm[torch.argsort(key[perm], stable=True)]   # stable in cells
     skey = key[order]
     is_real = skey != _INT32_MAX
@@ -198,9 +212,9 @@ def grid_match(
     # reduction: push them out of range
     q_rel = torch.where(occ[:, :, None], p_tab - center[:, None, :], 1e3)
 
-    t2 = torch.tensor(threshold * threshold, dtype=dtype, device=dev)
-    cmin = torch.tensor(min_cos, dtype=dtype, device=dev)
-    inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    t2 = torch.full((), threshold * threshold, dtype=dtype, device=dev)
+    cmin = torch.full((), min_cos, dtype=dtype, device=dev)
+    inf = torch.full((), float("inf"), dtype=dtype, device=dev)
     # one dump row at index max_cells absorbs the reverse-side updates of
     # queries with no such neighbour; nothing reads it back
     best_d2 = torch.full((max_cells + 1, bucket), float("inf"), dtype=dtype,
@@ -534,9 +548,9 @@ def pair_match_factors(
     pairs_overflow = torch.clamp(n_voted - k, min=0)
 
     # ---- stage 2: dense per-pair NN ---------------------------------------
-    t2 = torch.tensor(threshold * threshold, dtype=dtype, device=dev)
-    cmin = torch.tensor(min_cos, dtype=dtype, device=dev)
-    inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    t2 = torch.full((), threshold * threshold, dtype=dtype, device=dev)
+    cmin = torch.full((), min_cos, dtype=dtype, device=dev)
+    inf = torch.full((), float("inf"), dtype=dtype, device=dev)
     col = torch.arange(N, device=dev)
     tgts, ok_rows = [], []
     for lo in range(0, max_pairs, pair_chunk):

@@ -299,8 +299,13 @@ def compact_human_factors(f: HumanFactors, poses0: Tensor,
     """Reduce the [C]-row factor table to CompactHuman at poses0.
 
     With `onehot` ([C, P]) the table -> pose reduction is one matmul, whose
-    sum order does not depend on the run; without it, an index_add_, which
-    on CUDA sums colliding rows with atomics in a run-dependent order.
+    sum order does not depend on the run; without it, an accumulating
+    index_put_, which on CUDA sorts the rows by pose before it sums them,
+    so its order is fixed too (an index_add_ there sums colliding rows
+    with atomics in a run-dependent order, and two solves of one problem
+    could differ). Inactive rows (all zero) go to dump rows of their own:
+    the sorted sum adds a run of rows one after another, and the unused
+    rows of a large table would make one long run at pose 0.
     """
     P = poses0.shape[0]
     idx = f.pose_idx.long()
@@ -311,10 +316,15 @@ def compact_human_factors(f: HumanFactors, poses0: Tensor,
         A = (onehot.T @ MTM.reshape(-1, 9)).reshape(P, 3, 3)
         c = onehot.T @ MTd
     else:
-        A = torch.zeros((P, 3, 3), dtype=poses0.dtype,
-                        device=poses0.device).index_add_(0, idx, MTM)
-        c = torch.zeros((P, 3), dtype=poses0.dtype,
-                        device=poses0.device).index_add_(0, idx, MTd)
+        C = idx.shape[0]
+        dst = torch.where(f.active, idx,
+                          P + torch.arange(C, device=poses0.device))
+        Y = torch.zeros((P + C, 12), dtype=poses0.dtype,
+                        device=poses0.device).index_put_(
+            (dst,), torch.cat([MTM.reshape(-1, 9), MTd], 1),
+            accumulate=True)[:P]
+        A = Y[:, :9].reshape(P, 3, 3)
+        c = Y[:, 9:]
     k = torch.sum(d * d)
     return CompactHuman(q0=poses0, A=A, c=c, k=k)
 

@@ -7,8 +7,10 @@ optional callable for further terms (the STF pair blocks of
 solver/stf_solve.py). Two preconditioners: the closed-form 3x3 block-diagonal
 inverse, or an exact solve of the block-tridiagonal part (factored once per
 linear solve by `bcr_factor`, applied once per iteration by `bcr_apply`).
-The reference's `lax.while_loop` becomes a Python loop that reads the
-relative residual from the device once per iteration.
+The reference's `lax.while_loop` becomes a `device_while` over a carry of
+buffers (utils/device_loop.py): eagerly one host read of the relative
+residual test an iteration, inside a LoopGraph capture a WHILE node (inside
+the LM loop's, for the STF refine of solver/stf_solve.py).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Callable
 
 import torch
 
+from ..utils.device_loop import device_while
 from .tridiag import _mv, bcr_apply, bcr_factor, inv3
 
 Tensor = torch.Tensor
@@ -40,9 +43,9 @@ def pcg_solve(
     tolerance: float = 1e-6,
     x0: Tensor | None = None,
     preconditioner: str = "jacobi",
-) -> tuple[Tensor, Tensor, int]:
+) -> tuple[Tensor, Tensor, Tensor]:
     """Solve (H_tridiag + extra) x = b. Returns (x, final relative
-    residual, iterations).
+    residual, iterations: a 0-dim int32 tensor).
 
     preconditioner:
       - "jacobi": closed-form 3x3 block-diagonal inverse.
@@ -68,26 +71,28 @@ def pcg_solve(
     else:
         raise ValueError(f"unknown preconditioner {preconditioner!r}")
 
-    x = torch.zeros_like(b) if x0 is None else x0
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
     r = b - A(x)
-    z = prec(r)
-    p = z
-    rz = torch.sum(r * z)
+    p = prec(r)
+    rz = torch.sum(r * p)
     b_norm = torch.clamp(torch.linalg.vector_norm(b), min=1e-30)
+    it = torch.zeros((), dtype=torch.int32, device=b.device)
+    go = torch.linalg.vector_norm(r) / b_norm > tolerance
 
-    it = 0
-    while it < max_iterations and bool(
-            torch.linalg.vector_norm(r) / b_norm > tolerance):
+    def iteration():
         Ap = A(p)
         alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-30)
-        x = x + alpha * p
-        r = r - alpha * Ap
+        x.copy_(x + alpha * p)
+        r.copy_(r - alpha * Ap)
         z = prec(r)
         rz_new = torch.sum(r * z)
         beta = rz_new / torch.clamp(rz, min=1e-30)
-        p = z + beta * p
-        rz = rz_new
-        it += 1
+        p.copy_(z + beta * p)
+        rz.copy_(rz_new)
+        it.add_(1)
+        torch.gt(torch.linalg.vector_norm(r) / b_norm, tolerance, out=go)
+
+    device_while(go, iteration, max_iterations)
     return x, torch.linalg.vector_norm(r) / b_norm, it
 
 

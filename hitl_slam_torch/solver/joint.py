@@ -17,7 +17,8 @@ from ..ops import residuals as res
 
 Tensor = torch.Tensor
 
-# max elements of the dense [C, P] selector before falling back to index_add_
+# max elements of the dense [C, P] selector before falling back to a
+# scatter-add (an accumulating index_put_)
 ONEHOT_BUDGET = 64 * 1024 * 1024
 
 
@@ -37,14 +38,14 @@ def build_problem(poses: Tensor, table: ConstraintTable,
                   odom_inv_sigma: Tensor | None = None) -> JointProblem:
     """`odom_inv_sigma` [P-1, 3] replaces the fixed odometry noise by
     per-factor inverse standard deviations. `use_onehot=False` reduces the
-    human table to poses by index_add_ at every size."""
+    human table to poses by the scatter-add at every size."""
     P = poses.shape[0]
     human = res.build_human_factors(poses, table)
     C = human.pose_idx.shape[0]
     onehot = None
-    # the dense selector makes the table -> pose reduction a matmul with a
-    # fixed sum order (index_add_ on CUDA sums with atomics); past the
-    # budget the selector's memory outweighs that
+    # the dense selector makes the table -> pose reduction a matmul; past
+    # the budget its memory outweighs that, and the scatter-add, whose sum
+    # order is fixed too, takes over
     if use_onehot and P * C <= ONEHOT_BUDGET:
         onehot = (human.pose_idx.long()[:, None]
                   == torch.arange(P, device=poses.device)[None, :]

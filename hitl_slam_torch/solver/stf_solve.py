@@ -16,9 +16,15 @@ By default the solve includes odometry + human + STF factors;
 
 Every reduction has a fixed summation order: per-pose sums are matmuls with
 one-hot selectors or segmented sums over sorted runs, and every scatter has
-unique targets, so two runs on the same inputs give bit-equal results. The
-LM loops run on the host and read the loop flags from the device once per
-iteration.
+unique targets, so two runs on the same inputs give bit-equal results.
+
+Each LM loop is the reference's `lax.while_loop` in carry form: a
+`device_while` (utils/device_loop.py) whose body updates buffers made
+before it with `copy_`, and the reassembly after an accepted step, the
+reference's `lax.cond`, is a `device_while` of at most one trip. Eagerly
+that is one host read a test; inside a LoopGraph capture each loop is a
+WHILE node (the PCG solve's CG loop one inside the LM loop's body), and
+nothing is read back.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 
 from ..core.state import ConstraintTable
 from ..ops import correspond as C
+from ..utils.device_loop import device_while
 from .assembly_soa import SoaConstants, normal_equations_soa, soa_constants
 from .cg import pcg_solve
 from .joint import JointProblem, build_problem, cost as chain_cost
@@ -315,8 +322,9 @@ class STFSolveResult:
     # pair matcher only: voted pose pairs beyond the election capacity
     # (units: pairs, each worth up to N rows)
     elect_dropped: Tensor | None = None
-    # linear-solver iterations summed over the LM iterations (PCG solver)
-    cg_iterations: int | None = None
+    # linear-solver iterations summed over the LM iterations (PCG solver;
+    # a 0-dim int32 tensor)
+    cg_iterations: Tensor | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -465,11 +473,6 @@ def _mnt_updates(config: LMConfig, c, c_new, step, diag, g, mu, nu, x):
     return accept, mu_out, nu_out, fdone | sdone | mdone
 
 
-def _read_flags(*flags: Tensor) -> list[bool]:
-    """One device -> host read for a few boolean scalars."""
-    return torch.stack(flags).tolist()
-
-
 def stf_pcg_lm_solve(
     poses0: Tensor,
     table: ConstraintTable,
@@ -524,14 +527,23 @@ def stf_pcg_lm_solve(
 
     if cg_max_iterations is None:
         cg_max_iterations = 64 if precondition == "tridiag" else 200
-    c = c0 = cost_only(poses0)
-    x = poses0
-    D_aug, U, g_tot, B = assemble_all(poses0)
-    mu = torch.tensor(config.initial_mu, dtype=dtype, device=dev)
-    nu = torch.tensor(2.0, dtype=dtype, device=dev)
-    it = cg_total = 0
-    done = False
-    while it < config.max_iterations and not done:
+    c0 = cost_only(poses0)
+    c = c0.clone()
+    x = poses0.clone()
+    system = assemble_all(poses0)
+    D_aug, U, g_tot, B = system
+    mu = torch.full((), config.initial_mu, dtype=dtype, device=dev)
+    nu = torch.full((), 2.0, dtype=dtype, device=dev)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    cg_total = torch.zeros((), dtype=torch.int32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    go = ~done
+
+    def reassemble():
+        for buf, new in zip(system, assemble_all(x)):
+            buf.copy_(new)
+
+    def iteration():
         # the system is always valid at the current x: a rejected step
         # leaves x unchanged, so only mu changes and the [C]-row factor
         # pass is skipped
@@ -544,20 +556,23 @@ def stf_pcg_lm_solve(
             max_iterations=cg_max_iterations,
             tolerance=cg_tolerance, preconditioner=precondition,
         )
-        cg_total += cg_it
+        cg_total.add_(cg_it)
         x_new = x + step
         c_new = cost_only(x_new)
-        accept, mu, nu, done_new = _mnt_updates(
+        accept, mu_new, nu_new, done_new = _mnt_updates(
             config, c, c_new, step, diag, g_tot, mu, nu, x)
-        x = torch.where(accept, x_new, x)
-        c = torch.where(accept, c_new, c)
-        it += 1
-        accepted, done = _read_flags(accept, done_new)
-        if accepted and not done:
-            D_aug, U, g_tot, B = assemble_all(x)
+        x.copy_(torch.where(accept, x_new, x))
+        c.copy_(torch.where(accept, c_new, c))
+        mu.copy_(mu_new)
+        nu.copy_(nu_new)
+        it.add_(1)
+        done.copy_(done | done_new)
+        device_while(accept & ~done, reassemble, 1)
+        torch.logical_not(done, out=go)
+
+    device_while(go, iteration, config.max_iterations)
     return STFSolveResult(
-        poses=x, final_cost=c, initial_cost=c0,
-        iterations=torch.tensor(it, dtype=torch.int32, device=dev),
+        poses=x, final_cost=c, initial_cost=c0, iterations=it,
         num_matches=torch.sum(stf_s.valid).to(torch.int32),
         pairs_dropped=pairs_dropped, cg_iterations=cg_total,
     )
@@ -619,17 +634,24 @@ def stf_lm_solve(
         return step, diag
 
     if fused_eval:
-        H, g, c = assemble_cost(poses0)
+        H, g, c0 = assemble_cost(poses0)
     else:
-        c = cost_only(poses0)
+        c0 = cost_only(poses0)
         H, g, _ = assemble_cost(poses0)
-    c0 = c
-    x = poses0
-    mu = torch.tensor(config.initial_mu, dtype=dtype, device=dev)
-    nu = torch.tensor(2.0, dtype=dtype, device=dev)
-    it = 0
-    done = False
-    while it < config.max_iterations and not done:
+    c = c0.clone()
+    x = poses0.clone()
+    mu = torch.full((), config.initial_mu, dtype=dtype, device=dev)
+    nu = torch.full((), 2.0, dtype=dtype, device=dev)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    go = ~done
+
+    def reassemble():
+        H_new, g_new, _ = assemble_cost(x)
+        H.copy_(H_new)
+        g.copy_(g_new)
+
+    def iteration():
         # H, g are always valid at the current x: a rejected step leaves x
         # unchanged, so only mu changes
         step, diag = solve_step(H, g, mu)
@@ -639,20 +661,24 @@ def stf_lm_solve(
             H_new, g_new, c_new = assemble_cost(x_new)
         else:
             c_new = cost_only(x_new)
-        accept, mu, nu, done_new = _mnt_updates(
+        accept, mu_new, nu_new, done_new = _mnt_updates(
             config, c, c_new, step, diag, g, mu, nu, x)
-        x = torch.where(accept, x_new, x)
-        c = torch.where(accept, c_new, c)
-        it += 1
-        accepted, done = _read_flags(accept, done_new)
+        x.copy_(torch.where(accept, x_new, x))
+        c.copy_(torch.where(accept, c_new, c))
+        mu.copy_(mu_new)
+        nu.copy_(nu_new)
+        it.add_(1)
+        done.copy_(done | done_new)
         if fused_eval:
-            if accepted:
-                H, g = H_new, g_new
-        elif accepted and not done:
-            H, g, _ = assemble_cost(x)
+            H.copy_(torch.where(accept, H_new, H))
+            g.copy_(torch.where(accept, g_new, g))
+        else:
+            device_while(accept & ~done, reassemble, 1)
+        torch.logical_not(done, out=go)
+
+    device_while(go, iteration, config.max_iterations)
     return STFSolveResult(
-        poses=x, final_cost=c, initial_cost=c0,
-        iterations=torch.tensor(it, dtype=torch.int32, device=dev),
+        poses=x, final_cost=c, initial_cost=c0, iterations=it,
         num_matches=torch.sum(stf.valid).to(torch.int32),
         pairs_dropped=pairs_dropped,
     )

@@ -228,7 +228,9 @@ def library() -> ctypes.CDLL:
         pp, ull = ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_ulonglong)
         for name, args in (("hitl_loop_graph_new", [pp]),
                            ("hitl_loop_append", [vp, pp, vp]),
-                           ("hitl_loop_append_while", [vp, pp, vp, vp]),
+                           ("hitl_loop_add_while", [vp, pp, vp, pp, ull]),
+                           ("hitl_loop_close_body",
+                            [vp, vp, ctypes.c_ulonglong, vp]),
                            ("hitl_loop_graph_nodes", [vp, ull]),
                            ("hitl_loop_node_types", [vp, ull, i]),
                            ("hitl_loop_instantiate", [vp, pp]),

@@ -6,14 +6,19 @@ host never sees it. The port's counterpart has two forms.
 
 - Eagerly (CPU tensors, or CUDA tensors outside a capture), `device_while`
   reads `cond` before each trip and stops at the first false one, or after
-  `max_trips` trips: one host read a trip, the loop's only ones.
+  `max_trips` trips: one host read a trip, the loop's only ones. A loop
+  inside a trip is a Python loop inside a Python loop.
 - Inside `LoopGraph` (a CUDA graph capture on the card), it reads nothing.
-  The work before the loop is closed as one captured piece, one trip of
-  the body is captured as another, and the graph gets a conditional node of
-  type WHILE (csrc/graph_loop.cu) that runs the trip while
-  `cond & (trips < max_trips)` holds on the device; the work after the
-  loop starts the next piece. A replay of the whole graph runs every loop
-  to its exit on the device, as `lax.while_loop` does.
+  The work before the loop is closed as one captured piece, the graph gets
+  a conditional node of type WHILE (csrc/graph_loop.cu) that runs its body
+  while `cond & (trips < max_trips)` holds on the device, and one trip is
+  captured into that body; the work after the loop starts the next piece.
+  A `device_while` inside the trip does the same one level down: it closes
+  the trip's current piece and adds its WHILE node to the body, so a CG
+  loop inside an LM loop is a WHILE node inside a WHILE node, and a WHILE
+  of `max_trips=1` is the reference's `lax.cond`. A replay of the whole
+  graph runs every loop to its exit on the device, as `lax.while_loop`
+  does.
 
 `body` must update the loop's carry in place, with `copy_` into buffers
 made before the loop, and recompute `cond` in place; it must not drop the
@@ -27,7 +32,7 @@ them in the order they were captured. PyTorch 2.11, the card's, has no
 conditional nodes of its own (`CUDAGraph.begin_capture_to_if_node` came
 later), so the WHILE node is added through the CUDA runtime in
 csrc/graph_loop.cu (conditional nodes need CUDA 12.4 or later;
-scripts/graph_loop_probe.py checks them on the card).
+scripts/graph_loop_probe.py checks them on the card, nested ones too).
 """
 
 from __future__ import annotations
@@ -48,6 +53,10 @@ from . import cuda_build
 Tensor = torch.Tensor
 
 _local = threading.local()
+# one capture at a time in the process: a capture first returns the memory
+# of dropped graphs' pools to the device (torch.cuda.empty_cache), which
+# must not run while another thread captures
+_capture_lock = threading.Lock()
 
 
 def device_while(cond: Tensor, body: Callable[[], None],
@@ -73,9 +82,9 @@ def device_while(cond: Tensor, body: Callable[[], None],
 
 class LoopGraph:
     """`fn()` captured once on CUDA `device` into one graph in which every
-    `device_while` is a WHILE node; `replay()` runs it on the current
-    stream. `outputs` is what `fn` returned: tensors in the graph's memory,
-    overwritten by every replay.
+    `device_while` is a WHILE node, loops inside loops included;
+    `replay()` runs it on the current stream. `outputs` is what `fn`
+    returned: tensors in the graph's memory, overwritten by every replay.
 
     `pool` (a `torch.cuda.graph_pool_handle()`) may be shared by several
     LoopGraphs that are never replayed at the same time and are captured on
@@ -84,8 +93,19 @@ class LoopGraph:
     is the host time of the capture and instantiation, `nodes` the graph's
     nodes (those of every captured piece, each loop body once, and the
     three a loop adds: its first test, the WHILE node, the test after a
-    trip), `body_nodes` each loop's body nodes (one trip's), `pool_mib`
-    the device memory the capture reserved."""
+    trip), `body_nodes` each loop's body nodes (one trip's captured pieces,
+    not those of a loop inside it), `levels` each loop's depth (1: a loop
+    of the top graph, 2: a loop inside a loop's trip), `level_nodes` the
+    nodes at each depth (0: the top graph's; k: those in the bodies of the
+    loops of depth k, their inner loops' first tests and WHILE nodes
+    included), `pool_mib` the device memory the capture reserved. A
+    LoopGraph is not captured inside another, and captures of several
+    threads take turns.
+
+    A capture starts with `torch.cuda.empty_cache()`: the pool of a graph
+    that was dropped stays reserved until then (the allocator frees
+    nothing while a capture runs, so a capture could run out of memory
+    beside the pools of dropped programs)."""
 
     def __init__(self, fn: Callable[[], object], device, pool=None,
                  stream: torch.cuda.Stream | None = None):
@@ -96,37 +116,46 @@ class LoopGraph:
                        else stream)
         self.nodes = 0
         self.body_nodes: list[int] = []
+        self.levels: list[int] = []
+        self.level_nodes: dict[int, int] = {}
         self._pieces: list = []     # captured graphs: their memory stays
         self._keep: list = []       # loop flags the graph reads
         self._graph = ctypes.c_void_p()
-        self._tail = ctypes.c_void_p()
         self._exec = ctypes.c_void_p()
         self._open = None
+        # the graphs being filled: the top graph, then each open loop's
+        # body, each with its last node and its node count
+        self._stack: list = []
         self._check(self._lib.hitl_loop_graph_new(ctypes.byref(self._graph)),
                     "graph create")
-        torch.cuda.synchronize(self.device)
-        reserved = torch.cuda.memory_reserved(self.device)
-        t0 = time.perf_counter()
-        self.stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self.stream):
-            if getattr(_local, "capture", None) is not None:
-                raise RuntimeError("LoopGraph: captures do not nest")
-            _local.capture = self
-            try:
-                self._begin()
-                self.outputs = fn()
-                self._end()
-            except BaseException:
-                self._abort()
-                raise
-            finally:
-                _local.capture = None
-        self._check(self._lib.hitl_loop_instantiate(
-            self._graph, ctypes.byref(self._exec)), "graph instantiate")
-        torch.cuda.current_stream(self.device).wait_stream(self.stream)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.pool_mib = (torch.cuda.memory_reserved(self.device)
-                         - reserved) / 2 ** 20
+        if getattr(_local, "capture", None) is not None:
+            raise RuntimeError("LoopGraph: captures do not nest")
+        with _capture_lock:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+            t0 = time.perf_counter()
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self.stream):
+                _local.capture = self
+                try:
+                    self._push(self._graph)
+                    self._begin()
+                    self.outputs = fn()
+                    self._end()
+                    self._pop()
+                except BaseException:
+                    self._abort()
+                    raise
+                finally:
+                    _local.capture = None
+            self._check(self._lib.hitl_loop_instantiate(
+                self._graph, ctypes.byref(self._exec)), "graph instantiate")
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
+            self.capture_ms = (time.perf_counter() - t0) * 1e3
+            self.pool_mib = (torch.cuda.memory_reserved(self.device)
+                             - reserved) / 2 ** 20
+        self.level_nodes = dict(sorted(self.level_nodes.items()))
 
     # -- capture -----------------------------------------------------------
 
@@ -134,6 +163,15 @@ class LoopGraph:
         if code != 0:
             msg = self._lib.hitl_cuda_error_string(code).decode()
             raise RuntimeError(f"LoopGraph {what}: CUDA error {code} ({msg})")
+
+    def _push(self, graph: ctypes.c_void_p) -> None:
+        self._stack.append([graph, ctypes.c_void_p(), 0])
+
+    def _pop(self) -> list:
+        level = self._stack.pop()
+        depth = len(self._stack)
+        self.level_nodes[depth] = self.level_nodes.get(depth, 0) + level[2]
+        return level
 
     def _begin(self) -> None:
         g = torch.cuda.CUDAGraph(keep_graph=True)
@@ -155,11 +193,21 @@ class LoopGraph:
         self.nodes += n.value
         return raw, n.value
 
-    def _end(self) -> None:
+    def _end(self) -> int:
+        """Close the open piece and append it to the innermost open graph;
+        its node count."""
         raw, n = self._close()
         if n:
-            self._check(self._lib.hitl_loop_append(
-                self._graph, ctypes.byref(self._tail), raw), "append")
+            level = self._stack[-1]
+            code = self._lib.hitl_loop_append(level[0], ctypes.byref(level[1]),
+                                              raw)
+            if code != 0:
+                where = ("the top graph" if len(self._stack) == 1
+                         else f"a loop body at depth {len(self._stack) - 1}")
+                self._check(code, f"append to {where} (the piece's nodes by "
+                                  f"type: {self.node_types(raw)})")
+            level[2] += n
+        return n
 
     def _abort(self) -> None:
         if self._open is not None:
@@ -171,25 +219,43 @@ class LoopGraph:
 
     def loop(self, cond: Tensor, body: Callable[[], None],
              max_trips: int) -> None:
-        """Close the piece before the loop, capture one trip, add the
-        WHILE node, open the piece after it (device_while's capture)."""
+        """Close the open piece, add the WHILE node to the innermost open
+        graph, capture one trip into its body (a loop inside the trip
+        nests there), close the body with its test and open the piece
+        after the loop (device_while's capture)."""
         dev = cond.device
         trips = torch.zeros((), dtype=torch.int32, device=dev)
         go = torch.logical_and(cond, trips < max_trips)
         self._keep += [trips, go]
         self._end()
+        outer = self._stack[-1]
+        inner = ctypes.c_void_p()
+        handle = ctypes.c_ulonglong()
+        self._check(self._lib.hitl_loop_add_while(
+            outer[0], ctypes.byref(outer[1]), go.data_ptr(),
+            ctypes.byref(inner), ctypes.byref(handle)), "add while")
+        outer[2] += 2
+        self.nodes += 2
+        k = len(self.body_nodes)
+        self.body_nodes.append(0)
+        self.levels.append(len(self._stack))
+        self._push(inner)
         self._begin()
         body()
         trips.add_(1)
         torch.logical_and(cond, trips < max_trips, out=go)
-        raw, n = self._close()
-        self.body_nodes.append(n)
-        code = self._lib.hitl_loop_append_while(
-            self._graph, ctypes.byref(self._tail), go.data_ptr(), raw)
-        if code != 0:
-            self._check(code, f"append while (the trip's nodes by type: "
-                              f"{self.node_types(raw)})")
-        self.nodes += 3
+        self._end()
+        level = self._stack[-1]
+        self._check(self._lib.hitl_loop_close_body(
+            level[0], level[1], handle, go.data_ptr()), "close body")
+        level[2] += 1
+        self.nodes += 1
+        self._pop()
+        # this loop's own pieces: the body's nodes less its closing test
+        # and the nodes its inner loops added there
+        inner_frames = 2 * sum(1 for d in self.levels[k + 1:]
+                               if d == self.levels[k] + 1)
+        self.body_nodes[k] = level[2] - 1 - inner_frames
         self._begin()
 
     def node_types(self, graph) -> dict[int, int] | str:
@@ -290,8 +356,8 @@ class DeviceProgram:
     `warm()`, if given, runs on the program's stream before a capture:
     what a library makes at its first call on a stream (a handle, a
     workspace) is made there, outside the graph. Each graph records its
-    capture (LoopGraph's `capture_ms`, `nodes`, `body_nodes`,
-    `pool_mib`)."""
+    capture (LoopGraph's `capture_ms`, `nodes`, `body_nodes`, `levels`,
+    `level_nodes`, `pool_mib`)."""
 
     def __init__(self, fn: Callable, example, device,
                  warm: Callable[[], None] | None = None):

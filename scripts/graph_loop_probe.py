@@ -15,7 +15,13 @@ driver) and whether the installed PyTorch has conditional nodes of its own
      BCR launches, against the same code run eagerly (bit-equal), with the
      kernels' replay launch counts;
   3. what a capture refuses: a Python-scalar store into a CUDA tensor and
-     a tensor copied from the host.
+     a tensor copied from the host;
+  4. a loop inside a loop: an outer loop of 5 trips, each with
+     straight-line work before and after an inner loop whose trips the
+     device decides (0 to 69 asked, at most 64 run), for three seeds: the
+     inner trip counts and the carry at replay must equal eager;
+  5. a loop of at most one trip used as an IF (the reference's lax.cond),
+     taken and not taken, with work after it.
 
 Run on the card: `python scripts/graph_loop_probe.py` (~30 s with the
 kernels' build). Exits 1 without CUDA or on any mismatch.
@@ -191,6 +197,104 @@ def refusals(dev) -> dict:
     return out
 
 
+def nested_loops(dev) -> bool:
+    outer_k = torch.zeros((), dtype=torch.int32, device=dev)
+    inner_k = torch.zeros((), dtype=torch.int32, device=dev)
+    seed = torch.zeros((), dtype=torch.int32, device=dev)
+    trips = torch.zeros(5, dtype=torch.int32, device=dev)
+    acc = torch.zeros(256, device=dev)
+    w = torch.randn(32, 32, device=dev) * 0.3
+    m0 = torch.randn(32, 32, device=dev)
+    m = m0.clone()
+    cond_o = torch.ones((), dtype=torch.bool, device=dev)
+    cond_i = torch.ones((), dtype=torch.bool, device=dev)
+
+    def run():
+        outer_k.zero_()
+        trips.zero_()
+        m.copy_(m0)
+        acc.zero_()
+        cond_o.fill_(True)
+
+        def outer():
+            # before the inner loop: its trip count, made on the device
+            stop = (outer_k * 29 + seed) % 70
+            acc.mul_(0.5)
+            inner_k.zero_()
+            torch.lt(inner_k, stop, out=cond_i)
+
+            def inner():
+                m.copy_(torch.tanh(m @ w))
+                acc.add_(m[0, :1].repeat(256))
+                inner_k.add_(1)
+                torch.lt(inner_k, stop, out=cond_i)
+
+            device_while(cond_i, inner, 64)
+            # after it
+            trips.index_copy_(0, outer_k.long()[None], inner_k[None])
+            acc.add_(inner_k.to(acc.dtype))
+            outer_k.add_(1)
+            torch.lt(outer_k, 5, out=cond_o)
+
+        device_while(cond_o, outer, 100)
+        return acc.sum()
+
+    g = LoopGraph(run, dev)
+    ok = True
+    rows = {}
+    for sd in (0, 7, 40):
+        seed.fill_(sd)
+        g.replay()
+        torch.cuda.synchronize()
+        got = (trips.clone(), acc.clone(), m.clone(), int(outer_k))
+        run()
+        torch.cuda.synchronize()
+        want = (trips.clone(), acc.clone(), m.clone(), int(outer_k))
+        expect = [min((k * 29 + sd) % 70, 64) for k in range(5)]
+        same = (all(torch.equal(a, b) for a, b in zip(got[:3], want[:3]))
+                and got[3] == want[3] == 5)
+        rows[sd] = dict(inner_trips=got[0].tolist(), expected=expect,
+                        bit_equal=same)
+        ok &= same and got[0].tolist() == expect
+    print(f"[nested] capture {g.capture_ms:.1f} ms, {g.nodes} nodes, loop "
+          f"levels {g.levels}, body nodes {g.body_nodes}, nodes by level "
+          f"{g.level_nodes}; " + "; ".join(f"seed {k}: {r}"
+                                          for k, r in rows.items()),
+          flush=True)
+    return ok
+
+
+def if_loop(dev) -> bool:
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+    x = torch.zeros(16, device=dev)
+    y = torch.zeros(16, device=dev)
+
+    def run():
+        def body():
+            x.add_(torch.arange(16, device=dev, dtype=x.dtype))
+
+        device_while(flag, body, 1)
+        y.copy_(x * 2.0 + 1.0)
+        return y.sum()
+
+    g = LoopGraph(run, dev)
+    ok = True
+    rows = {}
+    for taken in (True, False, True):
+        x.fill_(1.0)
+        flag.fill_(taken)
+        g.replay()
+        torch.cuda.synchronize()
+        want = 1.0 + torch.arange(16, device=dev, dtype=x.dtype) * taken
+        good = bool(torch.equal(x, want)) and bool(torch.equal(y, want * 2.0
+                                                                + 1.0))
+        rows[f"taken={taken}"] = good
+        ok &= good
+    print(f"[if] {g.nodes} nodes, loop levels {g.levels}; {rows}",
+          flush=True)
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -208,6 +312,8 @@ def main() -> int:
     ok = toy_loop(dev)
     ok &= kernels_in_loops(dev)
     refusals(dev)
+    ok &= nested_loops(dev)
+    ok &= if_loop(dev)
     print(json.dumps({"ok": bool(ok)}))
     return 0 if ok else 1
 

@@ -19,7 +19,15 @@ and whether its replay is bit-equal to the eager calls:
      the stream that ran the process's first cuSOLVER call (after one
      eager run on the default stream);
   2. the three calls under each preferred library ("default", "cusolver",
-     "magma") on a fresh side stream.
+     "magma") on a fresh side stream;
+  3. the dense STF refine's step (solver/stf_solve.py::stf_lm_solve:
+     `cholesky_ex` of one [n, n] system and two `solve_triangular`s) at
+     n = 3072 and 6144 (the refine at 1024 poses and at
+     refine.DENSE_POSE_LIMIT = 2048), inside a WHILE body of two trips of
+     a `DeviceProgram` whose warm() factors and solves an [n, n] identity
+     on the program's stream first: whether it captured, the node types
+     of each captured piece, the kernels of one eager `cholesky_ex`
+     (cuSOLVER's potrf or MAGMA), and the replay against eager.
 
 Run on the card: `python scripts/linalg_capture_probe.py` (~30 s with the
 build of the graph helper). Prints one JSON line last; exits 1 without
@@ -39,6 +47,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from hitl_slam_torch.utils import cuda_build  # noqa: E402
+from hitl_slam_torch.utils.device_loop import (DeviceProgram,  # noqa: E402
+                                               device_while)
 
 NODE_TYPES = 16
 
@@ -116,6 +126,67 @@ def _capture(lib, fn, H, b, stream) -> dict:
                                     for a, w in zip(outs, wants))}
 
 
+def _refine_step(H, b):
+    """The dense refine's step on an [n, n] system and [n, 1] column."""
+    L = torch.linalg.cholesky_ex(H)[0]
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)
+
+
+def _potrf_kernels(H) -> list[str]:
+    """The CUDA kernels of one eager cholesky_ex of H."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(H.device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.linalg.cholesky_ex(H)
+        torch.cuda.synchronize(H.device)
+    return sorted({e.key[:60] for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"})[:8]
+
+
+def refine_in_while(n: int, dev) -> dict:
+    """_refine_step in a WHILE body of two trips of a DeviceProgram."""
+    H1, b1 = _system(n, dev)
+    H, b = H1[0].contiguous(), b1[0].contiguous()
+
+    def fn(H, b):
+        out = torch.zeros_like(b)
+        k = torch.zeros((), dtype=torch.int32, device=H.device)
+        cond = torch.ones((), dtype=torch.bool, device=H.device)
+
+        def body():
+            out.copy_(_refine_step(H, b + k.to(b.dtype)))
+            k.add_(1)
+            torch.lt(k, 2, out=cond)
+
+        device_while(cond, body, 4)
+        return out, k
+
+    def warm():
+        eye = torch.eye(n, device=dev)
+        _refine_step(eye, torch.ones((n, 1), device=dev))
+
+    row = {"n": n, "eager_kernels": _potrf_kernels(H)}
+    want, _ = fn(H, b)
+    prog = DeviceProgram(fn, (H, b), dev, warm=warm)
+    try:
+        got, k = prog.run(H, b)
+    except RuntimeError as e:
+        torch.cuda.synchronize(dev)
+        row.update(captured=False, error=str(e).splitlines()[0][:300])
+        return row
+    g = prog.graph()
+    row.update(captured=True, trips=int(k),
+               replay_bit_equal=bool(torch.equal(got, want)),
+               max_abs_diff=float((got - want).abs().max()),
+               capture_ms=g.capture_ms, pool_mib=g.pool_mib,
+               piece_node_types=[
+                   g.node_types(ctypes.c_void_p(p.raw_cuda_graph()))
+                   for p in g._pieces])
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("linalg_capture_probe: no CUDA device", file=sys.stderr)
@@ -154,6 +225,10 @@ def main() -> int:
         for k, v in res.items():
             print(f"[linalg] W = {W}: {k}: {v}")
         rows[str(W)] = res
+    for n in (3072, 6144):
+        res = refine_in_while(n, dev)
+        print(f"[linalg] refine step in a WHILE body: {res}", flush=True)
+        rows[f"refine_{n}"] = res
     print(json.dumps({"linalg_capture": rows}))
     return 0
 

@@ -9,11 +9,13 @@ Replays the 1024-pose golden session (tests/data/golden_large.*) with the
 port's engine on cuda: once to warm up, then `--repeat` times with host
 timing (wall ms per cycle after torch.cuda.synchronize()), once with each
 cycle stage timed on its own, then once under torch.profiler. Then the same
-for post_optimize on the repaired map: wall ms, the refine's stages
-(grid_match, build_stf_factors, the pair sort and compaction, the one-hot
-selectors, assemble_dense, the Cholesky factorization and its triangular
-solves, the cost-only factor pass) timed on their own for the fused and the
-two-pass dense solver, and a torch.profiler window. Prints the card's name
+for post_optimize on the repaired map: wall ms (a replay of the refine's
+device program), the refine's stages (grid_match, build_stf_factors, the
+pair sort and compaction, the one-hot selectors, assemble_dense, the
+Cholesky factorization and its triangular solves, the cost-only factor
+pass) timed on their own for the fused and the two-pass dense solver run
+eagerly (no Python timer sees a replay's stages), and a torch.profiler
+window over an eager refine. Prints the card's name
 and power limit, the wall times, host ms per stage, device time by kernel
 name (top 20), the number of device operations, and the device's busy share
 of each profiled window.
@@ -197,12 +199,12 @@ def refine_profile(torch, data, entries, repeat):
         eng.replay_log(e)
     repaired = eng.state
 
-    def refine(solver="auto"):
+    def refine(solver="auto", eager=False):
         st = repaired
         return R.post_human_refine(st.points, st.normals, st.point_mask,
                                    st.poses, st.constraints,
                                    config=LMConfig(max_iterations=30),
-                                   solver=solver)
+                                   solver=solver, eager=eager)
 
     for r in range(repeat + 1):           # the first run warms up
         eng.init_from_state(repaired)
@@ -221,21 +223,23 @@ def refine_profile(torch, data, entries, repeat):
                (C, "stf_residuals"), (S, "build_problem"),
                (S, "sort_factors_by_pair"), (S, "compact_pair_rows"),
                (S, "stf_onehots"), (S, "assemble_dense"),
-               (S, "_mnt_updates"), (S, "_read_flags"),
+               (S, "_mnt_updates"),
                (torch.linalg, "cholesky_ex"),
                (torch.linalg, "solve_triangular")]
     for solver in ("dense_fused", "dense"):
         with StageTimer(torch, targets) as timer:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = refine(solver)
+            out = refine(solver, eager=True)
             torch.cuda.synchronize()
             total = (time.perf_counter() - t0) * 1e3
         timer.report(f"refine stage split, solver {solver}, "
                      f"{int(out.iterations)} LM iterations, "
                      f"{int(out.num_matches)} matches", total,
                      "(rest of the refine)")
-    device_profile(torch, refine, "profiled refine (dense_fused)")
+    # eager: CUPTI does not trace a WHILE node's trips reliably
+    device_profile(torch, lambda: refine(eager=True),
+                   "profiled refine (dense_fused, eager)")
 
 
 def event_ms(torch, fn, iters=10):

@@ -12,7 +12,6 @@ comparisons at full size)."""
 import os
 import sys
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -86,6 +85,95 @@ def test_device_while_eager_stops_at_first_false(stop, max_trips):
     tests = want + (1 if want < max_trips else 0)
     assert len(mode.reads) == tests + want   # + the body's own int(k)
     assert sum(inside for _, inside in mode.reads) == len(mode.reads)
+
+
+def _nested(device, seed: int):
+    """An outer loop of 5 trips, each with work before and after an inner
+    loop whose trips the data decide ((k * 29 + seed) % 70 asked, at most
+    64 run): (run, its carry)."""
+    from hitl_slam_torch.utils.device_loop import device_while
+
+    def z(dtype):
+        return torch.zeros((), dtype=dtype, device=device)
+
+    outer_k, inner_k = z(torch.int32), z(torch.int32)
+    cond_o, cond_i = z(torch.bool), z(torch.bool)
+    trips = torch.zeros(5, dtype=torch.int32, device=device)
+    acc = torch.zeros(8, device=device)
+    g = torch.Generator().manual_seed(seed)
+    w = (torch.randn((8, 8), generator=g) * 0.3).to(device)
+    m = torch.randn((8, 8), generator=g).to(device)
+
+    def run():
+        cond_o.fill_(True)
+
+        def outer():
+            stop = (outer_k * 29 + seed) % 70
+            acc.mul_(0.5)
+            inner_k.zero_()
+            torch.lt(inner_k, stop, out=cond_i)
+
+            def inner():
+                m.copy_(torch.tanh(m @ w))
+                acc.add_(m[0])
+                inner_k.add_(1)
+                torch.lt(inner_k, stop, out=cond_i)
+
+            device_while(cond_i, inner, 64)
+            trips.index_copy_(0, outer_k.long()[None], inner_k[None])
+            acc.add_(inner_k.to(acc.dtype))
+            outer_k.add_(1)
+            torch.lt(outer_k, 5, out=cond_o)
+
+        return device_while(cond_o, outer, 100)
+
+    return run, (trips, acc, m, outer_k)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 40])
+def test_device_while_nested_eager(seed):
+    """A loop inside a loop's trip, run eagerly: the inner trip counts and
+    the carry equal plain Python loops' on the same data, and every host
+    read is a device_while test (at each level a test before each trip and
+    the failing one, none after a trip cap)."""
+    run, (trips, acc, m, outer_k) = _nested("cpu", seed)
+    m0 = m.clone()
+    with _HostReads() as mode:
+        assert run() == 5
+    want = [min((k * 29 + seed) % 70, 64) for k in range(5)]
+    assert trips.tolist() == want and int(outer_k) == 5
+    a, mm = torch.zeros(8), m0
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn((8, 8), generator=g) * 0.3
+    for k in range(5):
+        a = a * 0.5
+        for _ in range(want[k]):
+            mm = torch.tanh(mm @ w)
+            a = a + mm[0]
+        a = a + want[k]
+    assert torch.equal(acc, a) and torch.equal(m, mm)
+    tests = 6 + sum(t + (t < 64) for t in want)
+    assert len(mode.reads) == tests
+    assert all(inside for _, inside in mode.reads)
+
+
+@pytest.mark.parametrize("taken", [True, False])
+def test_device_while_one_trip_is_an_if(taken):
+    """device_while(flag, body, max_trips=1), the reference's lax.cond:
+    the body runs once when the flag holds and not at all otherwise, after
+    one host read of the flag (none after the trip: the cap is reached)."""
+    from hitl_slam_torch.utils.device_loop import device_while
+
+    x = torch.ones(4)
+    flag = torch.tensor(taken)
+
+    def body():
+        x.add_(torch.arange(4.0))
+
+    with _HostReads() as mode:
+        trips = device_while(flag, body, 1)
+    assert trips == int(taken) and len(mode.reads) == 1
+    assert torch.equal(x, 1.0 + torch.arange(4.0) * taken)
 
 
 def test_loop_graph_needs_a_card():
@@ -256,6 +344,7 @@ def test_endpoint_adjust_carry_form_bit_equal_and_matches_jax(
     """The carry-form EM refit against today's round loop (kept above):
     bit-equal on the CPU, with its rounds; against the JAX refit within
     tests/test_torch_em.py's tolerance."""
+    import jax.numpy as jnp
     from test_torch_em import _selection
 
     from hitl_slam_torch.models.hitl import em_input as TE
@@ -373,6 +462,47 @@ def test_program_replay_matches_eager_cycle(cuda_device):
                   "lm_initial_cost", "lm_final_cost", "lm_final_mu"):
             assert torch.equal(getattr(got, k), getattr(want, k)), k
         assert eng.replay_log(e).accepted
+
+
+@pytest.mark.cuda
+def test_nested_loop_graph_matches_eager(cuda_device):
+    """A loop inside a loop's trip captured by LoopGraph (a WHILE node in
+    a WHILE node's body) and an IF (a loop of one trip): each replay's
+    inner trip counts and carry bit-equal to the same code run eagerly on
+    the card, for three seeds, and the graph's loops at levels 1 and 2."""
+    from hitl_slam_torch.utils.device_loop import LoopGraph, device_while
+
+    for seed in (0, 7, 40):
+        run, carry = _nested(cuda_device, seed)
+        start = [c.clone() for c in carry]
+
+        def reset():
+            for c, c0 in zip(carry, start):
+                c.copy_(c0)
+
+        g = LoopGraph(run, cuda_device)
+        assert g.levels == [1, 2]
+        reset()
+        g.replay()
+        got = [c.clone() for c in carry]
+        reset()
+        assert run() == 5
+        assert all(torch.equal(a, b) for a, b in zip(got, carry))
+        assert got[0].tolist() == [min((k * 29 + seed) % 70, 64)
+                                   for k in range(5)]
+    flag = torch.zeros((), dtype=torch.bool, device=cuda_device)
+    x = torch.zeros(4, device=cuda_device)
+
+    def branch():
+        device_while(flag, lambda: x.add_(1.0), 1)
+        return x * 2.0
+
+    g = LoopGraph(branch, cuda_device)
+    for taken in (True, False):
+        x.zero_()
+        flag.fill_(taken)
+        g.replay()
+        assert torch.equal(g.outputs, torch.full_like(x, 2.0 * taken))
 
 
 @pytest.mark.cuda

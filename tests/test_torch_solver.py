@@ -194,8 +194,9 @@ def test_factors_and_residuals_match():
 
 
 def test_compact_reduction_onehot_equals_index_add(monkeypatch):
-    """The one-hot matmul reduction and the index_add_ one that takes over
-    past ONEHOT_BUDGET give the same per-pose terms."""
+    """The one-hot matmul reduction and the scatter-add (an accumulating
+    index_put_) that takes over past ONEHOT_BUDGET give the same per-pose
+    terms."""
     from hitl_slam_torch.core.state import table_from_numpy
     from hitl_slam_torch.solver import joint as TJ
 
@@ -443,8 +444,8 @@ def test_thomas_and_schur_match_jax(num):
 def test_normal_equations_aos_matches_jax_and_soa():
     """joint.normal_equations (the block-array assembly) against the JAX
     function and the port's own SoA assembly, at the build poses and off
-    them; build_problem(use_onehot=False) reduces the table by index_add_
-    to the same compact terms."""
+    them; build_problem(use_onehot=False) reduces the table by the
+    scatter-add to the same compact terms."""
     from hitl_slam_torch.core.state import table_from_numpy
     from hitl_slam_torch.solver import assembly_soa as TS, joint as TJ
     from hitl_slam_tpu.solver import joint as JJ
