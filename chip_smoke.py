@@ -37,13 +37,15 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      correction applied, the aligned error against ground truth below 0.8
      of its start, em_scan launched twice a cycle and BCR once an LM
      iteration); no proposal on the clean map; wall and device ms of every
-     stage;
+     stage (RANSAC replays its programs, phase 22; the device ms are an
+     eager run's);
   8. render_map and info_matrix_image on the repaired map (shapes,
      non-empty, bit-equal repeat, the card's image against the CPU's);
   9. the LTVM curator on the repaired 1024-pose golden map and on the clean
      figure-8 map (the figure-8's walls, the prune floors, bit-equal repeat
      from the seed, the SDF against the CPU's); wall and device ms of the
-     SDF, the filter and the RANSAC;
+     SDF, the filter and the RANSAC (the SDF and the RANSAC replay their
+     programs, phase 22; the device ms are eager runs');
  10. EnML batch localization (launches neither kernel; the counts are
      zeroed before it and must stay 0): the sweep on the card (a replay of
      its program, models/enml/program.py) against the CPU on the test-size
@@ -55,12 +57,14 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      memory,
      consistency and the error against ground truth; then a bag through
      `cli_enml` on the card into HitLSLAM;
- 11. the checkerboard localizer (launches neither kernel): card against
-     CPU on the test-size stream (both matcher routes, the probe's
-     counts), then the scale map at W = 10 (16 windows a batch) and at
-     W = 80 (the grid matcher, 8 a batch) with wall, ms a node, realtime
-     factor, launches a node and busy share from a device-only profile,
-     peak memory, consistency, aligned error and the probe's dropped count;
+ 11. the checkerboard localizer (launches neither kernel; each call a
+     replay of its program, phase 22): card against CPU on the test-size
+     stream (both matcher routes, the probe's counts), then the scale map
+     at W = 10 (16 windows a batch) and at W = 80 (the grid matcher, 8 a
+     batch) with the replay's wall, ms a node and realtime factor, the
+     eager wall with its launches a node and busy share from a device-only
+     profile, peak memory, consistency, aligned error and the probe's
+     dropped count;
  12. an interactive EnML session on a drifted two-lap 256-pose figure-8:
      segments of 32, one loop correction queued mid-sweep and one after
      (em_scan = 2 x cycles, bcr = LM iterations), then a fresh session
@@ -202,16 +206,34 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      eager and program walls and halves, graph nodes by WHILE level,
      capture ms, pool MiB and peak memory; `[program]` lines and one
      `{"refine_program": {...}}` line;
- 22. times at the main path's shapes: each kernel by CUDA events (host
+ 22. the checkerboard localizer, build_sdf and RANSAC's extract_segments
+     as device programs (models/enml/program.py::CheckerboardProgram: one
+     CUDA graph of 2 n_passes + 2 WHILE nodes over chunk indices, with the
+     grid matcher a WHILE node over a chunk's windows inside each trip;
+     ops/sdf.py::sdf_program, one WHILE node over the poses; ops/
+     ransac.py::ransac_program, one over the rounds; phases 7, 9 and 11
+     already ran them): a replay against `eager=True` from the same inputs
+     for the checkerboard on the test-size stream (both routes) and the
+     scale map at W = 10 and W = 80, the SDF and curate's RANSAC on the
+     repaired 1024-pose golden map and the clean figure-8, and each side's
+     RANSAC of phase 7's proposals at B = 4 and 8: bit-equal wherever two
+     eager runs are, else within phase 11's, phase 9's or phase 7's
+     card-against-CPU bounds (the standard that held is printed); one host
+     read a call; each under torch.cuda.set_sync_debug_mode("error"); no
+     kernel launched; eager and program walls, graph nodes by WHILE level,
+     capture ms, pool MiB; curate and propose_corrections eager against
+     programs with their SDF and RANSAC splits; the memory reserved after
+     the phase; `[program]` lines and one `{"loop_programs": {...}}` line;
+ 23. times at the main path's shapes: each kernel by CUDA events (host
      overhead included) and by torch.profiler (its own device time), its
      plain version, its bound from the shapes, and for BCR
      torch.linalg.solve on the dense system; BCR also at n = 64, 16384
      and 32768;
- 23. a `{"kernels": [...]}` line with launches (phases 17's, 18's, 19's
+ 24. a `{"kernels": [...]}` line with launches (phases 17's, 18's, 19's
      and 20's also apart), agreement, times and bounds (the batched
      route's launches from phases 15, 18 and 20, the multi route's from
      phase 16; em_scan and BCR also at phase 17's shapes);
- 24. the last line: {"ok": true, "device": {...}}.
+ 25. the last line: {"ok": true, "device": {...}}.
 
 scripts/compare_checkouts.py times two checkouts' kernels and replays
 against each other on one card with the helpers here.
@@ -222,6 +244,7 @@ scipy. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -872,12 +895,14 @@ def procrustes_error(poses, gt_poses) -> float:
     return float(np.linalg.norm((a - ca) @ R.T + cb - b, axis=1).mean())
 
 
-def stage_ms(name: str, fn, on_device: bool = True):
+def stage_ms(name: str, fn, on_device: bool = True, profiled=None):
     """Run fn() on the card: warm, timed by the host clock around a
     synchronise (wall ms), and under torch.profiler (device ms: the sum of
     its device operations, and their number); a stage that works on the
-    device must show some. Logs and returns (result, wall_ms, device_ms,
-    device_ops)."""
+    device must show some. Where fn() replays a device program with a
+    WHILE node, whose trips the profiler does not trace, `profiled` (the
+    same work run eagerly) is profiled in its place. Logs and returns
+    (result, wall_ms, device_ms, device_ops)."""
     import torch
 
     fn()
@@ -886,7 +911,7 @@ def stage_ms(name: str, fn, on_device: bool = True):
     out = fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    events = device_events(fn) if on_device else []
+    events = device_events(profiled or fn) if on_device else []
     dev_ms = sum(us for _, us, _ in events) / 1e3
     ops = sum(n for _, _, n in events)
     check(ops > 0 or not on_device,
@@ -894,6 +919,35 @@ def stage_ms(name: str, fn, on_device: bool = True):
     log(f"[stage] {name}: wall {wall:.3f} ms, device {dev_ms:.3f} ms in "
         f"{ops} device operations")
     return out, wall, dev_ms, ops
+
+
+def _eagerly(fn):
+    """fn() within eager_loops()."""
+    with eager_loops():
+        return fn()
+
+
+@contextlib.contextmanager
+def eager_loops():
+    """Within it, the curator's and the proposals' build_sdf and
+    extract_segments run eagerly (`eager=True`) instead of replaying their
+    programs: for the eager side of a comparison, and for a profiler
+    window (the profiler does not trace a WHILE node's trips)."""
+    import functools
+
+    from hitl_slam_torch.models.hitl import propose
+    from hitl_slam_torch.models.ltvm import curator
+
+    saved = [(m, name, getattr(m, name)) for m, name in (
+        (curator, "build_sdf"), (curator, "extract_segments"),
+        (propose, "extract_segments"))]
+    for m, name, fn in saved:
+        setattr(m, name, functools.partial(fn, eager=True))
+    try:
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
 
 
 def _fig8_engine(m, device):
@@ -985,9 +1039,12 @@ def phase_proposals(torch):
         log(f"[propose] B = {B} candidates (min_gap={min_gap}), anchor "
             f"points {tuple(a_pts.shape)}, scans {tuple(scans.shape)}")
         torch.cuda.reset_peak_memory_stats()
-        stage_ms(f"propose_corrections, B={B}",
-                 lambda: eng.propose_corrections(max_proposals=4, seed=0,
-                                                 min_gap=min_gap))
+        def propose(min_gap=min_gap):
+            return eng.propose_corrections(max_proposals=4, seed=0,
+                                           min_gap=min_gap)
+
+        stage_ms(f"propose_corrections, B={B}", propose,
+                 profiled=lambda: _eagerly(propose))
         fields, *_ = stage_ms(
             f"build_likelihood_field, B={B}",
             lambda: scan_match.build_likelihood_field(a_pts, a_mask, centers))
@@ -997,11 +1054,15 @@ def phase_proposals(torch):
                                                  scan_masks, guesses))
         u = ransac.uniform_draws(0, rp, DEVICE, batch=2 * B)
         stage_ms(f"extract_segments (anchor side), B={B}",
-                 lambda: ransac.extract_segments(a_pts, a_mask, u[:B], rp))
+                 lambda: ransac.extract_segments(a_pts, a_mask, u[:B], rp),
+                 profiled=lambda: ransac.extract_segments(
+                     a_pts, a_mask, u[:B], rp, eager=True))
         scans_w = P.place_scans(scans, matched)
         stage_ms(f"extract_segments (corrected side), B={B}",
                  lambda: ransac.extract_segments(scans_w, scan_masks, u[B:],
-                                                 rp))
+                                                 rp),
+                 profiled=lambda: ransac.extract_segments(
+                     scans_w, scan_masks, u[B:], rp, eager=True))
         found = P.match_candidates(st, poses_np, chosen, seed=0)
         stage_ms(f"gate_and_pair (the host loop), B={B}",
                  lambda: P.gate_and_pair(poses_np, chosen, found,
@@ -1206,7 +1267,9 @@ def phase_ltvm(torch, large, large_log, clean):
     H, W = sdf.values.shape
     card, *_ = stage_ms(
         "build_sdf", lambda: S.build_sdf(st.poses, st.points, st.point_mask,
-                                         lo, H, W, params))
+                                         lo, H, W, params),
+        profiled=lambda: S.build_sdf(st.poses, st.points, st.point_mask, lo,
+                                     H, W, params, eager=True))
     check(torch.equal(card.values, sdf.values)
           and torch.equal(card.weights, sdf.weights),
           "build_sdf: a second build is not bit-equal")
@@ -1217,7 +1280,9 @@ def phase_ltvm(torch, large, large_log, clean):
     u = ransac.uniform_draws(0, rp, DEVICE)
     stage_ms("extract_segments (LTVM, 32 x 256 on 131072 points)",
              lambda: ransac.extract_segments(world.reshape(-1, 2),
-                                             keep.reshape(-1), u, rp))
+                                             keep.reshape(-1), u, rp),
+             profiled=lambda: ransac.extract_segments(
+                 world.reshape(-1, 2), keep.reshape(-1), u, rp, eager=True))
     t0 = time.perf_counter()
     cpu = S.build_sdf(st.poses.cpu(), st.points.cpu(), st.point_mask.cpu(),
                       lo.cpu(), H, W, params)
@@ -1569,9 +1634,11 @@ CB_COV_SYM_RTOL = 1e-3
 def phase_checkerboard(torch, smi, stream, scale):
     """The checkerboard localizer (launches neither kernel): card against
     CPU on the test-size stream, both routes, and the probe's counts; then
-    the scale map at W = 10 and W = 80 with wall, ms a node, realtime
-    factor, launches a node and busy share from a device-only profile, peak
-    memory, consistency, aligned error and the probe's dropped count."""
+    the scale map at W = 10 and W = 80 with wall (a replay of the map's
+    program; the first call captures it), ms a node, realtime factor, the
+    eager wall with its launches a node and busy share from a device-only
+    profile, peak memory, consistency, aligned error and the probe's
+    dropped count."""
     import numpy as np
 
     from hitl_slam_torch.models.enml import localizer as L
@@ -1652,19 +1719,30 @@ def phase_checkerboard(torch, smi, stream, scale):
         o = L.EnmlOptions(**okw)
         W = min(o.max_history, P)
         route = "grid" if W * N > CB.BRUTE_MATCH_LIMIT else "brute"
-        # warm the libraries and the allocator on a prefix
-        CB.checkerboard_localize(*(a[:4 * W] for a in args), o, chunk=chunk)
+        # the first call captures the map's program (phase 22 has its
+        # capture facts); the timed one replays it; the profiled one runs
+        # eagerly (the profiler does not trace a WHILE node's trips), and
+        # the busy share is its device ms over its own wall
         _sync()
         if DEVICE != "cpu":
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
+        CB.checkerboard_localize(*args, o, chunk=chunk)
+        _sync()
+        first_s = time.perf_counter() - t0
+        peak = _peak_memory_mb(torch)
+        t0 = time.perf_counter()
         p, c = CB.checkerboard_localize(*args, o, chunk=chunk)
         _sync()
         wall_s = time.perf_counter() - t0
-        peak = _peak_memory_mb(torch)
+        t0 = time.perf_counter()
+        CB.checkerboard_localize(*args, o, chunk=chunk, eager=True)
+        _sync()
+        eager_s = time.perf_counter() - t0
         dev_ms, ops = _device_only_profile(
-            torch, lambda: CB.checkerboard_localize(*args, o, chunk=chunk))
-        busy = dev_ms / (wall_s * 1e3)
+            torch, lambda: CB.checkerboard_localize(*args, o, chunk=chunk,
+                                                    eager=True))
+        busy = dev_ms / (eager_s * 1e3)
         dropped = int(CB.probe_match_capacity(*args[:3], p, o))
         p, c = p.cpu().numpy(), c.cpu().numpy()
         check(np.isfinite(p).all(), f"checkerboard {name}: poses not finite")
@@ -1680,11 +1758,13 @@ def phase_checkerboard(torch, smi, stream, scale):
                   else float(np.abs(p[:, :2] - seq[:, :2]).max()))
         log(f"[checkerboard] scale map {name}: {P} nodes x {N} padded points, "
             f"W = {W}, {route} matcher, {chunk} windows a batch; wall "
-            f"{wall_s:.3f} s, {wall_s * 1e3 / P:.3f} ms a node, realtime "
+            f"{wall_s:.3f} s (a replay; first call {first_s:.3f} s with the "
+            f"capture), {wall_s * 1e3 / P:.3f} ms a node, realtime "
             f"factor {rtf:.1f} ({scale['scans']} scans at "
-            f"{ENML_SCAN_PERIOD_S} s); device {dev_ms:.1f} ms in "
-            f"{ops / P:.1f} device operations a node, busy "
-            f"{100 * busy:.1f} %; peak memory {peak:.0f} MiB; consistency "
+            f"{ENML_SCAN_PERIOD_S} s); eager {eager_s:.3f} s, device "
+            f"{dev_ms:.1f} ms in {ops / P:.1f} device operations a node, "
+            f"busy {100 * busy:.1f} % (eager); peak memory {peak:.0f} MiB "
+            f"(first call); consistency "
             f"(every 16th node) {before:.4f} -> {after:.4f}; error against "
             f"ground truth (aligned) odometry {err_odo:.4f} m, localized "
             f"{err:.4f} m; probe dropped {dropped}; covariances asymmetric "
@@ -1693,6 +1773,7 @@ def phase_checkerboard(torch, smi, stream, scale):
                f"; {vs_seq:.4f} m from the sequential sweep") + f" ({smi})")
         out["scale"][name] = dict(
             nodes=P, W=W, route=route, chunk=chunk, wall_s=wall_s,
+            first_call_s=first_s, eager_wall_s=eager_s,
             ms_per_node=wall_s * 1e3 / P, realtime_factor=rtf,
             device_ms=dev_ms, launches_per_node=ops / P, busy_share=busy,
             peak_mib=peak, consistency=[before, after],
@@ -4357,6 +4438,316 @@ def phase_refine_program(torch, smi, repaired, s8192):
 
 # ---------------------------------------------------------------- phase 22
 
+# the phase should finish within this many seconds
+LOOP_PROGRAM_SECONDS = 90.0
+
+
+def _pose_cov_close(rep, e):
+    """(poses, covariances) within phase 11's card-against-CPU bounds:
+    (ok, the differences)."""
+    dp = float((rep[0] - e[0]).abs().max())
+    scale = e[1].abs().amax(dim=(-2, -1), keepdim=True).clamp(min=1e-30)
+    dc = float(((rep[1] - e[1]).abs() / scale).max())
+    return dp <= CB_POSE_ATOL and dc <= CB_COV_RTOL, f"poses {dp:.2e}, " \
+        f"covariances {dc:.2e} (bounds {CB_POSE_ATOL}, {CB_COV_RTOL})"
+
+
+def _sdf_close(rep, e):
+    """(values, weights) within phase 9's card-against-CPU bounds."""
+    dv, dw = (rep[0] - e[0]).abs(), (rep[1] - e[1]).abs()
+    n_v = int((dv > SDF_VALUE_ATOL).sum())
+    n_w = int((dw > SDF_WEIGHT_ATOL).sum())
+    allowed = SDF_OUTLIER_SHARE * dv.numel()
+    return n_v <= allowed and n_w <= allowed, (
+        f"{n_v} values > {SDF_VALUE_ATOL} and {n_w} weights > "
+        f"{SDF_WEIGHT_ATOL} of {dv.numel()} pixels (<= {allowed:.0f})")
+
+
+def _segments_close(rep, e):
+    """Segments: counts and valid flags equal, endpoints and centroids
+    within phase 7's selection bound, scatters within it relative to their
+    largest entry."""
+    import torch
+
+    ints = all(torch.equal(a, b) for a, b in zip(rep[2:4], e[2:4]))
+    d = max(float((a - b).abs().max()) for a, b in
+            ((rep[0], e[0]), (rep[1], e[1]), (rep[5], e[5])))
+    ds = float((rep[6] - e[6]).abs().max()
+               / e[6].abs().max().clamp(min=1e-30))
+    return ints and d <= SEL_ATOL and ds <= SEL_ATOL, (
+        f"counts and flags equal {ints}, points {d:.2e}, scatter {ds:.2e} "
+        f"(bound {SEL_ATOL})")
+
+
+def _segment_fields(seg):
+    return (seg.p1, seg.p2, seg.count, seg.valid, seg.mass, seg.centroid,
+            seg.scatter)
+
+
+def _loop_case(torch, name, call, fields, prog, close, nodes=None):
+    """`call(eager)` (an entry point with `eager=eager`) on the card: eager
+    twice, then the program (its first call captures); `fields(result)`
+    bit-equal where the two eager runs are, else `close` (the standard
+    that held is printed); no kernel launched; one host read a call; no
+    synchronising call under sync debug mode "error"; eager and program
+    walls, graph nodes by WHILE level, capture ms and pool MiB of
+    `prog()` (its DeviceProgram). Returns the row."""
+    from hitl_slam_torch.solver import bcr_kernel as B
+
+    eager, eager_ms = _timed_runs(lambda: call(True), 2)
+    _sync()
+    _reset_counts()
+    t0 = time.perf_counter()
+    rep = call(False)
+    _sync()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = (*_read_counts(), B.batched_launches.count,
+                B.multi_launches.count)
+    check(launches == (0, 0, 0, 0),
+          f"{name}: kernel launches {launches} on a path with none")
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))  # noqa
+    e1, e2, got = fields(eager[0]), fields(eager[1]), fields(rep)
+    eager_equal, replay_equal = same(e1, e2), same(got, e1)
+    ok, diff = close(got, e1)
+    if eager_equal:
+        check(replay_equal, f"{name}: two eager runs are bit-equal, the "
+              f"replay is not ({diff})")
+    else:
+        check(ok, f"{name}: replay beyond the bounds of eager ({diff})")
+    reads = _one_read(torch, name, lambda: fields(call(False))[0].cpu())
+    _no_sync(torch, name, lambda: call(False))
+    program_ms = _timed_runs(lambda: call(False), 3)[1]
+    g = prog().graph()
+    row = dict(standard="bit-equal" if replay_equal else "tolerance",
+               eager_bit_equal=eager_equal, diff=diff, eager_ms=eager_ms,
+               first_call_ms=first_ms, program_ms=program_ms,
+               host_reads=reads, launches=list(launches),
+               capture_ms=g.capture_ms, graph_nodes=g.nodes,
+               loop_levels=g.levels, body_nodes=g.body_nodes,
+               level_nodes=g.level_nodes, pool_mib=g.pool_mib)
+    if nodes:
+        row.update(eager_ms_per_node=eager_ms / nodes,
+                   program_ms_per_node=program_ms / nodes)
+    log(f"[program] {name}: replay {row['standard']} to eager ({diff}; "
+        f"eager runs bit-equal {eager_equal}); {eager_ms:.2f} ms eager, "
+        f"{program_ms:.2f} ms program (first call {first_ms:.1f} ms)"
+        + (f", {eager_ms / nodes:.3f} / {program_ms / nodes:.3f} ms a node"
+           if nodes else "")
+        + f"; host reads {reads['total']}; launches {launches}; capture "
+        f"{g.capture_ms:.1f} ms, {g.nodes} graph nodes, nodes by WHILE "
+        f"level {g.level_nodes}, loops' levels {g.levels}, pool "
+        f"{g.pool_mib:.1f} MiB")
+    return row
+
+
+def _checkerboard_cases(torch, stream, scale_state) -> dict:
+    from hitl_slam_torch.models.enml import localizer as L
+    from hitl_slam_torch.models.enml import parallel_localizer as CB
+    from hitl_slam_torch.models.enml.program import checkerboard_program
+
+    st = _episode_state(stream, DEVICE)[0]
+    test = (st.points, st.normals, st.point_mask, st.poses)
+    grid = tuple(a[:CB_GRID_NODES] for a in test)
+    big = (scale_state.points, scale_state.normals, scale_state.point_mask,
+           scale_state.poses)
+    cases = (("test size, brute", test, {}, dict(chunk=8)),
+             ("test size, grid", grid, CB_GRID_OPTS,
+              dict(n_passes=1, force_grid=True, chunk=8)),
+             *((f"scale map {name}", big, okw, dict(chunk=chunk))
+               for name, okw, chunk in CB_SCALE))
+    out = {}
+    for name, args, okw, kw in cases:
+        o = L.EnmlOptions(**okw)
+        full = {"n_passes": 2, "force_grid": False, **kw}
+
+        def call(eager, args=args, o=o, kw=kw):
+            return CB.checkerboard_localize(*args, o, **kw, eager=eager)
+
+        out[name] = _loop_case(
+            torch, f"checkerboard {name}", call, tuple,
+            lambda args=args, o=o, full=full: checkerboard_program(
+                args[0], o, full["n_passes"], full["chunk"],
+                full["force_grid"]),
+            _pose_cov_close, nodes=args[0].shape[0])
+    return out
+
+
+def _sdf_and_curate_cases(torch, maps) -> dict:
+    import numpy as np
+
+    from hitl_slam_torch.models.ltvm.curator import LongTermVectorMap
+    from hitl_slam_torch.ops import ransac, sdf as S
+    from hitl_slam_torch.ops.geometry import pose_to_world
+
+    out = {}
+    params = S.SdfParams()
+    for name, st in maps.items():
+        world = pose_to_world(st.poses[:, None, :], st.points)
+        lo, hi = S.sdf_bounds(world, st.point_mask, params.image_border)
+        res = params.image_resolution
+        width = int(np.ceil((hi[0] - lo[0]) / res))
+        height = int(np.ceil((hi[1] - lo[1]) / res))
+        origin = torch.as_tensor(lo, device=DEVICE)
+
+        def sdf(eager, st=st, origin=origin, height=height, width=width):
+            return S.build_sdf(st.poses, st.points, st.point_mask, origin,
+                               height, width, params, eager=eager)
+
+        out[f"build_sdf {name}"] = _loop_case(
+            torch, f"build_sdf {name} ({st.num_poses} poses, {height} x "
+            f"{width})", sdf, lambda img: (img.values, img.weights),
+            lambda st=st, height=height, width=width: S.sdf_program(
+                st.poses, st.points, height, width, params), _sdf_close,
+            nodes=st.num_poses)
+        keep = S.filter_points(sdf(False), world, st.point_mask, params)
+        rp = ransac.RansacParams()
+        u = ransac.uniform_draws(0, rp, DEVICE)
+        pts, msk = world.reshape(-1, 2), keep.reshape(-1)
+
+        def segs(eager, pts=pts, msk=msk, u=u, rp=rp):
+            return ransac.extract_segments(pts, msk, u, rp, eager=eager)
+
+        out[f"extract_segments curate {name}"] = _loop_case(
+            torch, f"extract_segments (curate) {name} ({tuple(pts.shape)})",
+            segs, _segment_fields,
+            lambda pts=pts, rp=rp: ransac.ransac_program(pts, rp),
+            _segments_close)
+
+        def curate(eager, st=st):
+            timings = {}
+            with eager_loops() if eager else contextlib.nullcontext():
+                vectors = LongTermVectorMap(seed=0).curate(
+                    st.poses, st.points, st.point_mask, timings_ms=timings)
+            return vectors, timings
+
+        runs = {}
+        for eager in (True, False):
+            curate(eager)
+            walls = []
+            for _ in range(2):
+                _sync()
+                t0 = time.perf_counter()
+                vectors, timings = curate(eager)
+                walls.append(((time.perf_counter() - t0) * 1e3, timings,
+                              vectors))
+            runs["eager" if eager else "program"] = min(
+                walls, key=lambda w: w[0])
+        same = _same_vectors(runs["eager"][2], runs["program"][2])
+        check(len(runs["eager"][2]) == len(runs["program"][2]),
+              f"curate {name}: {len(runs['program'][2])} vectors from the "
+              f"programs, {len(runs['eager'][2])} eagerly")
+        row = {k: dict(wall_ms=w, **t) for k, (w, t, _) in runs.items()}
+        row["vectors_bit_equal"] = same
+        split = "; ".join(
+            f"{k} {row['eager'][k]:.1f} / {row['program'][k]:.1f}"
+            for k in ("wall_ms", "sdf_ms", "filter_ms", "ransac_ms",
+                      "merge_ms"))
+        log(f"[program] curate {name}: eager / program {split} ms; "
+            f"{len(runs['program'][2])} vectors, bit-equal {same}")
+        out[f"curate {name}"] = row
+    return out
+
+
+def _proposal_cases(torch) -> dict:
+    import numpy as np
+
+    from hitl_slam_torch.io.figure8 import generate_figure8
+    from hitl_slam_torch.models.hitl import propose as P
+    from hitl_slam_torch.ops import ransac, scan_match
+
+    eng = _fig8_engine(generate_figure8(**DRIFTED_MAP), DEVICE)
+    st = eng.state
+    poses_np = st.poses.cpu().numpy()
+    rp = P.PROPOSAL_RANSAC
+    out = {}
+    for min_gap, want_B in ((None, 4), (FULL_BATCH_MIN_GAP, 8)):
+        chosen = P.candidate_pairs(poses_np, max_proposals=4, min_gap=min_gap)
+        B = len(chosen)
+        check(B == want_B, f"min_gap={min_gap}: {B} candidates, not {want_B}")
+        a_pts, a_mask, centers, scans, scan_masks, guesses = (
+            P.candidate_inputs(st, st.world_points(), poses_np, chosen))
+        fields = scan_match.build_likelihood_field(a_pts, a_mask, centers)
+        matched = scan_match.correlative_match(fields, centers, scans,
+                                               scan_masks, guesses)[0]
+        scans_w = P.place_scans(scans, matched)
+        u = ransac.uniform_draws(0, rp, DEVICE, batch=2 * B)
+        for side, pts, msk, uu in (("anchor", a_pts, a_mask, u[:B]),
+                                   ("corrected", scans_w, scan_masks, u[B:])):
+            def segs(eager, pts=pts, msk=msk, uu=uu):
+                return ransac.extract_segments(pts, msk, uu, rp, eager=eager)
+
+            out[f"extract_segments {side} B={B}"] = _loop_case(
+                torch, f"extract_segments (propose, {side} side) B={B} "
+                f"({tuple(pts.shape)})", segs, _segment_fields,
+                lambda pts=pts: ransac.ransac_program(pts, rp),
+                _segments_close)
+
+        def propose(eager, min_gap=min_gap):
+            with eager_loops() if eager else contextlib.nullcontext():
+                return eng.propose_corrections(max_proposals=4, seed=0,
+                                               min_gap=min_gap)
+
+        walls = {}
+        for eager in (True, False):
+            got, ms = _timed_runs(lambda: propose(eager), 3)
+            walls["eager" if eager else "program"] = (ms, got[-1])
+        _same_proposals(f"propose_corrections B={B}, programs against eager",
+                        walls["program"][1], walls["eager"][1])
+        for a, b in zip(walls["program"][1], walls["eager"][1]):
+            check(np.array_equal(a.input.points, b.input.points)
+                  and a.score == b.score,
+                  f"propose_corrections B={B}: the programs' proposals are "
+                  "not the eager ones")
+        ransac_split = {k: sum(out[f"extract_segments {s} B={B}"][f"{k}_ms"]
+                               for s in ("anchor", "corrected"))
+                        for k in ("eager", "program")}
+        out[f"propose_corrections B={B}"] = dict(
+            eager_ms=walls["eager"][0], program_ms=walls["program"][0],
+            proposals=len(walls["program"][1]),
+            ransac_eager_ms=ransac_split["eager"],
+            ransac_program_ms=ransac_split["program"])
+        log(f"[program] propose_corrections B={B}: eager / program "
+            f"{walls['eager'][0]:.2f} / {walls['program'][0]:.2f} ms, of "
+            f"which RANSAC (both sides, alone) {ransac_split['eager']:.2f} / "
+            f"{ransac_split['program']:.2f} ms; "
+            f"{len(walls['program'][1])} proposals, identical")
+    return out
+
+
+def phase_loop_programs(torch, smi, stream, scale_state, repaired, clean):
+    """The checkerboard localizer, build_sdf and RANSAC's extract_segments
+    as device programs (one CUDA graph each, every loop a WHILE node:
+    2 n_passes + 2 chunk loops, with the grid matcher a window loop inside
+    each chunk trip; the SDF's pose loop; RANSAC's round loop; phases 7, 9
+    and 11 already ran them): each replay against `eager=True` from the
+    same inputs, on the test-size stream (both routes), the scale map at
+    W = 10 and W = 80, the repaired 1024-pose golden map and the clean
+    figure-8 (the SDF, curate's RANSAC, and curate eager against programs
+    with its stage split) and phase 7's proposals at B = 4 and 8 (each
+    side's RANSAC, and propose_corrections eager against programs); the
+    memory the allocator holds after it. Returns the record."""
+    from hitl_slam_torch.core.state import make_map_state
+
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    out["checkerboard"] = _checkerboard_cases(torch, stream, scale_state)
+    maps = {"golden_large (repaired)": repaired,
+            "figure-8 (clean)": make_map_state(
+                clean.gt_poses, clean.covariances, clean.point_clouds,
+                clean.normal_clouds, device=DEVICE)}
+    out["ltvm"] = _sdf_and_curate_cases(torch, maps)
+    out["propose"] = _proposal_cases(torch)
+    _sync()
+    out["memory_reserved_mib"] = torch.cuda.memory_reserved() / 2 ** 20
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[program] loop programs: {out['seconds']:.1f} s (budget "
+        f"{LOOP_PROGRAM_SECONDS:.0f} s); memory reserved after the phase "
+        f"{out['memory_reserved_mib']:.0f} MiB ({smi})")
+    return out
+
+
+# ---------------------------------------------------------------- phase 23
+
 def phase_times(torch, state, log_entries):
     """Each kernel at the main path's shapes (em_scan on the golden_large
     map, BCR at its 1024 poses), beside its plain version, its bound and
@@ -4525,16 +4916,20 @@ def main() -> int:
     # ---- 20. EnML and the replica LM as device programs ----
     enml_program, q_batched = phase_enml_program(torch, smi, stream,
                                                  scale_state, repaired)
-    del scale_state
     print(json.dumps({"enml_program": enml_program}), flush=True)
     # ---- 21. the refine as a device program ----
     refine_program = phase_refine_program(torch, smi, refine_map, s8192)
     del s8192
     print(json.dumps({"refine_program": refine_program}), flush=True)
+    # ---- 22. the checkerboard, the SDF and RANSAC as device programs ----
+    loop_programs = phase_loop_programs(torch, smi, stream, scale_state,
+                                        repaired, clean)
+    del scale_state
+    print(json.dumps({"loop_programs": loop_programs}), flush=True)
     log(smi)
-    # ---- 22. times ----
+    # ---- 23. times ----
     times = phase_times(torch, state, large_log)
-    # ---- 23. kernels line ----
+    # ---- 24. kernels line ----
     kernels = [
         {"name": "em_scan", "route": "cuda",
          "source": "hitl_slam_torch/csrc/em_scan.cu",
@@ -4573,7 +4968,7 @@ def main() -> int:
     ]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    # ---- 24. contract line ----
+    # ---- 25. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

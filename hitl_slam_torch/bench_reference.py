@@ -32,7 +32,12 @@ headline's final state, bench.py:683-708, is bench.replica_split's):
 and `device_analysis`, in place of the reference's `xla_analysis`: for each
 of its seven surfaces the wall, the device ms and device operations from
 torch.profiler, the busy share and the bytes of the inputs (not measured,
-None, for the sweep's replay: UNTRACED_SURFACES).
+None, for the sweep's replay: UNTRACED_SURFACES). The two scale-map
+checkerboard surfaces (`enml_scale_checkerboard`, `enml_scale_w80`) take
+their wall from a replay of the checkerboard's program, as the record's
+`enml_*checkerboard_ms` keys do, and their device ms, operations, host
+reads and busy share from an eager run (`eager=True`) of the same work,
+over that run's own wall (`profiled_wall_ms`).
 
 `hbm_peak_mb` is the largest torch.cuda.max_memory_allocated over the run:
 the peak is reset before each section and read after it, and every section
@@ -423,8 +428,9 @@ def _sweep_capture_ms(st, o) -> float | None:
 
 def _localizers(st):
     """(sweep, checkerboard) of `st` as functions of the points and of the
-    options / chunk, each ending in a host read of one value (the sweep on
-    a card: a replay of its program)."""
+    options / chunk, each ending in a host read of one value (on a card
+    each a replay of its program; the checkerboard's `eager=True` runs it
+    eagerly)."""
     from .models.enml.localizer import batch_localize
     from .models.enml.parallel_localizer import checkerboard_localize
 
@@ -433,9 +439,9 @@ def _localizers(st):
         float(c[-1, 0, 0])
         return p
 
-    def board(points, o, chunk):
+    def board(points, o, chunk, eager=False):
         p, c = checkerboard_localize(points, st.normals, st.point_mask,
-                                     st.poses, o, chunk=chunk)
+                                     st.poses, o, chunk=chunk, eager=eager)
         float(c[-1, 0, 0])
         return p
 
@@ -518,8 +524,10 @@ def enml_scale_section(device) -> dict:
     on points + 1e-6 after a warm call (on a card the warm call captures
     its program, `sweep_capture_ms`, and the timed one replays it), the
     checkerboard at 16 windows a batch warm then timed, and W = 80 at 8 a
-    batch (the minimum of two). `_runs` reruns the two timed checkerboards
-    for the device analysis; `_inputs`."""
+    batch (the minimum of two), each a replay of its program on a card.
+    `_runs` reruns the two timed checkerboards for the device analysis,
+    each with an eager run (`eager=True`) and its wall, which the profiler
+    traces in the replay's place; `_inputs`."""
     from .models.enml.localizer import EnmlOptions
 
     sync = S.synchronizer(device)
@@ -534,14 +542,23 @@ def enml_scale_section(device) -> dict:
     _, ck_ms = _timed(sync, lambda: board(pts_p, o, CHUNK))
     w80_ms = _w80(sync, board, st, CHUNK_W80)
     o80 = EnmlOptions(max_history=W80)
+    pts_80 = st.points + 1e-6
+
+    def eager(points, o, chunk):
+        def run():
+            return board(points, o, chunk, eager=True)
+        return run, _timed(sync, run)[1]
+
     return {
         "scans": steps, "footprint": enml_footprint(st),
         "sequential_ms": seq_ms, "sweep_capture_ms": capture_ms,
         "checkerboard_ms": ck_ms, "w80_ms": w80_ms,
-        "_runs": {"enml_scale_checkerboard": (lambda: board(pts_p, o, CHUNK),
-                                              ck_ms),
-                  "enml_scale_w80": (lambda: board(st.points + 1e-6, o80,
-                                                   CHUNK_W80), w80_ms)},
+        "_runs": {"enml_scale_checkerboard": (
+                      lambda: board(pts_p, o, CHUNK), ck_ms,
+                      *eager(pts_p, o, CHUNK)),
+                  "enml_scale_w80": (
+                      lambda: board(pts_80, o80, CHUNK_W80), w80_ms,
+                      *eager(pts_80, o80, CHUNK_W80))},
         "_inputs": (st.points, st.normals, st.point_mask, st.poses),
     }
 
@@ -647,14 +664,21 @@ def device_profile(run) -> tuple[float, int]:
 UNTRACED_SURFACES = ("enml_batch",)
 
 
-def device_analysis(device, surfaces: dict) -> dict:
+def device_analysis(device, surfaces: dict,
+                    profiled: dict | None = None) -> dict:
     """For each surface name -> (run, wall ms, input tensors[, extra]): the
     wall, the bytes of the inputs and, on a CUDA device, the device ms,
     device operations and host reads of one rerun under the profiler, the
     busy share (device ms over the wall) and the rerun's own seconds; None
     for those five on the CPU and for UNTRACED_SURFACES. `extra`, a
     callable, adds the fields it returns (the cycle programs' capture ms,
-    graph nodes and pool MiB for the chain)."""
+    graph nodes and pool MiB for the chain). `profiled` maps a surface to
+    (an eager run of its work, that run's wall ms): the profiler traces the
+    eager run in the rerun's place, and its busy share is the eager run's
+    device ms over the eager run's wall (`profiled_wall_ms`); the surface's
+    wall stays its own run's (the checkerboard's surfaces: their run
+    replays a program whose WHILE trips the profiler does not trace)."""
+    profiled = profiled or {}
     out = {}
     for name, (run, wall_ms, inputs, *extra) in surfaces.items():
         entry = {"wall_ms": wall_ms, "input_bytes": _nbytes(inputs),
@@ -662,11 +686,14 @@ def device_analysis(device, surfaces: dict) -> dict:
                  "busy": None, "profile_s": None}
         if (torch.device(device).type == "cuda"
                 and name not in UNTRACED_SURFACES):
+            traced, traced_ms = profiled.get(name, (run, wall_ms))
             t0 = time.perf_counter()
-            dev_ms, ops, reads = device_trace(run)
+            dev_ms, ops, reads = device_trace(traced)
             entry.update(device_ms=dev_ms, device_ops=ops, host_reads=reads,
-                         busy=dev_ms / wall_ms,
+                         busy=dev_ms / traced_ms,
                          profile_s=time.perf_counter() - t0)
+            if name in profiled:
+                entry.update(profiled="eager", profiled_wall_ms=traced_ms)
         for fn in extra:
             entry.update(fn())
         out[name] = entry
@@ -935,11 +962,13 @@ def reference_sections(device, smoke: bool = False) -> dict:
     if not smoke:
         e = s["enml_scale"]
         surfaces.update({k: (fn, ms, e["_inputs"])
-                         for k, (fn, ms) in e["_runs"].items()})
+                         for k, (fn, ms, *_) in e["_runs"].items()})
+        profiled = {k: tuple(r[2:]) for k, r in e["_runs"].items()}
         r8 = s["scale_8192"]["refine"]
         surfaces["refine_8192_pair"] = (r8["_run"], r8["wall_ms"],
                                         r8["_inputs"])
-    run("analysis", lambda: device_analysis(device, surfaces))
+    run("analysis", lambda: device_analysis(device, surfaces,
+                                            profiled if not smoke else None))
     peaks = [v["peak_mib"] for v in sections.values()]
     s["memory"] = {"peak_mib": None if None in peaks else max(peaks),
                    "sections": sections}

@@ -36,8 +36,12 @@ Covariances: an evaluation pass over the even tiling takes every pose's
 the pose frame; a window's first pose is pinned, so a second pass over the
 odd tiling fills the poses 0, W, 2W, ... .
 
-No host read inside the passes: window starts, masks and scatter rows are
-numpy, built once and copied to the device before the first solve.
+No host read inside the passes: window starts, masks and scatter rows
+(each parity's `_Plan`) are numpy, built from (P, W, chunk) alone and
+copied to the device before the first solve, or before a program's
+capture. The chunk loops are `device_for`s over a chunk index held on the
+device, so on a CUDA device the whole localizer is one captured program
+(models/enml/program.py::CheckerboardProgram), replayed by a call.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import torch
 from ...ops.correspond import grid_match
 from ...ops.geometry import angle_mod, rotate
 from ...parallel.mesh import groups_of
+from ...utils.device_loop import device_for, replays
 from .localizer import (EnmlOptions, _brute_window_match, _match_gates,
                         _odometry_targets, _pair_mask, window_gn_batched)
 
@@ -81,12 +86,6 @@ def _se2_apply(T: Tensor, poses: Tensor) -> Tensor:
     xy = (T[..., :2, :2] @ poses[..., :2, None])[..., 0] + T[..., :2, 2]
     dth = torch.atan2(T[..., 1, 0], T[..., 0, 0])
     return torch.cat([xy, (poses[..., 2] + dth)[..., None]], dim=-1)
-
-
-def _gather_windows(arr: Tensor, starts: Tensor, W: int, fill_clamp: int):
-    """[B] window starts -> [B, W, ...] gathered slices (indices clamped)."""
-    idx = starts[:, None] + torch.arange(W, device=starts.device)[None, :]
-    return arr[torch.clamp(idx, 0, fill_clamp)], idx
 
 
 def _grid_capacities(W: int, N: int) -> tuple[int, int]:
@@ -130,11 +129,15 @@ def window_covariances(H: Tensor, active: Tensor, th: Tensor) -> Tensor:
     m3 = active.repeat_interleave(3, dim=-1)
     H = torch.where(m3[..., :, None] & m3[..., None, :], H, 0.0)
     H = H + torch.diag_embed(torch.where(m3, 1e-9, 1.0).to(dtype))
-    if H.device.type == "cpu" and H.dim() > 2:
-        # one window at a time: MKL's batched LU solve stalls on some
-        # batches of [240, 240] window systems (W = 80) with more than one
-        # thread, after reporting an invalid pivot; each matrix alone is
-        # fine, and the arithmetic is the same
+    if H.dim() > 2:
+        # one window at a time: on the CPU, MKL's batched LU solve stalls
+        # on some batches of [240, 240] window systems (W = 80) with more
+        # than one thread, after reporting an invalid pivot; on the card,
+        # PyTorch hands a batch of [240, 240] systems to MAGMA, which
+        # synchronises with the host and cannot be captured, where one
+        # system alone goes to cuSOLVER (scripts/linalg_capture_probe.py
+        # --batched). Each matrix alone is fine, and the arithmetic is the
+        # same
         flat = H.reshape(-1, 3 * W, 3 * W)
         cov_full = torch.stack([torch.linalg.inv_ex(h)[0] for h in flat]
                                ).reshape(H.shape)
@@ -203,25 +206,25 @@ def _prefix_matmul(x: Tensor) -> Tensor:
 
 
 @dataclasses.dataclass
-class _Tiling:
-    """One parity's disjoint window tiling on the device: B real windows,
-    padded to a multiple of the chunk width ck with fully inactive windows.
-    Row tensors are [Bpad, W(-1)]; the per-window point data is gathered
-    once (it does not depend on the poses)."""
+class _Plan:
+    """One parity's disjoint window tiling, from (P, W, chunk, n_shares)
+    alone: B real windows, padded to Bpad (a multiple of the chunk width
+    ck and of n_shares) with fully inactive windows. Its index rows and
+    masks are device tensors made from numpy before any capture (a
+    program's warm()); `any_active` is also kept on the host, where it
+    makes a static choice."""
 
     B: int
     ck: int
     idx: Tensor          # [Bpad, W] pose rows, clamped to [0, P - 1]
     active: Tensor       # [Bpad, W] row < P
-    pin: Tensor          # [Bpad, W] ~active
-    pts: Tensor          # [Bpad, W, N, 2]
-    nrm: Tensor
-    mask: Tensor         # [Bpad, W, N], inactive rows masked
-    chain: tuple         # (axis, d, rot, isig, valid) of each window chain
+    cidx: Tensor         # [Bpad, W - 1] chain factor rows, clamped
+    chain_ok: Tensor     # [Bpad, W - 1] the chain factor exists
     rows: Tensor         # [B * W] scatter rows, inactive -> P (dump row)
     old_last: Tensor     # [B] pose row of each window's last active pose
     last_j: Tensor       # [B] its window offset
     any_active: np.ndarray  # [B] host flags
+    any_active_d: Tensor    # [B] the same on the device
     fill_odd: Tensor     # [Bpad * W] covariance rows of the odd tiling
 
     @property
@@ -229,9 +232,12 @@ class _Tiling:
         """Windows in the chunks of ck that hold the real ones."""
         return -(-self.B // self.ck) * self.ck
 
+    @property
+    def n_chunks(self) -> int:
+        return self.n_chunked // self.ck
 
-def _tiling(parity, half, W, P, chunk, points, normals, point_mask,
-            odo, n_shares=1) -> _Tiling:
+
+def _plan(parity, half, W, P, chunk, n_shares, device) -> _Plan:
     first = parity * half
     n_win = -(-(P - first) // W) if P > first else 0
     B = max(n_win, 1)
@@ -245,34 +251,85 @@ def _tiling(parity, half, W, P, chunk, points, normals, point_mask,
     starts = np.concatenate([starts, np.full(Bpad - B, P + W)])
     idx = starts[:, None] + np.arange(W)[None, :]
     active = idx < P
-    dev = points.device
-    starts_d = torch.as_tensor(starts, device=dev)
-    pts, idx_d = _gather_windows(points, starts_d, W, P - 1)
-    cl = torch.clamp(idx_d, 0, P - 1)
-    act = torch.as_tensor(active, device=dev)
-    cidx = torch.as_tensor(np.clip(idx[:, :-1], 0, max(P - 2, 0)), device=dev)
-    axis, d, rot, isig = odo
-    chain = (axis[cidx], d[cidx], rot[cidx], isig[cidx],
-             torch.as_tensor(idx[:, :-1] < P - 1, device=dev).to(
-                 points.dtype))
     last_j = np.maximum(active[:B].sum(1) - 1, 0)
     # rows of the odd tiling that the even tiling cannot give (its pinned
     # window-first poses, multiples of W); the window-first offset of the
     # odd tiling is pinned too, so it never gives a marginal
     fill = active & (idx % W == 0) & (np.arange(W)[None, :] != 0)
+    any_active = active[:B].any(1)
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    return _Plan(
+        B=B, ck=ck, idx=dev(np.clip(idx, 0, P - 1)), active=dev(active),
+        cidx=dev(np.clip(idx[:, :-1], 0, max(P - 2, 0))),
+        chain_ok=dev(idx[:, :-1] < P - 1),
+        rows=dev(np.where(active[:B], idx[:B], P).reshape(-1)),
+        old_last=dev(np.clip(starts[:B] + last_j, 0, P - 1)),
+        last_j=dev(last_j), any_active=any_active,
+        any_active_d=dev(any_active),
+        fill_odd=dev(np.where(fill, idx, P).reshape(-1)))
+
+
+def _plans(P: int, W: int, chunk: int, n_shares: int,
+           device) -> tuple[_Plan, ...]:
+    """The even tiling's plan, and the odd one's where P > W // 2."""
+    half = max(W // 2, 1)
+    out = [_plan(0, half, W, P, chunk, n_shares, device)]
+    if P > half:
+        out.append(_plan(1, half, W, P, chunk, n_shares, device))
+    return tuple(out)
+
+
+@dataclasses.dataclass
+class _Chunk:
+    """The data of a chunk's windows: pin [ck, W], pts / nrm [ck, W, N, 2],
+    mask [ck, W, N] (inactive rows masked) and the chain factors (axis, d,
+    rot, isig, valid) [ck, W - 1, ...]."""
+
+    pin: Tensor
+    pts: Tensor
+    nrm: Tensor
+    mask: Tensor
+    chain: tuple
+
+
+@dataclasses.dataclass
+class _Tiling(_Plan):
+    """A plan with its windows' data gathered from the inputs (it does not
+    depend on the poses), every window's as a _Chunk's [Bpad, ...]."""
+
+    data: _Chunk
+
+    def take(self, sel: Tensor) -> _Chunk:
+        """The data of the windows `sel` ([ck] rows of Bpad), gathered on
+        the device."""
+        d = self.data
+
+        def pick(a):
+            return a.index_select(0, sel)
+
+        return _Chunk(pin=pick(d.pin), pts=pick(d.pts), nrm=pick(d.nrm),
+                      mask=pick(d.mask), chain=tuple(pick(c) for c in d.chain))
+
+
+def _tiling(pl: _Plan, points, normals, point_mask, odo) -> _Tiling:
+    Bpad, W = pl.idx.shape
+    flat = pl.idx.reshape(-1)
+
+    def gather(a):
+        return a.index_select(0, flat).reshape(Bpad, W, *a.shape[1:])
+
+    cflat = pl.cidx.reshape(-1)
+    axis, d, rot, isig = odo
+    chain = tuple(c.index_select(0, cflat).reshape(Bpad, W - 1, *c.shape[1:])
+                  for c in (axis, d, rot, isig))
     return _Tiling(
-        B=B, ck=ck, idx=cl, active=act, pin=~act, pts=pts,
-        nrm=_gather_windows(normals, starts_d, W, P - 1)[0],
-        mask=_gather_windows(point_mask, starts_d, W, P - 1)[0]
-        & act[..., None], chain=chain,
-        rows=torch.as_tensor(np.where(active[:B], idx[:B], P).reshape(-1),
-                             device=dev),
-        old_last=torch.as_tensor(np.clip(starts[:B] + last_j, 0, P - 1),
-                                 device=dev),
-        last_j=torch.as_tensor(last_j, device=dev),
-        any_active=active[:B].any(1),
-        fill_odd=torch.as_tensor(np.where(fill, idx, P).reshape(-1),
-                                 device=dev))
+        **{f.name: getattr(pl, f.name) for f in dataclasses.fields(pl)},
+        data=_Chunk(pin=~pl.active, pts=gather(points), nrm=gather(normals),
+                    mask=gather(point_mask) & pl.active[..., None],
+                    chain=chain + (pl.chain_ok.to(points.dtype),)))
 
 
 def _stage_clock(stage_ms: dict | None, device):
@@ -309,9 +366,22 @@ def checkerboard_localize(
     force_grid: bool = False,  # use the grid matcher regardless of size
     mesh=None,              # parallel.mesh.Mesh: windows over its 1st axis
     stage_ms: dict | None = None,  # receives wall ms per stage (synchronised)
+    *,
+    eager: bool = False,
 ) -> tuple[Tensor, Tensor]:
     """Full-trajectory batched sweep. Returns (poses [P, 3], covariances
     [P, 3, 3]) on the inputs' device.
+
+    Each chunk loop (a solve pass's chunks with their match rounds, the
+    covariance pass's chunks) is a `device_for` over a chunk index held on
+    the device, and with the grid matcher a chunk's window matches are one
+    inside it, as the reference's `lax.map`s. On a CUDA device the call
+    replays the shape's CheckerboardProgram (models/enml/program.py: one
+    CUDA graph, 2 n_passes + 2 WHILE nodes, the SE(2) carries and scatters
+    between them), unless `eager`, which runs the same code eagerly there,
+    for comparisons only. Two calls stay eager: one with a `mesh` (one
+    graph on one device cannot hold the device groups' copies) and one
+    with `stage_ms` (its clock synchronises at every stage boundary).
 
     With a `mesh`, the solve passes take every window of a parity as one
     batch, padded to a multiple of the mesh's first axis with inactive
@@ -326,49 +396,82 @@ def checkerboard_localize(
     steps ("gn"), the SE(2) carry and the scatter ("carry_scatter") and the
     covariance pass with its own matches ("covariance"), synchronising the
     device at every boundary."""
+    if mesh is None and stage_ms is None and replays(initial_poses, eager):
+        from .program import checkerboard_program
+
+        return checkerboard_program(points, options, n_passes, chunk,
+                                    force_grid).run(
+            points, normals, point_mask, initial_poses)
     o = options
+    P = points.shape[0]
+    dev = initial_poses.device
+    lap = _stage_clock(stage_ms, dev)
+    entries = [] if mesh is None else mesh.axis(mesh.axis_names[0])
+    plans = _plans(P, min(o.max_history, P), chunk, max(len(entries), 1),
+                   dev)
+    return _checkerboard(points, normals, point_mask, initial_poses, o,
+                         n_passes, force_grid, plans, _match_gates(o, dev),
+                         entries, lap)
+
+
+def _checkerboard(points, normals, point_mask, initial_poses,
+                  o: EnmlOptions, n_passes: int, force_grid: bool,
+                  plans: tuple, gates, entries=(), lap=None):
+    """checkerboard_localize's passes over the tilings `plans` (from
+    _plans), eager or captured; `entries` the mesh's first axis (none: the
+    chunked solve), `lap` the stage clock."""
     P, N, _ = points.shape
     W = min(o.max_history, P)
     M = W * N
-    half = max(W // 2, 1)
     dev, dtype = initial_poses.device, initial_poses.dtype
-    lap = _stage_clock(stage_ms, dev)
+    if lap is None:
+        lap = _stage_clock(None, dev)
     o_one_round = dataclasses.replace(o, match_rounds=1)
-    gates = _match_gates(o, dev)
     use_grid = force_grid or (W * N > BRUTE_MATCH_LIMIT)
     pose_of = torch.arange(W, device=dev)[:, None].expand(W, N).reshape(M)
     eye = torch.eye(3, dtype=dtype, device=dev)
 
     odo = _odometry_targets(initial_poses, o)
-    entries = [] if mesh is None else mesh.axis(mesh.axis_names[0])
     n_shares = max(len(entries), 1)
-    tilings = [_tiling(0, half, W, P, chunk, points, normals, point_mask,
-                       odo, n_shares)]
-    if P > half:
-        tilings.append(_tiling(1, half, W, P, chunk, points, normals,
-                               point_mask, odo, n_shares))
+    tilings = [_tiling(pl, points, normals, point_mask, odo) for pl in plans]
     lap("setup")
 
-    def match_chunk(tl, sl, wposes):
+    def match_chunk(ch, wposes):
         """(tgt [ck, M], valid [ck, M]) of the chunk's windows at wposes:
-        one batched brute match, or the grid matcher window by window."""
-        pts = tl.pts[sl].reshape(-1, M, 2)
-        nrm = tl.nrm[sl].reshape(-1, M, 2)
-        msk = tl.mask[sl].reshape(-1, M)
+        one batched brute match, or the grid matcher window by window (a
+        loop over the chunk's windows)."""
+        pts = ch.pts.reshape(-1, M, 2)
+        nrm = ch.nrm.reshape(-1, M, 2)
+        msk = ch.mask.reshape(-1, M)
         if not use_grid:
             return _brute_window_match(wposes, pts, nrm, msk, pose_of,
                                        *gates, _pair_mask(msk, pose_of))
-        tv = [_make_match_fn(pts[k], nrm[k], msk[k], W, N, o)(wposes[k])
-              for k in range(wposes.shape[0])]
-        return (torch.stack([t for t, _ in tv]),
-                torch.stack([v for _, v in tv]))
+        ck = wposes.shape[0]
+        tgt = torch.empty((ck, M), dtype=torch.int32, device=dev)
+        valid = torch.empty((ck, M), dtype=torch.bool, device=dev)
 
-    def gn_chunk(tl, sl, wposes, tgt, valid, eval_only=False):
+        def window(j):
+            j1 = j.reshape(1)
+            t_, v_ = _make_match_fn(
+                pts.index_select(0, j1)[0], nrm.index_select(0, j1)[0],
+                msk.index_select(0, j1)[0], W, N, o)(
+                    wposes.index_select(0, j1)[0])
+            tgt.index_copy_(0, j1, t_[None])
+            valid.index_copy_(0, j1, v_[None])
+
+        device_for(ck, window, dev)
+        return tgt, valid
+
+    def gn_chunk(ch, wposes, tgt, valid, eval_only=False):
         return window_gn_batched(
-            wposes, tl.pts[sl], tl.nrm[sl], tl.mask[sl],
-            *(c[sl] for c in tl.chain), o_one_round,
-            match_fn=lambda _p: (tgt, valid), w_pin=tl.pin[sl],
+            wposes, ch.pts, ch.nrm, ch.mask, *ch.chain, o_one_round,
+            match_fn=lambda _p: (tgt, valid), w_pin=ch.pin,
             eval_only=eval_only, need_hessian=eval_only, gates=gates)
+
+    def window_poses(poses, ch_idx):
+        """[ck, W, 3] poses of the windows with pose rows ch_idx [ck, W]."""
+        return poses.index_select(0, ch_idx.reshape(-1)).reshape(
+            *ch_idx.shape, 3)
 
     def mesh_solve(poses, tl):
         """Every window of the tiling, each device group its contiguous
@@ -378,8 +481,8 @@ def checkerboard_localize(
         for grp in groups_of(entries):
             g_dev = grp.device
             sl = slice(grp.lo * share, grp.hi * share)
-            pts, nrm, msk = (a[sl].to(g_dev) for a in (tl.pts, tl.nrm,
-                                                        tl.mask))
+            d = tl.data
+            pts, nrm, msk = (a[sl].to(g_dev) for a in (d.pts, d.nrm, d.mask))
             w0 = poses.to(g_dev)[tl.idx[sl].to(g_dev)]
             match_fn = None
             if use_grid:
@@ -398,40 +501,48 @@ def checkerboard_localize(
                         tgt[i], valid[i] = t_, v_
                     return tgt, valid
             wp = window_gn_batched(
-                w0, pts, nrm, msk, *(c[sl].to(g_dev) for c in tl.chain), o,
-                match_fn=match_fn, w_pin=tl.pin[sl].to(g_dev),
+                w0, pts, nrm, msk, *(c[sl].to(g_dev) for c in d.chain), o,
+                match_fn=match_fn, w_pin=d.pin[sl].to(g_dev),
                 need_hessian=False, gates=_match_gates(o, g_dev))[0]
             new_w.append(torch.where(tl.active[sl, :, None].to(g_dev), wp,
                                      w0).to(dev))
         lap("gn")
-        return new_w
+        return torch.cat(new_w)
 
     def chunked_solve(poses, tl):
-        new_w = []
-        for lo in range(0, tl.n_chunked, tl.ck):
-            sl = slice(lo, lo + tl.ck)
-            w0 = poses[tl.idx[sl]]
+        """[n_chunked, W, 3]: each chunk's windows after its match rounds,
+        a loop over the chunks."""
+        ck = tl.ck
+        ar = torch.arange(ck, device=dev)
+        out = torch.empty((tl.n_chunked, W, 3), dtype=dtype, device=dev)
+
+        def trip(c):
+            sel = c * ck + ar
+            ch = tl.take(sel)
+            w0 = window_poses(poses, tl.idx.index_select(0, sel))
             wp = w0
             for _ in range(o.match_rounds):
-                tgt, valid = match_chunk(tl, sl, wp)
+                tgt, valid = match_chunk(ch, wp)
                 lap("match")
-                wp = gn_chunk(tl, sl, wp, tgt, valid)[0]
+                wp = gn_chunk(ch, wp, tgt, valid)[0]
                 lap("gn")
-            new_w.append(torch.where(tl.active[sl, :, None], wp, w0))
-        return new_w
+            out.index_copy_(0, sel, torch.where(
+                tl.active.index_select(0, sel)[..., None], wp, w0))
+
+        device_for(tl.n_chunks, trip, dev)
+        return out
 
     def half_pass(poses, tl):
-        new_w = (chunked_solve if mesh is None else mesh_solve)(poses, tl)
-        new_w = torch.cat(new_w)[:tl.B]                          # [B, W, 3]
+        new_w = (chunked_solve if not entries else mesh_solve)(poses, tl)
+        new_w = new_w[:tl.B]                                     # [B, W, 3]
 
         # SE(2) carry: boundary correction at each window's last ACTIVE pose
-        old_last = poses[tl.old_last]
+        old_last = poses.index_select(0, tl.old_last)
         new_last = new_w[torch.arange(tl.B, device=dev), tl.last_j]
         dT = _se2_mat(new_last) @ torch.linalg.inv_ex(_se2_mat(old_last))[0]
         if not tl.any_active.all():
             # windows with no active pose contribute identity
-            dT = torch.where(torch.as_tensor(tl.any_active, device=dev)[
-                :, None, None], dT, eye)
+            dT = torch.where(tl.any_active_d[:, None, None], dT, eye)
         carry = torch.cat([eye[None], _prefix_matmul(dT)[:-1]], 0)
         carried = _se2_apply(carry[:, None], new_w)               # [B, W, 3]
         # scatter back: disjoint windows; inactive rows land in the dump
@@ -451,14 +562,24 @@ def checkerboard_localize(
     # its block is no marginal: the even tiling gives every other pose, the
     # odd tiling the even tiling's window-first poses (0, W, 2W, ...) ----
     def eval_tiling(tl):
-        covs = []
-        for lo in range(0, tl.n_chunked, tl.ck):
-            sl = slice(lo, lo + tl.ck)
-            w0 = poses[tl.idx[sl]]
-            tgt, valid = match_chunk(tl, sl, w0)
-            np_, H = gn_chunk(tl, sl, w0, tgt, valid, eval_only=True)
-            covs.append(window_covariances(H, tl.active[sl], np_[..., 2]))
-        return torch.cat(covs).reshape(-1, 3, 3)         # [n_chunked * W]
+        """[n_chunked * W, 3, 3] marginals, a loop over the chunks."""
+        ck = tl.ck
+        ar = torch.arange(ck, device=dev)
+        arw = torch.arange(ck * W, device=dev)
+        out = torch.empty((tl.n_chunked * W, 3, 3), dtype=dtype, device=dev)
+
+        def trip(c):
+            sel = c * ck + ar
+            ch = tl.take(sel)
+            w0 = window_poses(poses, tl.idx.index_select(0, sel))
+            tgt, valid = match_chunk(ch, w0)
+            np_, H = gn_chunk(ch, w0, tgt, valid, eval_only=True)
+            cov = window_covariances(H, tl.active.index_select(0, sel),
+                                     np_[..., 2])
+            out.index_copy_(0, c * (ck * W) + arw, cov.reshape(-1, 3, 3))
+
+        device_for(tl.n_chunks, trip, dev)
+        return out
 
     even = tilings[0]
     pinned = torch.arange(W, device=dev) == 0

@@ -20,6 +20,11 @@ here, so the draws are an input (`draws`):
     CPU score the same hypotheses;
   - or a callable (round_index, avail) -> (ia, ib) giving the endpoint
     indices ([K], or [B, K]) for the availability mask it is handed.
+
+With uniforms the rounds are a `device_for` over a round index held on
+the device, and on a CUDA device the extraction replays one captured
+program (the reference's jitted `lax.scan` over rounds); the callable
+route asks the host for every round's draws and runs eagerly.
 """
 
 from __future__ import annotations
@@ -28,6 +33,9 @@ from dataclasses import dataclass
 from typing import Callable, Union
 
 import torch
+
+from ..utils.device_loop import (DeviceProgram, ProgramCache, device_for,
+                                 replays)
 
 Tensor = torch.Tensor
 Draws = Union[Tensor, Callable[[int, Tensor], tuple]]
@@ -119,22 +127,41 @@ def extract_segments(
     mask: Tensor,    # [M] bool, or [B, M]
     draws: Draws,
     params: RansacParams = RansacParams(),
+    *,
+    eager: bool = False,
 ) -> Segments:
+    """The `num_segments` rounds of the extraction. With uniform draws
+    (a tensor) the rounds are one `device_for` over a round index held on
+    the device, as the reference's `lax.scan`: on a CUDA device a replay
+    of the shape's program (one CUDA graph, one WHILE node;
+    `ransac_program`), unless `eager`, which runs the same code eagerly
+    there, for comparisons only. A callable `draws` is asked for each
+    round's endpoints on the host, so that route stays eager."""
     p = params
+    if isinstance(draws, Tensor):
+        want = (p.num_segments, 2, p.num_hypotheses)
+        if pts.dim() == 3:
+            want = (pts.shape[0],) + want
+        if tuple(draws.shape) != want:
+            raise ValueError(f"draws {tuple(draws.shape)} do not fit {want}")
+        if replays(pts, eager):
+            return ransac_program(pts, p).run(pts, mask, draws)
+    return _extract(pts, mask, draws, p)
+
+
+def _extract(pts: Tensor, mask: Tensor, draws: Draws,
+             p: RansacParams) -> Segments:
+    """extract_segments' rounds, eager or captured: a round writes its
+    segment into the [B, S, ...] outputs at its index and takes its
+    inliers out of `avail` in place."""
     batched = pts.dim() == 3
     if not batched:
         pts, mask = pts[None], mask[None]
     B, M, _ = pts.shape
-    dtype = pts.dtype
+    S = p.num_segments
+    dtype, dev = pts.dtype, pts.device
     thr = p.inlier_threshold
     ptsT = pts.transpose(1, 2)                              # [B, 2, M]
-    from_uniforms = isinstance(draws, Tensor)
-    if from_uniforms:
-        u_all = draws if batched else draws[None]
-        want = (B, p.num_segments, 2, p.num_hypotheses)
-        if tuple(u_all.shape) != want:
-            raise ValueError(f"draws {tuple(draws.shape)} do not fit "
-                             f"{want[0 if batched else 1:]}")
 
     def take(x: Tensor, idx: Tensor) -> Tensor:
         """x[b, idx[b, k]] for x [B, M, 2] -> [B, K, 2]."""
@@ -147,17 +174,18 @@ def extract_segments(
         rel = torch.where(sel, pts - cm[:, None, :], 0.0)   # [B, M, 2]
         return cm, rel, rel.transpose(1, 2) @ rel           # [B, 2, 2]
 
-    avail = mask
-    out = []
-    for r in range(p.num_segments):
-        if from_uniforms:
-            csum = torch.cumsum(avail, 1, dtype=torch.int32)
-            ia = _pick_available(avail, csum, u_all[:, r, 0])
-            ib = _pick_available(avail, csum, u_all[:, r, 1])
-        else:
-            ia, ib = draws(r, avail if batched else avail[0])
-            ia = torch.as_tensor(ia, device=pts.device).reshape(B, -1)
-            ib = torch.as_tensor(ib, device=pts.device).reshape(B, -1)
+    avail = mask.clone()
+    out = Segments(
+        p1=torch.empty((B, S, 2), dtype=dtype, device=dev),
+        p2=torch.empty((B, S, 2), dtype=dtype, device=dev),
+        count=torch.empty((B, S), dtype=torch.int32, device=dev),
+        valid=torch.empty((B, S), dtype=torch.bool, device=dev),
+        mass=torch.empty((B, S), dtype=dtype, device=dev),
+        centroid=torch.empty((B, S, 2), dtype=dtype, device=dev),
+        scatter=torch.empty((B, S, 2, 2), dtype=dtype, device=dev))
+
+    def one_round(r: Tensor, ia: Tensor, ib: Tensor) -> None:
+        """Round r (a 0-dim int64 tensor) from the hypotheses ia, ib."""
         a = take(pts, ia)                                    # [B, K, 2]
         b = take(pts, ib)
         d = b - a
@@ -181,13 +209,14 @@ def extract_segments(
         inliers = (((n_b @ ptsT)[:, 0] - c_b).abs() < thr) & avail & best_ok
 
         # total-least-squares refine over the claimed inliers
-        cm, rel, S = line_fit(inliers)
-        direction = principal_direction(S[:, 0, 0], S[:, 0, 1], S[:, 1, 1])
+        cm, rel, Sc = line_fit(inliers)
+        direction = principal_direction(Sc[:, 0, 0], Sc[:, 0, 1],
+                                        Sc[:, 1, 1])
         # re-gate inliers against the refined line
         n_ref = torch.stack([-direction[:, 1], direction[:, 0]], -1)
         d_ref = ((pts - cm[:, None, :]) @ n_ref[..., None])[..., 0].abs()
         inliers = (d_ref < thr) & avail & best_ok
-        cm, rel, S = line_fit(inliers)
+        cm, rel, Sc = line_fit(inliers)
         t = (rel @ direction[..., None])[..., 0]             # [B, M]
         count = inliers.sum(1)
         some = count > 0
@@ -198,13 +227,61 @@ def extract_segments(
         p2 = cm + t_hi[:, None] * direction
         valid = ((count >= p.min_inliers) & ((t_hi - t_lo) >= p.min_length)
                  & best_ok[:, 0])
-        avail = avail & ~(inliers & valid[:, None])
-        out.append((p1, p2, count.to(torch.int32), valid, count.to(dtype),
-                    cm, S))
+        avail.copy_(avail & ~(inliers & valid[:, None]))
+        r1 = r.reshape(1)
+        for buf, v in ((out.p1, p1), (out.p2, p2),
+                       (out.count, count.to(torch.int32)),
+                       (out.valid, valid), (out.mass, count.to(dtype)),
+                       (out.centroid, cm), (out.scatter, Sc)):
+            buf.index_copy_(1, r1, v[:, None])
 
-    fields = [torch.stack(f, dim=1) for f in zip(*out)]      # [B, S, ...]
+    if isinstance(draws, Tensor):
+        u_all = draws if batched else draws[None]        # [B, S, 2, K]
+
+        def round_from_uniforms(r):
+            u = u_all.index_select(1, r.reshape(1))[:, 0]    # [B, 2, K]
+            csum = torch.cumsum(avail, 1, dtype=torch.int32)
+            one_round(r, _pick_available(avail, csum, u[:, 0]),
+                      _pick_available(avail, csum, u[:, 1]))
+
+        device_for(S, round_from_uniforms, dev)
+    else:
+        r = torch.zeros((), dtype=torch.int64, device=dev)
+        for k in range(S):
+            ia, ib = draws(k, avail if batched else avail[0])
+            one_round(r, torch.as_tensor(ia, device=dev).reshape(B, -1),
+                      torch.as_tensor(ib, device=dev).reshape(B, -1))
+            r.add_(1)
+
     if not batched:
-        fields = [f[0] for f in fields]
-    p1, p2, count, valid, mass, cm, S = fields
-    return Segments(p1=p1, p2=p2, count=count, valid=valid, mass=mass,
-                    centroid=cm, scatter=S)
+        out = Segments(*(f[0] for f in (out.p1, out.p2, out.count,
+                                        out.valid, out.mass, out.centroid,
+                                        out.scatter)))
+    return out
+
+
+# extract_segments' programs, by shape and parameters: a proposal round
+# runs two shapes (the pair and the lone scans), a curation a third
+_programs = ProgramCache(size=2)
+
+
+def ransac_program(pts: Tensor, params: RansacParams = RansacParams()
+                   ) -> DeviceProgram:
+    """The program extract_segments replays with uniform draws for points
+    shaped as `pts` ([M, 2] or [B, M, 2] on a CUDA device) and these
+    parameters: run(pts, mask, uniforms) -> Segments. The one made before,
+    or a new one, captured at its first run."""
+    dev, dtype = pts.device, pts.dtype
+    shape = tuple(pts.shape)
+    lead = shape[:-2]
+    example = (torch.empty(shape, dtype=dtype),
+               torch.empty(shape[:-1], dtype=torch.bool),
+               torch.empty(lead + (params.num_segments, 2,
+                                   params.num_hypotheses),
+                           dtype=torch.float32))
+
+    def fn(pts, mask, u):
+        return _extract(pts, mask, u, params)
+
+    return _programs.get((shape, dtype, params, dev.type, dev.index),
+                         lambda: DeviceProgram(fn, example, dev))

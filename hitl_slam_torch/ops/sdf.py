@@ -4,7 +4,9 @@ Port of hitl_slam_tpu/ops/sdf.py, a projective TSDF: every scan is binned by
 bearing once (all poses in one pass), and each pixel gathers the
 interpolated beam range at its own bearing, one O(HW) pass per scan, pose
 after pose in the map's order (the running weighted mean's f32 rounding
-depends on that order, so it is kept). Weight/value semantics: truncation to
+depends on that order, so it is kept): a `device_for` over a pose index
+held on the device, so that on a CUDA device build_sdf replays one
+captured program, as the reference's jitted `lax.scan`. Weight/value semantics: truncation to
 [min_sdf_value, max_sdf_value], exponential weight exp(-sigma (d - eps)^2)
 with the maximum weight inside eps, running weighted mean, and the
 T_dynamic * max-weight binarized mask used to filter dynamic objects.
@@ -18,6 +20,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.device_loop import (DeviceProgram, ProgramCache, device_for,
+                                 replays)
 from .geometry import f32_reciprocal
 
 Tensor = torch.Tensor
@@ -81,8 +85,26 @@ def build_sdf(
     height: int,
     width: int,
     params: SdfParams = SdfParams(),
+    *,
+    eager: bool = False,
 ) -> SdfImage:
-    p = params
+    """The TSDF of the map, one `device_for` over the poses in the map's
+    order (the reference's `lax.scan`). On a CUDA device a replay of the
+    shape's program (one CUDA graph, one WHILE node; `sdf_program`),
+    unless `eager`, which runs the same code eagerly there, for
+    comparisons only."""
+    if replays(poses, eager):
+        return sdf_program(poses, points, height, width, params).run(
+            poses, points, point_mask, origin)
+    return _build_sdf(poses, points, point_mask, origin, height, width,
+                      params)
+
+
+def _build_sdf(poses, points, point_mask, origin, height: int, width: int,
+               p: SdfParams) -> SdfImage:
+    """build_sdf's pose loop, eager or captured: a trip reads pose k and
+    its binned ranges at the device index k and updates the running mean
+    in place, in the reference's order of operations."""
     res = p.image_resolution
     nbins = p.num_bearing_bins
     dtype, dev = poses.dtype, poses.device
@@ -94,9 +116,11 @@ def build_sdf(
 
     values = torch.zeros((height, width), dtype=dtype, device=dev)
     weights = torch.zeros((height, width), dtype=dtype, device=dev)
-    for k in range(poses.shape[0]):
-        pose = poses[k]
-        ranges = all_ranges[k]
+
+    def pose_update(k):
+        k1 = k.reshape(1)
+        pose = poses.index_select(0, k1)[0]
+        ranges = all_ranges.index_select(0, k1)[0]
         dx = pix_x - pose[0]
         dy = pix_y - pose[1]
         r_pix = torch.sqrt(dx * dx + dy * dy)
@@ -126,14 +150,45 @@ def build_sdf(
             & (r_pix < p.max_range)
         )
         w = torch.where(update, w, 0.0)
-        values = (values * weights + w * torch.where(update, tsdf, 0.0)) / (
-            (weights + w).clamp(min=1e-12))
-        weights = weights + w
+        values.copy_((values * weights + w * torch.where(update, tsdf, 0.0))
+                     / ((weights + w).clamp(min=1e-12)))
+        weights.add_(w)
+
+    device_for(poses.shape[0], pose_update, dev)
     # never-observed pixels read min_sdf_value ("behind surface"), not the
     # accumulator's 0 / eps = 0 ("at surface")
     values = torch.where(weights > 0, values, p.min_sdf_value)
+    # a fill, not a copy from the host, so that a capture may hold it
+    resolution = torch.full((), res, dtype=dtype, device=dev)
     return SdfImage(values=values, weights=weights, origin=origin,
-                    resolution=torch.tensor(res, dtype=dtype, device=dev))
+                    resolution=resolution)
+
+
+# build_sdf's programs: a new map shape is a new capture, a curator's
+# repeat on one map reuses its program
+_programs = ProgramCache(size=2)
+
+
+def sdf_program(poses: Tensor, points: Tensor, height: int, width: int,
+                params: SdfParams = SdfParams()) -> DeviceProgram:
+    """The program build_sdf replays for a map of poses [P, 3] and points
+    [P, N, 2] (on a CUDA device), this image size and these parameters:
+    run(poses, points, point_mask, origin) -> SdfImage. The one made
+    before, or a new one, captured at its first run."""
+    P, N = points.shape[:2]
+    dev, dtype = poses.device, poses.dtype
+    example = (torch.empty((P, 3), dtype=dtype),
+               torch.empty((P, N, 2), dtype=dtype),
+               torch.empty((P, N), dtype=torch.bool),
+               torch.empty((2,), dtype=dtype))
+
+    def fn(poses, points, point_mask, origin):
+        return _build_sdf(poses, points, point_mask, origin, height, width,
+                          params)
+
+    return _programs.get(
+        (P, N, dtype, height, width, params, dev.type, dev.index),
+        lambda: DeviceProgram(fn, example, dev))
 
 
 def dynamic_mask(sdf: SdfImage, params: SdfParams = SdfParams()) -> Tensor:

@@ -33,6 +33,10 @@ conditional nodes of its own (`CUDAGraph.begin_capture_to_if_node` came
 later), so the WHILE node is added through the CUDA runtime in
 csrc/graph_loop.cu (conditional nodes need CUDA 12.4 or later;
 scripts/graph_loop_probe.py checks them on the card, nested ones too).
+
+`device_for` is the loop of a static trip count (a chunk, a pose or a
+round index): eagerly a Python loop that reads nothing, captured a WHILE
+node over an index held on the device.
 """
 
 from __future__ import annotations
@@ -78,6 +82,31 @@ def device_while(cond: Tensor, body: Callable[[], None],
         body()
         trips += 1
     return trips
+
+
+def device_for(trips: int, body: Callable[[Tensor], None],
+               device) -> None:
+    """`body(i)` for i = 0 .. trips - 1, `i` a 0-dim int64 tensor on
+    `device`: the reference's `lax.map` or `lax.scan` over a static range.
+    `body` updates its carry in place, as device_while's does. Eagerly a
+    Python loop that reads nothing back; inside a `LoopGraph` capture one
+    WHILE node (device_while on i < trips), one trip captured."""
+    i = torch.zeros((), dtype=torch.int64, device=device)
+    if trips <= 0:
+        return
+    if i.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        go = i < trips
+
+        def trip():
+            body(i)
+            i.add_(1)
+            torch.lt(i, trips, out=go)
+
+        device_while(go, trip, trips)
+        return
+    for _ in range(trips):
+        body(i)
+        i.add_(1)
 
 
 class LoopGraph:

@@ -65,7 +65,7 @@ GLOBAL_TIMERS = TimerCollection()
 
 @contextlib.contextmanager
 def device_trace(label: str, enabled: bool = False,
-                 logdir: str = "torch-trace"):
+                 logdir: str = "/tmp/torch-trace"):
     """Optionally wrap a block in a torch.profiler trace (host ops, and the
     card's kernels when CUDA is available), written to `logdir` as a Chrome
     trace (`<label>.pt.trace.json`, open with chrome://tracing or Perfetto)."""

@@ -29,9 +29,19 @@ and whether its replay is bit-equal to the eager calls:
      of each captured piece, the kernels of one eager `cholesky_ex`
      (cuSOLVER's potrf or MAGMA), and the replay against eager.
 
-Run on the card: `python scripts/linalg_capture_probe.py` (~30 s with the
-build of the graph helper). Prints one JSON line last; exits 1 without
-CUDA.
+With `--batched` it probes instead the checkerboard localizer's batched
+calls (models/enml/parallel_localizer.py), each in a WHILE body of two
+trips of a `DeviceProgram` whose warm() makes the same call at the same
+shape on the program's stream: `inv_ex` of the SE(2) boundary transforms
+[B, 3, 3] (B = 2, 8, 9, 13, 14 and 108 windows), `inv_ex` of the window
+Hessians [ck, 3W, 3W] (16 x 30, 8 x 30 and 8 x 240), and the batched GN
+step (`cholesky_ex` and two `solve_triangular`s) at [16, 30, 30] and
+[8, 240, 240]: whether each captured, the kernels of one eager call
+(cuSOLVER, cuBLAS or MAGMA), and the replay against eager.
+
+Run on the card: `python scripts/linalg_capture_probe.py [--batched]`
+(~30 s with the build of the graph helper). Prints one JSON line last;
+exits 1 without CUDA.
 """
 
 from __future__ import annotations
@@ -187,6 +197,78 @@ def refine_in_while(n: int, dev) -> dict:
     return row
 
 
+def _kernels(fn) -> list[str]:
+    """The CUDA kernels of one eager fn()."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key[:60] for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"})[:10]
+
+
+def _spd_batch(B: int, n: int, dev) -> torch.Tensor:
+    g = torch.Generator().manual_seed(B * 1000 + n)
+    a = torch.randn((B, n, n), generator=g)
+    return (a @ a.mT + n * torch.eye(n)).to(dev)
+
+
+def _gn_step(H):
+    L = torch.linalg.cholesky_ex(H)[0]
+    b = torch.ones(H.shape[:-1] + (1,), dtype=H.dtype, device=H.device)
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)
+
+
+BATCHED = {
+    **{f"inv_ex [{B}, 3, 3]": (B, 3, lambda H: torch.linalg.inv_ex(H)[0])
+       for B in (2, 8, 9, 13, 14, 108)},
+    **{f"inv_ex [{B}, {n}, {n}]": (B, n, lambda H: torch.linalg.inv_ex(H)[0])
+       for B, n in ((16, 30), (8, 30), (8, 240))},
+    **{f"GN step [{B}, {n}, {n}]": (B, n, _gn_step)
+       for B, n in ((16, 30), (8, 240))},
+}
+
+
+def batched_in_while(name: str, B: int, n: int, call, dev) -> dict:
+    """call(H + k) for k = 0, 1 in a WHILE body of a DeviceProgram."""
+    H = _spd_batch(B, n, dev)
+    shape = tuple(call(H).shape)
+
+    def fn(H):
+        out = torch.zeros(shape, dtype=H.dtype, device=H.device)
+        k = torch.zeros((), dtype=torch.int32, device=H.device)
+        cond = torch.ones((), dtype=torch.bool, device=H.device)
+
+        def body():
+            out.copy_(call(H + k.to(H.dtype)))
+            k.add_(1)
+            torch.lt(k, 2, out=cond)
+
+        device_while(cond, body, 4)
+        return out, k
+
+    row = {"case": name, "eager_kernels": _kernels(lambda: call(H))}
+    want, _ = fn(H)
+    prog = DeviceProgram(fn, (H,), dev, warm=lambda: call(H.clone()))
+    try:
+        got, k = prog.run(H)
+    except RuntimeError as e:
+        torch.cuda.synchronize(dev)
+        row.update(captured=False, error=str(e).splitlines()[0][:300])
+        return row
+    g = prog.graph()
+    row.update(captured=True, trips=int(k),
+               replay_bit_equal=bool(torch.equal(got, want)),
+               capture_ms=g.capture_ms, pool_mib=g.pool_mib,
+               piece_node_types=[
+                   g.node_types(ctypes.c_void_p(p.raw_cuda_graph()))
+                   for p in g._pieces])
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("linalg_capture_probe: no CUDA device", file=sys.stderr)
@@ -199,6 +281,13 @@ def main() -> int:
     print(f"[device] {smi}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     rows = {}
+    if "--batched" in sys.argv[1:]:
+        for name, (B, n, call) in BATCHED.items():
+            res = batched_in_while(name, B, n, call, dev)
+            print(f"[linalg] {res}", flush=True)
+            rows[name] = res
+        print(json.dumps({"linalg_capture_batched": rows}))
+        return 0
     first = torch.cuda.Stream(dev)
     for W in (10, 80):
         H, b = _system(3 * W, dev)

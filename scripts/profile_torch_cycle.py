@@ -33,13 +33,17 @@ window systems' assembly) timed on their own, and a profiler window over 8
 nodes; then the checkerboard localizer on the same map at W = 10 and W =
 80 (wall, its stage split: set-up, matches, batched GN steps, carry and
 scatter, covariance pass; a profiler window); `--enml-only` runs this part
-alone. Needs one CUDA device; imports
-nothing of JAX.
+alone. `--loops-eager` runs only the curation, the proposals and the
+scale map's checkerboard, with their SDF, RANSAC and checkerboard eager
+(`eager=True`): the baseline of their device programs, profiled by kernel.
+The profiler windows always run those three eagerly (it does not trace a
+WHILE node's trips). Needs one CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import subprocess
 import sys
@@ -279,12 +283,15 @@ def dense_correlation(torch, field, ki, kj, ok, W):
     return F.conv2d(field[None], kern, groups=B)[0].view(B, T, W, W)
 
 
-def proposal_profile(torch, repeat):
+def proposal_profile(torch, repeat, programs=True):
     """propose_corrections on the drifted 1024-pose map at the default
     matcher parameters: as the auto-repair loop calls it (the default
     min_gap, B = 4 candidates on this map) and at the full batch
-    max_proposals=4 admits (B = 8, min_gap=FULL_BATCH_MIN_GAP)."""
-    from chip_smoke import DRIFTED_MAP
+    max_proposals=4 admits (B = 8, min_gap=FULL_BATCH_MIN_GAP). Its RANSAC
+    replays its programs but where `programs` is false; the stage split
+    and the profiler window run it eagerly (the profiler does not trace a
+    WHILE node's trips)."""
+    from chip_smoke import DRIFTED_MAP, eager_loops
     from hitl_slam_torch.io.figure8 import generate_figure8
     from hitl_slam_torch.models.hitl import propose as P
     from hitl_slam_torch.models.hitl.engine import HitLSLAM
@@ -309,25 +316,30 @@ def proposal_profile(torch, repeat):
             return eng.propose_corrections(max_proposals=4, seed=0,
                                            min_gap=min_gap)
 
-        for r in range(repeat + 1):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            props = propose()
-            torch.cuda.synchronize()
-            print(f"{label}, run {r}{' (warm-up)' if r == 0 else ''}: wall "
-                  f"{(time.perf_counter() - t0) * 1e3:.3f} ms, {len(props)} "
-                  f"proposals, peak memory "
-                  f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
-        with StageTimer(torch, targets) as timer:
+        for eager in ((False, True) if programs else (True,)):
+            with eager_loops() if eager else contextlib.nullcontext():
+                for r in range(repeat + 1):
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    props = propose()
+                    torch.cuda.synchronize()
+                    print(f"{label}, {'eager' if eager else 'programs'}, "
+                          f"run {r}{' (warm-up)' if r == 0 else ''}: wall "
+                          f"{(time.perf_counter() - t0) * 1e3:.3f} ms, "
+                          f"{len(props)} proposals, peak memory "
+                          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f}"
+                          f" MiB")
+        with eager_loops(), StageTimer(torch, targets) as timer:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             propose()
             torch.cuda.synchronize()
             total = (time.perf_counter() - t0) * 1e3
-        timer.report(f"{label}: stage split", total,
+        timer.report(f"{label}: stage split (eager)", total,
                      "(host reads, the rest)")
-        device_profile(torch, propose, f"profiled {label}")
+        with eager_loops():
+            device_profile(torch, propose, f"profiled {label} (eager)")
 
     # the correlation alone at B = 8: the port's gathered sum against the
     # reference's dense conv2d
@@ -357,13 +369,20 @@ def proposal_profile(torch, repeat):
           f"from the gathered sum {float((a - b).abs().max()):.3e}")
 
 
-def ltvm_profile(torch, repeat):
+def ltvm_profile(torch, repeat, programs=True):
     """One LTVM curation of the clean 1024-pose figure-8 map at the default
-    parameters (SDF at 0.04 m, RANSAC 32 x 256 on 131,072 points)."""
-    from chip_smoke import CLEAN_MAP
+    parameters (SDF at 0.04 m, RANSAC 32 x 256 on 131,072 points): walls
+    with the SDF and the RANSAC replaying their programs (but where
+    `programs` is false) and eager, the stage split (synchronised at each
+    stage, with replays and eager), a profiler window over an eager
+    curation, and the eager SDF and RANSAC each by kernel, with the SDF's
+    device operations a pose."""
+    from chip_smoke import CLEAN_MAP, eager_loops
     from hitl_slam_torch.core.state import make_map_state
     from hitl_slam_torch.io.figure8 import generate_figure8
     from hitl_slam_torch.models.ltvm import curator as L
+    from hitl_slam_torch.ops import ransac, sdf as S
+    from hitl_slam_torch.ops.geometry import pose_to_world
 
     m = generate_figure8(**CLEAN_MAP)
     st = make_map_state(m.gt_poses, m.covariances, m.point_clouds,
@@ -373,26 +392,50 @@ def ltvm_profile(torch, repeat):
         return L.LongTermVectorMap(seed=0).curate(
             st.poses, st.points, st.point_mask)
 
-    for r in range(repeat + 1):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        vectors = curate()
-        torch.cuda.synchronize()
-        print(f"curate {r}{' (warm-up)' if r == 0 else ''}: wall "
-              f"{(time.perf_counter() - t0) * 1e3:.3f} ms, "
-              f"{len(vectors)} vectors, peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
     targets = [(L, "sdf_bounds"), (L, "build_sdf"), (L, "filter_points"),
                (L, "extract_segments")]
-    with StageTimer(torch, targets) as timer:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        curate()
-        torch.cuda.synchronize()
-        total = (time.perf_counter() - t0) * 1e3
-    timer.report("curate stage split", total, "(host merge, the rest)")
-    device_profile(torch, curate, "profiled curate")
+    for eager in ((False, True) if programs else (True,)):
+        how = "eager" if eager else "programs"
+        with eager_loops() if eager else contextlib.nullcontext():
+            for r in range(repeat + 1):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                vectors = curate()
+                torch.cuda.synchronize()
+                print(f"curate, {how}, {r}{' (warm-up)' if r == 0 else ''}: "
+                      f"wall {(time.perf_counter() - t0) * 1e3:.3f} ms, "
+                      f"{len(vectors)} vectors, peak memory "
+                      f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} "
+                      f"MiB")
+            with StageTimer(torch, targets) as timer:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                curate()
+                torch.cuda.synchronize()
+                total = (time.perf_counter() - t0) * 1e3
+            timer.report(f"curate stage split ({how})", total,
+                         "(host merge, the rest)")
+    with eager_loops():
+        device_profile(torch, curate, "profiled curate (eager)")
+    cur = L.LongTermVectorMap(seed=0)
+    with eager_loops():
+        cur.curate(st.poses, st.points, st.point_mask)
+    img = cur.last_sdf
+    H, W = img.values.shape
+    P = st.poses.shape[0]
+    params = S.SdfParams()
+    device_profile(torch, lambda: S.build_sdf(
+        st.poses, st.points, st.point_mask, img.origin, H, W, params,
+        eager=True), f"profiled build_sdf (eager; {P} poses, {H} x {W} "
+        f"pixels: device operations / {P} = a pose's)")
+    world = pose_to_world(st.poses[:, None, :], st.points)
+    keep = S.filter_points(img, world, st.point_mask, params)
+    rp = ransac.RansacParams()
+    u = ransac.uniform_draws(0, rp, "cuda")
+    device_profile(torch, lambda: ransac.extract_segments(
+        world.reshape(-1, 2), keep.reshape(-1), u, rp, eager=True),
+        f"profiled extract_segments (eager; {rp.num_segments} rounds)")
 
 
 def large_refine(torch, num_poses):
@@ -465,12 +508,13 @@ def enml_profile(torch, repeat):
     checkerboard_profile(torch, st, repeat)
 
 
-def checkerboard_profile(torch, st, repeat):
+def checkerboard_profile(torch, st, repeat, programs=True):
     """The checkerboard localizer on the reference-scale map at chip_smoke's
-    two configurations: wall, the stage split (window set-up, matches, the
-    batched GN steps, the SE(2) carry and scatter, the covariance pass with
-    its own matches; synchronised at every boundary) and a profiler
-    window."""
+    two configurations: walls (a replay of its program, but where
+    `programs` is false, and eager), the stage split (window set-up,
+    matches, the batched GN steps, the SE(2) carry and scatter, the
+    covariance pass with its own matches; synchronised at every boundary,
+    so eager) and a profiler window over an eager run."""
     from chip_smoke import CB_SCALE
     from hitl_slam_torch.models.enml import localizer as L
     from hitl_slam_torch.models.enml import parallel_localizer as CB
@@ -480,20 +524,22 @@ def checkerboard_profile(torch, st, repeat):
     for name, okw, chunk in CB_SCALE:
         o = L.EnmlOptions(**okw)
 
-        def run(stage_ms=None):
+        def run(stage_ms=None, eager=False):
             return CB.checkerboard_localize(*args, o, chunk=chunk,
-                                            stage_ms=stage_ms)
+                                            stage_ms=stage_ms, eager=eager)
 
-        run()
-        for r in range(repeat):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            print(f"checkerboard {name} {r}: {P} nodes x {N} padded points, "
-                  f"{chunk} windows a batch, {ms:.1f} ms ({ms / P:.3f} ms a "
-                  f"node)")
+        for eager in ((False, True) if programs else (True,)):
+            run(eager=eager)
+            for r in range(repeat):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(eager=eager)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                print(f"checkerboard {name} "
+                      f"{'eager' if eager else 'program'} {r}: {P} nodes x "
+                      f"{N} padded points, {chunk} windows a batch, "
+                      f"{ms:.1f} ms ({ms / P:.3f} ms a node)")
         stages = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -503,7 +549,8 @@ def checkerboard_profile(torch, st, repeat):
               f"{total:.1f} ms:")
         for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
             print(f"  {k:14s} {v:10.2f} ms  {100 * v / total:5.1f} %")
-        device_profile(torch, run, f"profiled checkerboard {name}")
+        device_profile(torch, lambda: run(eager=True),
+                       f"profiled checkerboard {name} (eager)")
 
 
 def main() -> int:
@@ -517,6 +564,10 @@ def main() -> int:
                          "figure-8 map")
     ap.add_argument("--enml-only", action="store_true",
                     help="profile only the EnML sweep")
+    ap.add_argument("--loops-eager", action="store_true",
+                    help="profile only the curation, the proposals and the "
+                         "scale map's checkerboard, all eagerly (no "
+                         "program replayed)")
     args = ap.parse_args()
 
     import torch
@@ -533,6 +584,16 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} ({smi})")
     if args.enml_only:
         enml_profile(torch, args.repeat)
+        return 0
+    if args.loops_eager:
+        from chip_smoke import ENML_SCALE_STREAM, _episode_state
+        from hitl_slam_torch.io.figure8 import generate_raw_stream
+
+        ltvm_profile(torch, args.repeat, programs=False)
+        proposal_profile(torch, args.repeat, programs=False)
+        st = _episode_state(generate_raw_stream(**ENML_SCALE_STREAM),
+                            "cuda")[0]
+        checkerboard_profile(torch, st, args.repeat, programs=False)
         return 0
     data = stfs.load_stfs_covars(os.path.join(DATA,
                                               "golden_large.stfs.covars.gz"))

@@ -273,7 +273,7 @@ def test_signatures_follow_the_reference():
     sharded_lm_solve and checkerboard_localize take the reference's
     parameters in the reference's order; lm.solve may add only the
     keyword-only `accepts` after them, checkerboard_localize only
-    `stage_ms`."""
+    `stage_ms` and then the keyword-only `eager`."""
     import inspect
 
     from hitl_slam_torch.io import stfs
@@ -290,7 +290,7 @@ def test_signatures_follow_the_reference():
     def params(f):
         f = getattr(f, "__wrapped__", f)
         return [p for p in inspect.signature(f).parameters
-                if p not in ("accepts", "stage_ms")]
+                if p not in ("accepts", "stage_ms", "eager")]
 
     for got, want in ((cycle.cycle_step, jcycle.cycle_step),
                       (cycle.queue_chain, jcycle.queue_chain),
@@ -301,8 +301,9 @@ def test_signatures_follow_the_reference():
                       (parallel_localizer.checkerboard_localize,
                        jpl.checkerboard_localize)):
         assert params(got) == params(want), got.__name__
-    assert list(inspect.signature(
-        parallel_localizer.checkerboard_localize).parameters)[-1] == "stage_ms"
+    board = inspect.signature(parallel_localizer.checkerboard_localize)
+    assert list(board.parameters)[-2:] == ["stage_ms", "eager"]
+    assert board.parameters["eager"].kind is inspect.Parameter.KEYWORD_ONLY
     assert (inspect.signature(lm.solve).parameters["accepts"].kind
             is inspect.Parameter.KEYWORD_ONLY)
 
