@@ -91,7 +91,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      small golden map's first correction against the CPU; the native
      libraries built, and their parses equal the Python paths (both golden
      maps, phase 10's bag); then one `{"replicas": {...}}` line;
- 16. the mesh: (a) the pose-sharded LM (20 LM iterations) on the repaired
+ 16. the mesh: (a) the pose-sharded LM (20 LM iterations, run eagerly
+     here: phase 23 replays its program) on the repaired
      1024-pose map of phase 4 on meshes [cuda:0] x 4 and x 8: cost and
      poses within the reference's criteria of the lone lm.solve, poses
      within 1e-4 of the same sharded solve on the CPU (an iteration count
@@ -224,16 +225,34 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      capture ms, pool MiB; curate and propose_corrections eager against
      programs with their SDF and RANSAC splits; the memory reserved after
      the phase; `[program]` lines and one `{"loop_programs": {...}}` line;
- 23. times at the main path's shapes: each kernel by CUDA events (host
+ 23. the lone LM, repair_step and the pose-sharded (SPIKE) LM as device
+     programs (solver/lm.py::solve_program, models/hitl/repair.py::
+     repair_program, parallel/sharded_solver.py::sharded_program: one
+     CUDA graph each, the LM loop a WHILE node; phases 15-18 already ran
+     the lone solves and repair_step through theirs, phase 16 runs the
+     SPIKE eagerly, where it counts collectives): a replay against
+     `eager=True` from the same inputs for lm.solve at 8192 poses with
+     BIG_CONFIG (phase 17's joint solve), repair_step on the map of phases
+     4-5 after its first logged correction (its second), and the SPIKE at
+     d = 4 and 8 on the repaired 1024-pose map and at d = 8 on the
+     16384-pose chain (S = 8, n = 2048): bit-equal wherever two eager runs
+     are, else within phase 16's card-against-CPU bounds (the standard
+     that held is printed); BCR (the SPIKE: its multi route) launched once
+     a trip by the replay, counted by device counters, and no other
+     kernel; one host read a call; each under torch.cuda.
+     set_sync_debug_mode("error"); eager and program walls, graph nodes
+     by WHILE level, capture ms, pool MiB; `[program]` lines and one
+     `{"solve_programs": {...}}` line;
+ 24. times at the main path's shapes: each kernel by CUDA events (host
      overhead included) and by torch.profiler (its own device time), its
      plain version, its bound from the shapes, and for BCR
      torch.linalg.solve on the dense system; BCR also at n = 64, 16384
      and 32768;
- 24. a `{"kernels": [...]}` line with launches (phases 17's, 18's, 19's
-     and 20's also apart), agreement, times and bounds (the batched
+ 25. a `{"kernels": [...]}` line with launches (phases 17's, 18's, 19's,
+     20's and 23's also apart), agreement, times and bounds (the batched
      route's launches from phases 15, 18 and 20, the multi route's from
-     phase 16; em_scan and BCR also at phase 17's shapes);
- 25. the last line: {"ok": true, "device": {...}}.
+     phases 16 and 23; em_scan and BCR also at phase 17's shapes);
+ 26. the last line: {"ok": true, "device": {...}}.
 
 scripts/compare_checkouts.py times two checkouts' kernels and replays
 against each other on one card with the helpers here.
@@ -2551,9 +2570,11 @@ def _on(value, device):
 
 
 def _sharded_run(torch, mesh, problem, poses, config):
-    """One sharded solve on the card, its counts zeroed just before and read
-    just after: (result, wall ms, (multi, batched) BCR launches, lone BCR
-    and em_scan launches, collective counts)."""
+    """One eager sharded solve on the card (`eager=True`: the collective
+    counter counts what Python runs, which a replay does not), its counts
+    zeroed just before and read just after: (result, wall ms, (multi,
+    batched) BCR launches, lone BCR and em_scan launches, collective
+    counts)."""
     from hitl_slam_torch.parallel import mesh as M
     from hitl_slam_torch.parallel.sharded_solver import sharded_lm_solve
     from hitl_slam_torch.solver import bcr_kernel as B
@@ -2562,7 +2583,7 @@ def _sharded_run(torch, mesh, problem, poses, config):
     _reset_counts()
     M.collectives.reset()
     t0 = time.perf_counter()
-    res = sharded_lm_solve(mesh, problem, poses, config)
+    res = sharded_lm_solve(mesh, problem, poses, config, eager=True)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     c = M.collectives
@@ -2575,7 +2596,8 @@ def _sharded_run(torch, mesh, problem, poses, config):
 def _trial_costs(mesh, problem, poses, config) -> list[float]:
     """The global cost of a sharded solve at its start and at each trial
     point, in order (a trial is accepted where its cost is below the
-    current one): read through a spy on the solver's assembly."""
+    current one): read through a spy on the solver's assembly in an eager
+    solve."""
     from hitl_slam_torch.parallel import sharded_solver as S
 
     seen, real = [], S._local_assemble
@@ -2587,7 +2609,7 @@ def _trial_costs(mesh, problem, poses, config) -> list[float]:
 
     S._local_assemble = spy
     try:
-        S.sharded_lm_solve(mesh, problem, poses, config)
+        S.sharded_lm_solve(mesh, problem, poses, config, eager=True)
     finally:
         S._local_assemble = real
     return [float(c) for c in seen]
@@ -2658,7 +2680,8 @@ def _sharded_over_cards(torch, repaired, config):
     mesh = make_mesh(1, k)
     problem = joint.build_problem(repaired.poses, repaired.constraints)
     lone = lm.solve(problem, repaired.poses, config)
-    S.sharded_lm_solve(mesh, problem, repaired.poses, config)    # warm-up
+    S.sharded_lm_solve(mesh, problem, repaired.poses, config,
+                       eager=True)                            # warm-up
     res, wall, counts, others, coll = _sharded_run(
         torch, mesh, problem, repaired.poses, config)
     rec = _check_sharded(f"sharded over {k} cards", res, lone, counts,
@@ -2727,7 +2750,7 @@ def phase_mesh(torch, smi, repaired, stream, scale, replica_out):
         B.bcr_solve_multi = spy
         try:
             S.sharded_lm_solve(mesh, problem, poses, LMConfig(
-                max_iterations=1))
+                max_iterations=1), eager=True)
         finally:
             B.bcr_solve_multi = real
         return seen[0]
@@ -2745,7 +2768,8 @@ def phase_mesh(torch, smi, repaired, stream, scale, replica_out):
     for d in MESH_PARTITIONS:
         mesh = make_mesh(1, d, [card] * d)
         cpu_mesh = make_mesh(1, d, [torch.device("cpu")] * d)
-        S.sharded_lm_solve(mesh, problem, poses, config)      # warm-up
+        S.sharded_lm_solve(mesh, problem, poses, config,
+                           eager=True)                        # warm-up
         res, wall, counts, others, coll = _sharded_run(torch, mesh, problem,
                                                        poses, config)
         rec = _check_sharded(f"sharded d={d}", res, lone, counts, others,
@@ -2759,7 +2783,8 @@ def phase_mesh(torch, smi, repaired, stream, scale, replica_out):
               f"sharded d={d}: card poses {dcpu:.3e} and cost {dcost:.3e} "
               f"(relative) from the CPU's")
         dev_ms, ops = _device_only_profile(
-            torch, lambda: S.sharded_lm_solve(mesh, problem, poses, config))
+            torch, lambda: S.sharded_lm_solve(mesh, problem, poses, config,
+                                              eager=True))
         rec.update(wall_ms=wall, card_vs_cpu=dcpu, card_vs_cpu_cost=dcost,
                    device_ms=dev_ms, device_ops=ops, busy_share=dev_ms / wall,
                    launches_per_iteration=ops / rec["iterations"],
@@ -2845,7 +2870,8 @@ def phase_mesh(torch, smi, repaired, stream, scale, replica_out):
     problem = joint.build_problem(chain, table)
     mesh = make_mesh(1, d, [card] * d)
     lone, lone_ms = lone_solve(problem, chain)
-    S.sharded_lm_solve(mesh, problem, chain, config)          # warm-up
+    S.sharded_lm_solve(mesh, problem, chain, config,
+                       eager=True)                            # warm-up
     res, wall, counts, others, coll = _sharded_run(torch, mesh, problem,
                                                    chain, config)
     # 20 iterations stop both solves short of the optimum of so long a
@@ -2998,18 +3024,22 @@ class _Counted:
     """While a section runs: the correction cycles it makes (em_scan runs
     twice in each) and the iteration tensors of every LM solve (BCR runs
     once an iteration), with the kernels' counts zeroed on entry: the
-    replays of cycle programs, and the cycles and solves run eagerly
-    (those run while a program is captured launch nothing). Nothing is
-    read back while the section runs."""
+    replays of cycle programs, of lone solves and of the solve-only
+    rounds (bench_sessions.solve_rounds), and the cycles and solves run
+    eagerly (those run while a program is captured launch nothing).
+    Nothing is read back while the section runs."""
 
     def __enter__(self):
+        from hitl_slam_torch import bench_sessions as BS
         from hitl_slam_torch.models.hitl import cycle as C, engine as EN
         from hitl_slam_torch.solver import lm as LM
+        from hitl_slam_torch.utils.device_loop import replays
 
         self.cycles, self.iterations = 0, []
         self._saved = (C.cycle_step, EN.cycle_step, C.lm_solve, LM.solve,
-                       C.CycleProgram.replay)
+                       C.CycleProgram.replay, BS.solve_rounds)
         step, solve, replay = self._saved[0], self._saved[3], self._saved[4]
+        rounds = self._saved[5]
 
         def capturing():
             import torch
@@ -3032,21 +3062,30 @@ class _Counted:
             self.iterations.append(prog.solve_iterations(ctype).clone())
             return out
 
+        def counted_rounds(poses0, *a, eager=False, **k):
+            # a replay's rounds: their solves ran only at its capture
+            out = rounds(poses0, *a, eager=eager, **k)
+            if replays(poses0, eager):
+                self.iterations.append(out[1].sum())
+            return out
+
         C.cycle_step = EN.cycle_step = counted_step
         C.lm_solve = LM.solve = counted_solve
         C.CycleProgram.replay = counted_replay
+        BS.solve_rounds = counted_rounds
         _sync()
         _reset_counts()
         return self
 
     def __exit__(self, *exc):
+        from hitl_slam_torch import bench_sessions as BS
         from hitl_slam_torch.models.hitl import cycle as C, engine as EN
         from hitl_slam_torch.solver import lm as LM
 
         _sync()
         self.launches = _read_counts()
         (C.cycle_step, EN.cycle_step, C.lm_solve, LM.solve,
-         C.CycleProgram.replay) = self._saved
+         C.CycleProgram.replay, BS.solve_rounds) = self._saved
         return False
 
 
@@ -4484,14 +4523,17 @@ def _segment_fields(seg):
             seg.scatter)
 
 
-def _loop_case(torch, name, call, fields, prog, close, nodes=None):
+def _loop_case(torch, name, call, fields, prog, close, nodes=None,
+               expect=None):
     """`call(eager)` (an entry point with `eager=eager`) on the card: eager
     twice, then the program (its first call captures); `fields(result)`
     bit-equal where the two eager runs are, else `close` (the standard
-    that held is printed); no kernel launched; one host read a call; no
-    synchronising call under sync debug mode "error"; eager and program
-    walls, graph nodes by WHILE level, capture ms and pool MiB of
-    `prog()` (its DeviceProgram). Returns the row."""
+    that held is printed); the kernels the program's first call launched,
+    by the launch counters (device counters in a replay): (em_scan, BCR,
+    batched BCR, multi BCR) = `expect(result)`, or none without `expect`;
+    one host read a call; no synchronising call under sync debug mode
+    "error"; eager and program walls, graph nodes by WHILE level, capture
+    ms and pool MiB of `prog()` (its DeviceProgram). Returns the row."""
     from hitl_slam_torch.solver import bcr_kernel as B
 
     eager, eager_ms = _timed_runs(lambda: call(True), 2)
@@ -4503,8 +4545,10 @@ def _loop_case(torch, name, call, fields, prog, close, nodes=None):
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = (*_read_counts(), B.batched_launches.count,
                 B.multi_launches.count)
-    check(launches == (0, 0, 0, 0),
-          f"{name}: kernel launches {launches} on a path with none")
+    want = (0, 0, 0, 0) if expect is None else tuple(expect(rep))
+    check(launches == want,
+          f"{name}: kernel launches (em_scan, bcr, batched, multi) "
+          f"{launches}, not {want}")
     same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))  # noqa
     e1, e2, got = fields(eager[0]), fields(eager[1]), fields(rep)
     eager_equal, replay_equal = same(e1, e2), same(got, e1)
@@ -4748,6 +4792,168 @@ def phase_loop_programs(torch, smi, stream, scale_state, repaired, clean):
 
 # ---------------------------------------------------------------- phase 23
 
+# the phase should finish within this many seconds
+SOLVE_PROGRAM_SECONDS = 90.0
+
+
+def _lm_fields(res):
+    return (res.poses, res.final_cost, res.initial_cost, res.iterations,
+            res.converged)
+
+
+def _lm_close(rep, e):
+    """An LMResult's fields within phase 16's card-against-CPU bounds:
+    poses MESH_CPU_POSE_TOL, final cost MESH_CPU_COST_RTOL relative."""
+    dp = float((rep[0] - e[0]).abs().max())
+    dc = abs(float(rep[1]) - float(e[1])) / max(abs(float(e[1])), 1e-30)
+    return dp <= MESH_CPU_POSE_TOL and dc <= MESH_CPU_COST_RTOL, (
+        f"poses {dp:.2e}, cost {dc:.2e} relative (bounds "
+        f"{MESH_CPU_POSE_TOL}, {MESH_CPU_COST_RTOL}), iterations "
+        f"{int(rep[3])} / {int(e[3])}")
+
+
+def _repair_fields(out):
+    return (out.poses, out.lm.final_cost, out.lm.initial_cost,
+            out.lm.iterations, out.lm.converged, out.covariances,
+            out.num_new_constraints, out.pre_solve_poses,
+            *vars(out.constraints).values())
+
+
+def _repair_case_args(torch, large, large_log):
+    """repair_step's arguments on the map of phases 4-5 after its first
+    logged correction (a replay of the engine's cycle program), for its
+    second: the selection verified, refit and counted on the card and
+    ordered by the host's order_and_filter; and the program's example
+    (the scalars as int32 tensors)."""
+    import numpy as np
+
+    from hitl_slam_torch.models.hitl import em_input as EI
+
+    eng = _engine(large, 16384)
+    rep = eng.replay_log(large_log[0], record=True)
+    check(rep.accepted, f"repair_step case: first correction {rep.reason}")
+    st, entry = eng.state, large_log[1]
+    world = st.world_points()
+    raw = torch.as_tensor(np.asarray(entry.points, np.float32),
+                          device=DEVICE)
+    check(bool(EI.verify_input(world, st.point_mask, raw).all()),
+          "repair_step case: the second correction's clicks not verified")
+    refit = EI.endpoint_adjust_batch(
+        world, st.point_mask, torch.stack([raw[0:2], raw[2:4]])
+    ).reshape(4, 2)
+    c1, c2 = EI.observation_counts(world, st.point_mask, refit)
+    o = EI.order_and_filter(c1.cpu().numpy(), c2.cpu().numpy(),
+                            refit.cpu().numpy())
+    check(o.valid, "repair_step case: ordering invalid")
+    corr, anch = o.corrected_poses, o.anchor_poses
+    breaks = np.nonzero(np.diff(corr) > 1)[0]
+    group = corr[:breaks[0] + 1] if len(breaks) else corr
+    gmask = np.zeros(st.num_poses, bool)
+    gmask[group] = True
+    pad = lambda ix: np.concatenate(   # noqa: E731
+        [ix[:64], np.full(64 - min(len(ix), 64), -1)]).astype(np.int32)
+    T = lambda a: torch.as_tensor(a, device=DEVICE)   # noqa: E731
+    ints = [torch.as_tensor(v, dtype=torch.int32, device=DEVICE)
+            for v in (int(group[-1]), o.backprop_start, o.backprop_end,
+                      int(st.constraints.active.sum()))]
+    sel, gm, a_ix, c_ix = (T(o.selected_points.astype(np.float32)),
+                           T(gmask), T(pad(anch)), T(pad(corr)))
+    args = (st.poses, st.covariances, st.constraints,
+            int(entry.correction_type), sel, gm, ints[0], a_ix, c_ix,
+            ints[1], ints[2], ints[3])
+    example = (st.poses, st.covariances, st.constraints, sel, gm, ints[0],
+               a_ix, c_ix, ints[1], ints[2], ints[3])
+    return args, example, len(group)
+
+
+def phase_solve_programs(torch, smi, solve_inputs, repaired, large,
+                         large_log):
+    """The lone LM, repair_step and the pose-sharded LM as device programs
+    (solver/lm.py::solve_program, models/hitl/repair.py::repair_program,
+    parallel/sharded_solver.py::sharded_program: one CUDA graph each, the
+    LM loop a WHILE node; phases 15-18 already ran the first): each replay
+    against `eager=True` from the same inputs, for the lone solve at 8192
+    poses with BIG_CONFIG (phase 17's joint solve), repair_step on the map
+    of phases 4-5 after its first correction (its second correction), and
+    the SPIKE at d = 4 and 8 on the repaired 1024-pose map and at d = 8 on
+    the 16384-pose chain (MESH_ITERS): bit-equal wherever two eager runs
+    are, else within phase 16's card-against-CPU bounds; BCR (the SPIKE:
+    its multi route) launched once a trip and no other kernel; one host
+    read a call; each under sync debug mode "error"; eager and program
+    walls, graph nodes by WHILE level, capture ms, pool MiB. Returns the
+    record and the (lone BCR, multi BCR) launches of the programs' first
+    calls."""
+    from hitl_slam_torch.bench import seeded_chain
+    from hitl_slam_torch.bench_sessions import BIG_CONFIG
+    from hitl_slam_torch.core.state import ConstraintTable
+    from hitl_slam_torch.models.hitl import repair as R
+    from hitl_slam_torch.parallel import sharded_solver as S
+    from hitl_slam_torch.parallel.mesh import make_mesh
+    from hitl_slam_torch.solver import joint, lm
+    from hitl_slam_torch.solver.lm import LMConfig
+
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    n_bcr = n_multi = 0
+
+    # ---- the lone LM at 8192 poses ----
+    chain, *cols = solve_inputs
+    problem = joint.build_problem(chain, ConstraintTable(*cols))
+    P = int(chain.shape[0])
+    out[f"solve {P}"] = row = _loop_case(
+        torch, f"lm.solve {P} poses, {BIG_CONFIG.max_iterations} "
+        f"iterations at most",
+        lambda eager: lm.solve(problem, chain, BIG_CONFIG, eager=eager),
+        _lm_fields, lambda: lm.solve_program((problem, chain), BIG_CONFIG),
+        _lm_close, expect=lambda r: (0, int(r.iterations), 0, 0))
+    n_bcr += row["launches"][1]
+
+    # ---- repair_step ----
+    args, example, n_group = _repair_case_args(torch, large, large_log)
+    config = LMConfig()
+    row = _loop_case(
+        torch, f"repair_step {large.poses.shape[0]} poses ({n_group} "
+        f"corrected)",
+        lambda eager: R.repair_step(*args, lm_config=config, eager=eager),
+        _repair_fields,
+        lambda: R.repair_program(example, args[3], config), _lm_close,
+        expect=lambda r: (0, int(r.lm.iterations), 0, 0))
+    out["repair_step"] = row
+    n_bcr += row["launches"][1]
+
+    # ---- the SPIKE on one card ----
+    card = torch.device(DEVICE, 0)
+    config = LMConfig(max_iterations=MESH_ITERS)
+    chain_np, table = seeded_chain(MESH_CHAIN_POSES, 0, card)
+    long_chain = torch.as_tensor(chain_np, device=card)
+    cases = [(f"sharded d={d}, {repaired.num_poses} poses", repaired.poses,
+              repaired.constraints, d) for d in MESH_PARTITIONS]
+    cases.append((f"sharded d={MESH_CHAIN_PARTITIONS}, {MESH_CHAIN_POSES}-"
+                  f"pose chain", long_chain, table, MESH_CHAIN_PARTITIONS))
+    for name, poses, tab, d in cases:
+        problem = joint.build_problem(poses, tab)
+        mesh = make_mesh(1, d, [card] * d)
+        row = _loop_case(
+            torch, name,
+            lambda eager, mesh=mesh, problem=problem, poses=poses:
+                S.sharded_lm_solve(mesh, problem, poses, config, eager=eager),
+            _lm_fields,
+            lambda problem=problem, poses=poses, d=d: S.sharded_program(
+                (problem, poses), config, d, card),
+            _lm_close, expect=lambda r: (0, 0, 0, int(r.iterations)))
+        out[name] = row
+        n_multi += row["launches"][3]
+    _sync()
+    out["memory_reserved_mib"] = torch.cuda.memory_reserved() / 2 ** 20
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[program] solve programs: {out['seconds']:.1f} s (budget "
+        f"{SOLVE_PROGRAM_SECONDS:.0f} s); memory reserved after the phase "
+        f"{out['memory_reserved_mib']:.0f} MiB ({smi})")
+    return out, n_bcr, n_multi
+
+
+# ---------------------------------------------------------------- phase 24
+
 def phase_times(torch, state, log_entries):
     """Each kernel at the main path's shapes (em_scan on the golden_large
     map, BCR at its 1024 poses), beside its plain version, its bound and
@@ -4911,6 +5117,7 @@ def main() -> int:
     program, p_em, p_bcr = phase_program(torch, smi, large, large_log,
                                          sections)
     s8192 = sections["scale_8192"]["_session"]["engine"].state
+    solve_inputs = sections["joint_solve"]["_inputs"]
     del sections
     print(json.dumps({"program": program}), flush=True)
     # ---- 20. EnML and the replica LM as device programs ----
@@ -4926,10 +5133,15 @@ def main() -> int:
                                         repaired, clean)
     del scale_state
     print(json.dumps({"loop_programs": loop_programs}), flush=True)
+    # ---- 23. the lone LM, repair_step and the SPIKE as device programs ----
+    solve_programs, o_bcr, o_multi = phase_solve_programs(
+        torch, smi, solve_inputs, repaired, large, large_log)
+    del solve_inputs
+    print(json.dumps({"solve_programs": solve_programs}), flush=True)
     log(smi)
-    # ---- 23. times ----
+    # ---- 24. times ----
     times = phase_times(torch, state, large_log)
-    # ---- 24. kernels line ----
+    # ---- 25. kernels line ----
     kernels = [
         {"name": "em_scan", "route": "cuda",
          "source": "hitl_slam_torch/csrc/em_scan.cu",
@@ -4941,8 +5153,10 @@ def main() -> int:
         {"name": "bcr_solve", "route": "cuda",
          "source": "hitl_slam_torch/csrc/bcr.cu",
          "replaces": "hitl_slam_tpu/solver/pallas_bcr.py:94",
-         "launches": n_bcr + s_bcr + r_bcr + p_bcr, "scale_launches": s_bcr,
+         "launches": n_bcr + s_bcr + r_bcr + p_bcr + o_bcr,
+         "scale_launches": s_bcr,
          "reference_launches": r_bcr, "program_launches": p_bcr,
+         "solve_program_launches": o_bcr,
          "max_abs_err": max(bcr_err, scale_err[1]), **times["bcr_solve"],
          **scale_times["bcr_solve"]},
         {"name": "bcr_solve_batched", "route": "cuda",
@@ -4959,7 +5173,8 @@ def main() -> int:
          "source": "hitl_slam_torch/csrc/bcr.cu",
          "replaces": "hitl_slam_tpu/solver/pallas_bcr.py:94",
          "under": "hitl_slam_tpu/parallel/sharded_solver.py:198",
-         "launches": n_multi, "max_abs_err": multi_err,
+         "launches": n_multi + o_multi, "mesh_launches": n_multi,
+         "solve_program_launches": o_multi, "max_abs_err": multi_err,
          **{k: v for k, v in multi_times[8].items()
             if k not in ("S", "n", "rhs")},
          "at": "S=8, n=128, R=7 (the sharded LM at d = 8)",
@@ -4968,7 +5183,7 @@ def main() -> int:
     ]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    # ---- 25. contract line ----
+    # ---- 26. contract line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -22,8 +22,9 @@ the repaired map (--replicas perturbed copies, 20 LM iterations): the wall
 ms of batched_solve with the batched BCR kernel and with its plain batched
 twin, solves/s, the per-replica iteration counts, and the wall of the same
 solves run one after another. With --sharded D, the pose-sharded LM on a
-mesh of D partitions on the device (20 LM iterations) beside the lone
-lm.solve, each wall ms for the solve alone: on the repaired map (1024 poses)
+mesh of D partitions on the device (20 LM iterations; a replay of its
+program on a card, and eagerly) beside the lone lm.solve, each wall ms for
+the solve alone: on the repaired map (1024 poses)
 and on a seeded chain 16 times as long (16384 poses); and the checkerboard
 localizer's mesh branch (D replica entries) on the same stream, ms a node
 at W = 10. Correctness fields are against those files; nothing of JAX is
@@ -282,12 +283,13 @@ def seeded_chain(n: int, seed: int, device):
 
 def sharded_split(sync, state, partitions: int, device) -> dict:
     """The pose-sharded LM on a mesh of `partitions` entries on `device`,
-    LMConfig(max_iterations=20), beside the lone lm.solve of the same
-    problem (each warm, the solve alone timed): on `state` (the repaired
-    map) and on a seeded chain 16 times as long, with the BCR launches of
-    the timed sharded solve (the multi route's, one an iteration, and the
-    batched route's); then the checkerboard's mesh branch with
-    `partitions` replica entries."""
+    LMConfig(max_iterations=20), a replay of its program on a card and
+    eagerly (`eager=True`) side by side, beside the lone lm.solve of the
+    same problem (each warm, the solve alone timed): on `state` (the
+    repaired map) and on a seeded chain 16 times as long, with the BCR
+    launches of the timed sharded solve (the multi route's, one an
+    iteration, and the batched route's); then the checkerboard's mesh
+    branch with `partitions` replica entries."""
     import torch
 
     from .parallel.mesh import make_mesh
@@ -307,6 +309,8 @@ def sharded_split(sync, state, partitions: int, device) -> dict:
         for kind, fn in (
                 ("sharded", lambda: sharded_lm_solve(mesh, problem, poses,
                                                      config)),
+                ("eager", lambda: sharded_lm_solve(mesh, problem, poses,
+                                                   config, eager=True)),
                 ("lone", lambda: lm.solve(problem, poses, config))):
             fn()
             sync()
@@ -321,6 +325,7 @@ def sharded_split(sync, state, partitions: int, device) -> dict:
         (sh, sh_ms, launched), (lo, lo_ms, _) = runs["sharded"], runs["lone"]
         out[name] = {
             "poses": int(poses.shape[0]), "wall_ms": sh_ms,
+            "eager_wall_ms": runs["eager"][1],
             "lone_wall_ms": lo_ms, "iterations": int(sh.iterations),
             "multi_launches": launched[0], "batched_launches": launched[1],
             "lone_iterations": int(lo.iterations),

@@ -32,9 +32,10 @@ headline's final state, bench.py:683-708, is bench.replica_split's):
 and `device_analysis`, in place of the reference's `xla_analysis`: for each
 of its seven surfaces the wall, the device ms and device operations from
 torch.profiler, the busy share and the bytes of the inputs (not measured,
-None, for the sweep's replay: UNTRACED_SURFACES). The two scale-map
-checkerboard surfaces (`enml_scale_checkerboard`, `enml_scale_w80`) take
-their wall from a replay of the checkerboard's program, as the record's
+None, for the sweep's replay: UNTRACED_SURFACES). The 8192-pose joint
+solve (`solve_8192`) and the two scale-map checkerboard surfaces
+(`enml_scale_checkerboard`, `enml_scale_w80`) take their wall from a
+replay of their program, as the record's `solve_8192_poses_20iter_ms` and
 `enml_*checkerboard_ms` keys do, and their device ms, operations, host
 reads and busy share from an eager run (`eager=True`) of the same work,
 over that run's own wall (`profiled_wall_ms`).
@@ -950,6 +951,9 @@ def reference_sections(device, smoke: bool = False) -> dict:
         require_native=device.type == "cuda"))
 
     chain, big, ref = s["chain"], s["joint_solve"], s["refine"]
+    # the joint solve replays a program with a WHILE node: the profiler
+    # traces its eager run
+    profiled = {"solve_8192": (big["_eager_run"], big["eager_wall_ms"])}
     surfaces = {
         "cycle_chain": (chain["_run"], chain["ms_per_cycle"] * chain["cycles"]
                         * chain["j_rep"], chain["_inputs"],
@@ -963,12 +967,11 @@ def reference_sections(device, smoke: bool = False) -> dict:
         e = s["enml_scale"]
         surfaces.update({k: (fn, ms, e["_inputs"])
                          for k, (fn, ms, *_) in e["_runs"].items()})
-        profiled = {k: tuple(r[2:]) for k, r in e["_runs"].items()}
+        profiled.update({k: tuple(r[2:]) for k, r in e["_runs"].items()})
         r8 = s["scale_8192"]["refine"]
         surfaces["refine_8192_pair"] = (r8["_run"], r8["wall_ms"],
                                         r8["_inputs"])
-    run("analysis", lambda: device_analysis(device, surfaces,
-                                            profiled if not smoke else None))
+    run("analysis", lambda: device_analysis(device, surfaces, profiled))
     peaks = [v["peak_mib"] for v in sections.values()]
     s["memory"] = {"peak_mib": None if None in peaks else max(peaks),
                    "sections": sections}

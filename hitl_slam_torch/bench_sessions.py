@@ -22,8 +22,9 @@ and the sections of `python -m hitl_slam_torch.bench --headline` and
   chain_section          queue_chain repeated from the initial state with
                          one host read at the end (bench.py:438-560)
   solve_only_section     build_problem + lm.solve on each accepted cycle's
-                         snapshot, with the matched f64 CPU baselines
-                         (bench.py:402-436, :562-631)
+                         snapshot, S_REP chained rounds as one device
+                         program (`solve_rounds`), with the matched f64
+                         CPU baselines (bench.py:402-436, :562-631)
   joint_solve_section    the ~10^4-pose joint solve alone (bench.py:648-686)
   scale_session_section  the 8192-pose session with its refine at scale
                          (bench.py:1074-1232) and the 16384-pose session
@@ -46,7 +47,10 @@ from .core.state import ConstraintTable, CorrectionType, SingleInput
 from .io.figure8 import generate_figure8, synthesize_correction
 from .models.hitl.engine import HitLSLAM
 from .solver import joint, lm
-from .utils.device_loop import replays
+from .utils.device_loop import (DeviceProgram, ProgramCache, device_for,
+                                replays, signature)
+
+Tensor = torch.Tensor
 
 HEADLINE_MAP = dict(num_poses=1024, num_rays=180, seed=7,
                     drift_theta_bias=6e-4, num_laps=2)
@@ -461,15 +465,65 @@ def _first_rows(table: ConstraintTable, n_active: int) -> ConstraintTable:
     return dataclasses.replace(table, active=active)
 
 
+def solve_rounds(poses0: Tensor, table: ConstraintTable,
+                 config: lm.LMConfig = lm.LMConfig(), s_rep: int = S_REP,
+                 *, eager: bool = False) -> tuple[Tensor, Tensor]:
+    """`s_rep` chained rounds of build_problem + lm.solve: round k starts
+    from poses0 + 1e-6 (k + 1) + acc * 0, acc the sum of the previous
+    round's poses, so that nothing reorders or folds. Returns (acc after
+    the last round, each round's LM iterations [s_rep] int32).
+
+    The rounds are a `device_for` over k, as the reference's jitted
+    `_solve_only_chain` is a `fori_loop` (bench.py:597-609): on a CUDA
+    device one replay of its program (a WHILE node over the rounds, each
+    round's LM a WHILE node inside it), unless `eager`, for comparisons
+    only."""
+    # each round's offset, rounded to the poses' dtype as a Python float
+    # added to them is
+    offsets = torch.tensor([1e-6 * (k + 1) for k in range(s_rep)],
+                           dtype=poses0.dtype).to(poses0.device)
+    if replays(poses0, eager):
+        return _rounds_program((poses0, table, offsets), config).run(
+            poses0, table, offsets)
+    return _solve_rounds(poses0, table, offsets, config)
+
+
+_rounds_programs = ProgramCache(size=1)
+
+
+def _rounds_program(example: tuple, config: lm.LMConfig) -> DeviceProgram:
+    dev = example[0].device
+    key = (signature(example), config, dev.index)
+    return _rounds_programs.get(key, lambda: DeviceProgram(
+        lambda p0, tbl, offs: _solve_rounds(p0, tbl, offs, config),
+        example, dev))
+
+
+def _solve_rounds(poses0, table, offsets, config):
+    """solve_rounds' carry form, eager or captured."""
+    acc = torch.zeros((), dtype=poses0.dtype, device=poses0.device)
+    its = torch.zeros(offsets.shape, dtype=torch.int32,
+                      device=poses0.device)
+
+    def round_(k):
+        p = poses0 + offsets.index_select(0, k[None])[0] + acc * 0.0
+        r = lm.solve(joint.build_problem(p, table), p, config, eager=True)
+        acc.copy_(torch.sum(r.poses))
+        its.index_copy_(0, k[None], r.iterations[None])
+
+    device_for(offsets.shape[0], round_, poses0.device)
+    return acc, its
+
+
 def solve_only_section(device, headline: dict, s_rep: int = S_REP,
                        samples: int = 2, scipy_runs: int = 3) -> dict:
     """The joint solve alone on each accepted cycle's snapshot (its start
-    poses, the rows live then): build_problem + lm.solve, `s_rep` times on
-    perturbed starts a call, each start moved by the previous solve's
-    checksum times 0, ms a solve the minimum over `samples` calls; the
-    median over snapshots. Beside it the f64 baselines on the same
-    problems: cpu_lm_solve on every snapshot, scipy_generic_solve (min of
-    `scipy_runs`) on the last."""
+    poses, the rows live then): `s_rep` chained rounds of build_problem +
+    lm.solve a call (`solve_rounds`, one replayed program on a card), ms
+    a solve the minimum over `samples` calls; the median over snapshots.
+    Beside it the f64 baselines on the same problems: cpu_lm_solve on
+    every snapshot, scipy_generic_solve (min of `scipy_runs`) on the
+    last."""
     from .baselines.cpu_lm import cpu_lm_solve, scipy_generic_solve
 
     sync = synchronizer(device)
@@ -477,26 +531,18 @@ def solve_only_section(device, headline: dict, s_rep: int = S_REP,
     table = sess["engine"].state.constraints
     config = lm.LMConfig()
 
-    def repeated(p0, tbl):
-        acc = torch.zeros((), dtype=p0.dtype, device=p0.device)
-        for k in range(s_rep):
-            p = p0 + 1e-6 * (k + 1) + acc * 0.0
-            r = lm.solve(joint.build_problem(p, tbl), p, config)
-            acc = torch.sum(r.poses)
-        return acc, r
-
     per_snapshot, iterations, cpu_ms, cpu_iters = [], [], [], []
     for start, n_active in sess["solve_snapshots"]:
         tbl = _first_rows(table, n_active)
         sp = torch.as_tensor(start, dtype=torch.float32, device=device)
-        acc, r = repeated(sp, tbl)
+        acc, its = solve_rounds(sp, tbl, config, s_rep)
         float(acc)
-        iterations.append(int(r.iterations))
+        iterations.append(int(its[-1]))
         times = []
         for k in range(samples):
             sync()
             t0 = time.perf_counter()
-            acc, _ = repeated(sp + 1e-7 * (k + 1), tbl)
+            acc, _ = solve_rounds(sp + 1e-7 * (k + 1), tbl, config, s_rep)
             float(acc)
             times.append((time.perf_counter() - t0) * 1e3 / s_rep)
         per_snapshot.append(min(times))
@@ -538,9 +584,12 @@ def joint_solve_section(device, table: ConstraintTable, P: int = BIG_P,
                         samples: int = 3) -> dict:
     """The ~10^4-pose joint solve alone: seeded_big_chain(P) with `table`
     (the headline session's) remapped to its poses (ids mod P), solved by
-    lm.solve with BIG_CONFIG: one warm solve, then `samples` timed ones
-    from starts moved by 1e-6 (k + 1); the minimum wall. `_run` reruns
-    one timed solve, `_inputs` are its input tensors."""
+    lm.solve with BIG_CONFIG (a replay of its program on a card): one warm
+    solve, then `samples` timed ones from starts moved by 1e-6 (k + 1);
+    the minimum wall; beside it one timed eager solve (`eager=True`,
+    `eager_wall_ms`). `_run` reruns one timed solve, `_eager_run` the same
+    solve eagerly (what a profiler traces: it does not trace a replay's
+    WHILE trips), `_inputs` are its input tensors."""
     sync = synchronizer(device)
     chain = torch.as_tensor(seeded_big_chain(P), device=device)
     big = dataclasses.replace(table, constrained=table.constrained % P,
@@ -557,15 +606,27 @@ def joint_solve_section(device, table: ConstraintTable, P: int = BIG_P,
         costs.append(float(r.final_cost))
         times.append((time.perf_counter() - t0) * 1e3)
         iterations.append(int(r.iterations))
+
+    def eager_run():
+        return float(lm.solve(problem, chain + 1e-6, BIG_CONFIG,
+                              eager=True).final_cost)
+
+    eager_run()
+    sync()
+    t0 = time.perf_counter()
+    eager_run()
+    eager_ms = (time.perf_counter() - t0) * 1e3
     return {
         "poses": P, "rows": int(table.active.sum()),
         "max_iterations": BIG_CONFIG.max_iterations,
         "wall_ms": min(times), "wall_ms_samples": times,
+        "eager_wall_ms": eager_ms,
         "iterations": iterations, "initial_cost": float(r.initial_cost),
         "final_cost": costs[-1],
         "finite": bool(torch.isfinite(r.poses).all()),
         "_run": lambda: float(lm.solve(problem, chain + 1e-6,
                                        BIG_CONFIG).final_cost),
+        "_eager_run": eager_run,
         "_inputs": (chain, *vars(big).values()),
     }
 

@@ -144,7 +144,9 @@ def cycle_solve(
 
     # --- joint LM solve over odometry + all human factors ---
     problem = build_problem(poses2, table, odom_inv_sigma=odom_inv_sigma)
-    lm = lm_solve(problem, poses2, lm_config, mu0=mu0)
+    # part of the cycle's program when captured, and eager with an eager
+    # cycle (never a program of its own)
+    lm = lm_solve(problem, poses2, lm_config, mu0=mu0, eager=True)
     poses3 = _wrap_theta(lm.poses)
 
     # --- gate the state update on validity ---

@@ -8,6 +8,10 @@ cumsum(valid) - 1); invalid pairs, and valid ones past the capacity, all go
 to the dump slot cap-1, which is then deactivated. Several rows writing the
 dump slot leave its payload order-dependent; only its `active` bit is
 defined.
+
+On a CUDA device `repair_step` replays one device program (one CUDA graph
+of the whole step, its LM loop a WHILE node), as the reference runs its
+jitted `repair_step`.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from ...core.state import ConstraintTable
 from ...ops.geometry import angle_mod
 from ...solver.joint import build_problem
 from ...solver.lm import LMConfig, LMResult, solve as lm_solve
+from ...utils.device_loop import (DeviceProgram, ProgramCache, replays,
+                                  signature)
 from .backprop import backprop
 from .explicit import apply_explicit, constraint_deltas
 
@@ -100,16 +106,54 @@ def repair_step(
     bp_max,                # int or scalar int tensor
     write_offset,          # int or scalar int tensor: next free table slot
     lm_config: LMConfig = LMConfig(),
+    *,
+    eager: bool = False,
 ) -> RepairOutput:
     """One correction after EM and ordering, on the device: the explicit
     rigid correction (with the tail carry), the constraint targets from the
     corrected poses and their rows in the table, the covariance-weighted
     backprop over the open window, the angle wrap, and the joint LM solve
-    (whose poses are wrapped again on the way out)."""
+    (whose poses are wrapped again on the way out).
+
+    The scalars (`last_pose`, `bp_min`, `bp_max`, `write_offset`) become
+    int32 tensors on the poses' device. On a CUDA device the step replays
+    its program for the inputs' shapes, `ctype` and `lm_config` (the
+    reference's static arguments; `repair_program`) unless `eager`, which
+    runs the same code eagerly there, for comparisons only."""
     ctype = int(ctype)
-    last_pose, bp_min, bp_max = (
-        torch.as_tensor(v, dtype=torch.int32, device=poses.device)
-        for v in (last_pose, bp_min, bp_max))
+    dev = poses.device
+    last_pose, bp_min, bp_max, write_offset = (
+        torch.as_tensor(v, dtype=torch.int32, device=dev)
+        for v in (last_pose, bp_min, bp_max, write_offset))
+    sel, group_mask, anchor_idx, corr_idx = (
+        torch.as_tensor(v, device=dev)
+        for v in (sel, group_mask, anchor_idx, corr_idx))
+    args = (poses, covariances, constraints, sel, group_mask, last_pose,
+            anchor_idx, corr_idx, bp_min, bp_max, write_offset)
+    if replays(poses, eager):
+        return repair_program(args, ctype, lm_config).run(*args)
+    return _repair(*args, ctype, lm_config)
+
+
+_programs = ProgramCache(size=2)
+
+
+def repair_program(example: tuple, ctype: int,
+                   lm_config: LMConfig = LMConfig()) -> DeviceProgram:
+    """repair_step's program on a CUDA device for inputs shaped as
+    `example` (repair_step's tensors in its order, the scalars as int32
+    tensors), `ctype` and `lm_config`: the one made before, or a new one
+    (captured at its first run)."""
+    dev = example[0].device
+    key = (signature(example), int(ctype), lm_config, dev.index)
+    return _programs.get(key, lambda: DeviceProgram(
+        lambda *a: _repair(*a, int(ctype), lm_config), example, dev))
+
+
+def _repair(poses, covariances, constraints, sel, group_mask, last_pose,
+            anchor_idx, corr_idx, bp_min, bp_max, write_offset, ctype: int,
+            lm_config: LMConfig) -> RepairOutput:
+    """repair_step's step, eager or captured."""
     poses1, C = apply_explicit(poses, ctype, sel, group_mask, last_pose)
     dpar, dperp, dth, pen, valid = constraint_deltas(
         poses1, sel, anchor_idx, corr_idx)
@@ -118,7 +162,9 @@ def repair_step(
         dpar, dperp, dth, pen, valid, write_offset)
     poses2, cov2 = backprop(poses1, covariances, C, bp_min, bp_max)
     poses2 = _wrap_theta(poses2)
-    lm = lm_solve(build_problem(poses2, table), poses2, lm_config)
+    # part of this step's program when captured
+    lm = lm_solve(build_problem(poses2, table), poses2, lm_config,
+                  eager=True)
     return RepairOutput(
         poses=_wrap_theta(lm.poses),
         covariances=cov2,

@@ -28,13 +28,16 @@ groups; on a mesh that repeats one device every step is one batch.
   - A step's communication: the three assembly shifts, one shift of the
     interface block, one gather of 42 floats a partition, and four
     one-float sums (cost, model decrease, two norms), counted by
-    `mesh.collectives`.
+    `mesh.collectives` when Python runs them: once at a program's capture,
+    never at its replays (count an `eager=True` solve).
 
 The LM iteration is the reference's: the system rides the loop and is
 re-assembled only at accepted trial points; the gauge fix of pose 0 (on
 partition 0), the clipped diagonal in both the damping and the model
 decrease, Madsen-Nielsen-Tingleff damping and the three exits of
-solver/lm.py. The loop reads one flag (`done`) from the device a step.
+solver/lm.py. The loop is a `device_while` (utils/device_loop.py): on a
+one-group CUDA mesh a WHILE node of a replayed graph that reads nothing
+back, eagerly one host read (`done`) a step.
 
 Deviation: the reference's exit damping is not returned (its LMResult
 carries `config.initial_mu`); the port returns the same.
@@ -50,6 +53,8 @@ from ..solver import bcr_kernel
 from ..solver.assembly_soa import _angle_mod_rows, _rows
 from ..solver.joint import JointProblem, build_problem
 from ..solver.lm import LMConfig, LMResult
+from ..utils.device_loop import (DeviceProgram, ProgramCache, device_while,
+                                 signature)
 from . import mesh as M
 
 Tensor = torch.Tensor
@@ -152,10 +157,10 @@ def _local_odometry_assembly(odom: list, poses: list, groups: list, d: int):
     return D, U, g, cost
 
 
-def _reduced_solve(coef: Tensor, d: int) -> Tensor:
-    """Solve the [6d, 6d] boundary system over u = [t_0, b_0, t_1, b_1,
-    ...] (each partition's first and last step) from the gathered [d, 42]
-    coefficients: an LU solve and one step of iterative refinement."""
+def _reduced_system(coef: Tensor, d: int) -> tuple[Tensor, Tensor]:
+    """The [6d, 6d] boundary system over u = [t_0, b_0, t_1, b_1, ...]
+    (each partition's first and last step) from the gathered [d, 42]
+    coefficients: (matrix, right-hand side [6d, 1])."""
     dt, dev = coef.dtype, coef.device
     V0, Vl, W0, Wl = (coef[:, 9 * k:9 * k + 9].reshape(d, 3, 3)
                       for k in range(4))
@@ -169,9 +174,30 @@ def _reduced_solve(coef: Tensor, d: int) -> Tensor:
     Mr = (torch.eye(6 * d, dtype=dt, device=dev)
           + blocks.permute(0, 1, 4, 2, 3, 5).reshape(6 * d, 6 * d))
     rhs = torch.stack([coef[:, 36:39], coef[:, 39:42]], 1).reshape(6 * d, 1)
+    return Mr, rhs
+
+
+def _reduced_solve(coef: Tensor, d: int) -> Tensor:
+    """Solve the [6d, 6d] boundary system over u = [t_0, b_0, t_1, b_1,
+    ...] (each partition's first and last step) from the gathered [d, 42]
+    coefficients: an LU solve and one step of iterative refinement.
+
+    The LU is `lu_factor_ex`'s (partial pivoting, LAPACK's or cuSOLVER's
+    getrf); each solve with it is the row permutation and two triangular
+    solves. `lu_solve` is not used: on the card it goes to cuSOLVER's
+    getrs, which puts allocation nodes into a CUDA graph at d = 8, nodes a
+    WHILE body may not hold (scripts/linalg_capture_probe.py --reduced)."""
+    Mr, rhs = _reduced_system(coef, d)
     LU, piv, _ = torch.linalg.lu_factor_ex(Mr)
-    u = torch.linalg.lu_solve(LU, piv, rhs)
-    u = u + torch.linalg.lu_solve(LU, piv, rhs - Mr @ u)
+    P = torch.lu_unpack(LU, piv, unpack_data=False)[0]
+
+    def apply(b):
+        y = torch.linalg.solve_triangular(LU, P.mT @ b, upper=False,
+                                          unitriangular=True)
+        return torch.linalg.solve_triangular(LU, y, upper=True)
+
+    u = apply(rhs)
+    u = u + apply(rhs - Mr @ u)
     return u[:, 0]
 
 
@@ -242,18 +268,61 @@ def sharded_lm_solve(
     problem: JointProblem,
     poses0: Tensor,
     config: LMConfig = LMConfig(),
+    *,
+    eager: bool = False,
 ) -> LMResult:
     """Pose-sharded LM from poses0 [P, 3], P divisible by the mesh's 'pose'
     axis. On a 2-D mesh the pose axis of replica row 0 runs: every row
     would compute the same thing. The inputs go to each group's device;
-    the result is on the device of partition 0."""
+    the result is on the device of partition 0.
+
+    The iteration is the body of a `device_while` over a carry of buffers,
+    one tensor a device group each (x, D, U, g, c, mu, nu, the iteration
+    count and done), updated with `copy_`. Where the pose axis is one
+    group on a CUDA device (`[cuda:0] * d`), the call replays the captured
+    program of its shapes, config and d (`sharded_program`: the assembly,
+    the SPIKE with one multi BCR launch a trip and the LM's WHILE node in
+    one graph), as the reference runs its jitted `shard_map`, unless
+    `eager`, which runs the same code eagerly there, for comparisons only.
+    Where the groups sit on several devices, the carry form runs eagerly,
+    one host read (done) an iteration: one graph on one device cannot hold
+    the `.to()` copies between the groups. On the CPU it runs eagerly."""
     groups = M.groups_of(mesh.axis("pose"))
     d = groups[-1].hi
     P = poses0.shape[0]
     if P % d:
         raise ValueError(f"sharded_lm_solve: {P} poses do not divide over "
                          f"the {d} entries of the 'pose' axis")
-    Pl = P // d
+    dev0 = groups[0].device
+    if (len(groups) == 1 and dev0.type == "cuda" and not eager
+            and not torch.cuda.is_current_stream_capturing()):
+        return sharded_program((problem, poses0), config, d,
+                               dev0).run(problem, poses0)
+    return _sharded(problem, poses0, config, groups)
+
+
+_programs = ProgramCache(size=2)
+
+
+def sharded_program(example: tuple, config: LMConfig, d: int,
+                    device) -> DeviceProgram:
+    """The pose-sharded LM's program for `example` (problem, poses0) on a
+    mesh whose pose axis is d entries of CUDA `device` (one group), and
+    `config`: the one made before, or a new one (captured at its first
+    run)."""
+    dev = torch.device(device)
+    groups = [M.Group(dev, 0, d)]
+    key = (signature(example), config, d, dev.index)
+    return _programs.get(key, lambda: DeviceProgram(
+        lambda problem, poses0: _sharded(problem, poses0, config, groups),
+        example, dev))
+
+
+def _sharded(problem: JointProblem, poses0: Tensor, config: LMConfig,
+             groups: list) -> LMResult:
+    """sharded_lm_solve's carry form over `groups`, eager or captured."""
+    d = groups[-1].hi
+    Pl = poses0.shape[0] // d
     dtype = poses0.dtype
     dev0 = groups[0].device
 
@@ -271,26 +340,28 @@ def sharded_lm_solve(
     def assemble(x):
         return _local_assemble(x, odom, compact, k, groups, d)
 
-    def scalars(v):
-        return [torch.tensor(v, dtype=dtype, device=grp.device)
+    def scalars(v, dt=dtype):
+        return [torch.full((), v, dtype=dt, device=grp.device)
                 for grp in groups]
 
-    x = parts(poses0)
+    x = [xi.clone() for xi in parts(poses0)]
     D, U, g, c = assemble(x)
     c0 = c[0]
-    mu, nu = scalars(config.initial_mu), scalars(2.0)
-    done = [torch.zeros((), dtype=torch.bool, device=grp.device)
-            for grp in groups]
-    it = 0
-    while it < config.max_iterations:
+    c = [ci.clone() for ci in c]
+    mu, nu, two = scalars(config.initial_mu), scalars(2.0), scalars(2.0)
+    it = scalars(0, torch.int32)
+    done = scalars(False, torch.bool)
+    go = ~done[0] & (it[0] < config.max_iterations)
+
+    def iteration():
         Dd, Ug, gg, diag = [], [], [], []
         for Di, Ui, gi, mi, grp in zip(D, U, g, mu, groups):
             if grp.lo == 0:
                 # gauge fix: global pose 0 is partition 0's row 0
                 Di, Ui, gi = Di.clone(), Ui.clone(), gi.clone()
-                Di[0, 0] = torch.eye(3, dtype=dtype, device=grp.device)
-                Ui[0, 0] = 0.0
-                gi[0, 0] = 0.0
+                Di[0, 0].copy_(torch.eye(3, dtype=dtype, device=grp.device))
+                Ui[0, 0].zero_()
+                gi[0, 0].zero_()
             # the clipped diagonal in both the damping and the model
             # decrease, as solver/lm.py
             dg = torch.clamp(torch.diagonal(Di, dim1=-2, dim2=-1),
@@ -308,35 +379,37 @@ def sharded_lm_solve(
         for i in range(len(groups)):
             rho = (c[i] - c_new[i]) / torch.clamp(0.5 * pred[i], min=1e-30)
             acc = (rho > 0) & torch.isfinite(c_new[i])
-            x[i] = torch.where(acc, x_new[i], x[i])
-            D[i] = torch.where(acc, Dn[i], D[i])
-            U[i] = torch.where(acc, Un[i], U[i])
-            g[i] = torch.where(acc, gn[i], g[i])
+            x[i].copy_(torch.where(acc, x_new[i], x[i]))
+            D[i].copy_(torch.where(acc, Dn[i], D[i]))
+            U[i].copy_(torch.where(acc, Un[i], U[i]))
+            g[i].copy_(torch.where(acc, gn[i], g[i]))
             t = 2.0 * rho - 1.0
             factor = torch.clamp(1.0 - t * (t * t), min=1.0 / 3.0)
-            mu[i] = torch.clamp(torch.where(acc, mu[i] * factor,
-                                            mu[i] * nu[i]), 1e-32, 1e32)
-            nu[i] = torch.where(acc, 2.0, nu[i] * 2.0)
+            mu_next = torch.clamp(torch.where(acc, mu[i] * factor,
+                                              mu[i] * nu[i]), 1e-32, 1e32)
+            nu[i].copy_(torch.where(acc, two[i], nu[i] * 2.0))
+            mu[i].copy_(mu_next)
             fdone = acc & (torch.abs(c[i] - c_new[i])
                            <= config.function_tolerance * c[i])
-            c[i] = torch.where(acc, c_new[i], c[i])
-            done[i] = done[i] | fdone | (mu[i] >= config.mu_collapse)
+            c[i].copy_(torch.where(acc, c_new[i], c[i]))
+            done[i].copy_(done[i] | fdone | (mu[i] >= config.mu_collapse))
         # the step-size exit applies to rejected steps too (solver/lm.py)
         xnorm = M.psum([(xi * xi).flatten(1).sum(1) for xi in x], groups)
         snorm = M.psum([(si * si).flatten(1).sum(1) for si in step], groups)
         for i in range(len(groups)):
-            done[i] = done[i] | (
+            done[i].copy_(done[i] | (
                 torch.sqrt(snorm[i]) <= config.parameter_tolerance
-                * (torch.sqrt(xnorm[i]) + config.parameter_tolerance))
-        it += 1
-        if bool(done[0]):
-            break
+                * (torch.sqrt(xnorm[i]) + config.parameter_tolerance)))
+            it[i].add_(1)
+        go.copy_(~done[0] & (it[0] < config.max_iterations))
+
+    device_while(go, iteration, config.max_iterations)
     return LMResult(
         poses=torch.cat([xi.reshape(-1, 3).to(dev0) for xi in x]),
-        final_cost=c[0], initial_cost=c0,
-        iterations=torch.tensor(it, dtype=torch.int32, device=dev0),
+        final_cost=c[0], initial_cost=c0, iterations=it[0],
         converged=done[0],
-        final_mu=torch.tensor(config.initial_mu, dtype=dtype, device=dev0))
+        final_mu=torch.full((), config.initial_mu, dtype=dtype,
+                            device=dev0))
 
 
 def make_sharded_solver(mesh: M.Mesh, config: LMConfig = LMConfig()):

@@ -13,7 +13,9 @@ Each iteration does one residual+Jacobian pass at the trial point. The
 on-device `lax.while_loop` of the reference becomes
 `utils/device_loop.py::device_while`: eagerly a Python loop that reads one
 flag from the device an iteration, inside a CUDA graph capture
-(`LoopGraph`) a WHILE node that reads nothing.
+(`LoopGraph`) a WHILE node that reads nothing. On a CUDA device a call of
+`solve` outside a capture replays the captured program of its shapes
+(`solve_program`), as the reference runs its jitted `solve_jit`.
 
 `solve_batched` is the LM of B independent problems stacked on a leading
 replica dimension, what the reference computes as a `vmap` of `solve`
@@ -29,8 +31,8 @@ Default linear solver: the CUDA block-cyclic-reduction kernel for CUDA
 tensors (its batched route for `solve_batched`), its plain torch version for
 CPU tensors (solver/bcr_kernel.py), at every pose count.
 
-The reference's `solve_jit` is `jax.jit` of `solve`; the port runs eagerly,
-so its `solve_jit` is `solve`.
+The reference's `solve_jit` is `jax.jit` of `solve`; the port's `solve`
+already replays a device program on a card, so its `solve_jit` is `solve`.
 """
 
 from __future__ import annotations
@@ -109,17 +111,66 @@ def solve(
     mu0: Tensor | None = None,
     *,
     accepts: list | None = None,
+    eager: bool = False,
 ) -> LMResult:
     """Run LM from poses0. `use_soa=False` assembles with
     joint.normal_equations. A list passed as `accepts` receives each
-    iteration's accept flag (a bool tensor; no host read); inside a
-    LoopGraph capture it receives one [max_iterations] bool buffer instead,
-    whose first `iterations` entries a replay writes.
+    iteration's accept flag (a bool tensor); inside a LoopGraph capture it
+    receives one [max_iterations] bool buffer instead, whose first
+    `iterations` entries a replay writes.
 
     The iteration is the body of a `device_while` over a carry of buffers
     (x, D, U, g, c, mu, nu, done and the iteration count), each written
     with `copy_`: eagerly a loop with one host read an iteration, inside a
-    LoopGraph a WHILE node of the graph."""
+    LoopGraph a WHILE node of the graph. On a CUDA device, outside a
+    capture, the call replays the program of its shapes, config,
+    assembly, linear solver and warm start (`solve_program`: one WHILE
+    node) unless `eager`, which runs the same code eagerly there, for
+    comparisons only; a replay reads the host only where `accepts` asks
+    for the flags."""
+    if replays(poses0, eager):
+        args = (problem, poses0)
+        if mu0 is not None:
+            args += (torch.as_tensor(mu0, dtype=poses0.dtype,
+                                     device=poses0.device),)
+        out, flags = solve_program(args, config, linear_solver,
+                                   use_soa).run(*args)
+        if accepts is not None:
+            accepts.extend(flags[:int(out.iterations)].unbind(0))
+        return out
+    return _solve(problem, poses0, config, linear_solver, use_soa, mu0,
+                  accepts=accepts)
+
+
+_solve_programs = ProgramCache(size=2)
+
+
+def solve_program(example: tuple, config: LMConfig = LMConfig(),
+                  linear_solver: Callable | None = None,
+                  use_soa: bool = True) -> DeviceProgram:
+    """The lone LM's program on a CUDA device for inputs shaped as
+    `example` ((problem, poses0) or, with a warm start, (problem, poses0,
+    mu0)), `config`, the assembly and `linear_solver` (None: the device's
+    default): the one made before, or a new one (captured at its first
+    run). A run returns (the LMResult, the [max_iterations] accept
+    flags)."""
+    dev = example[1].device
+    # resolved before the capture, which may then count its launches
+    solver = linear_solver or _default_linear_solver(dev)
+
+    def fn(problem, poses0, *mu0):
+        flags = []
+        out = _solve(problem, poses0, config, solver, use_soa,
+                     mu0[0] if mu0 else None, accepts=flags)
+        return out, flags[0]
+
+    key = (signature(example), config, solver, use_soa, dev.index)
+    return _solve_programs.get(key, lambda: DeviceProgram(fn, example, dev))
+
+
+def _solve(problem, poses0, config, linear_solver=None, use_soa=True,
+           mu0=None, *, accepts=None) -> LMResult:
+    """solve's carry form, eager or captured."""
     if linear_solver is None:
         linear_solver = _default_linear_solver(poses0.device)
     assemble = _assembler(problem, use_soa)

@@ -39,7 +39,21 @@ step (`cholesky_ex` and two `solve_triangular`s) at [16, 30, 30] and
 [8, 240, 240]: whether each captured, the kernels of one eager call
 (cuSOLVER, cuBLAS or MAGMA), and the replay against eager.
 
-Run on the card: `python scripts/linalg_capture_probe.py [--batched]`
+With `--reduced` it probes the pose-sharded LM's reduced solve
+(parallel/sharded_solver.py::_reduced_solve: the [6d, 6d] boundary system
+assembled by index_put from [d, 42] coefficients, its LU, and a solve with
+one step of refinement) at d = 4 and 8, by five routes (the port's; two
+`lu_solve`s, which go to cuSOLVER's getrs; the factor alone; cuBLAS's
+batched getrf on two copies; an LU in plain tensor operations), as the
+SPIKE runs it on one card: one eager call under
+torch.cuda.set_sync_debug_mode("error"), the kernels of one eager call
+(cuSOLVER, cuBLAS or MAGMA), the call in a WHILE body of two trips of a
+`DeviceProgram` whose warm() makes it once on the program's stream
+(whether it captured, its pieces' node types, the replay against eager),
+and the microseconds a trip over 50 trips of one replay.
+
+Run on the card: `python scripts/linalg_capture_probe.py [--batched |
+--reduced]`
 (~30 s with the build of the graph helper). Prints one JSON line last;
 exits 1 without CUDA.
 """
@@ -58,7 +72,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from hitl_slam_torch.utils import cuda_build  # noqa: E402
 from hitl_slam_torch.utils.device_loop import (DeviceProgram,  # noqa: E402
-                                               device_while)
+                                               device_while, load_into)
 
 NODE_TYPES = 16
 
@@ -269,6 +283,133 @@ def batched_in_while(name: str, B: int, n: int, call, dev) -> dict:
     return row
 
 
+def _coefficients(d: int, dev):
+    """Seeded [d, 42] coefficients of the SPIKE's reduced system."""
+    g = torch.Generator().manual_seed(d)
+    return (0.1 * torch.randn((d, 42), generator=g)).to(dev)
+
+
+def _plain_lu_solve(Mr, rhs):
+    """Mr u = rhs by an LU with partial pivoting written as plain tensor
+    operations (about 12 launches a column) and one step of refinement."""
+    n = Mr.shape[0]
+    LU = Mr.clone()
+    ar = torch.arange(n, device=Mr.device)
+    perm = ar.clone()
+    for k in range(n - 1):
+        p = torch.argmax(LU[k:, k].abs()) + k
+        pair = torch.stack([ar[k], p])
+        back = pair.flip(0)
+        LU.index_copy_(0, back, LU.index_select(0, pair))
+        perm.index_copy_(0, back, perm.index_select(0, pair))
+        LU[k + 1:, k].div_(LU[k, k])
+        LU[k + 1:, k + 1:].addr_(LU[k + 1:, k], LU[k, k + 1:], alpha=-1)
+
+    def apply(b):
+        y = torch.linalg.solve_triangular(LU, b.index_select(0, perm),
+                                          upper=False, unitriangular=True)
+        return torch.linalg.solve_triangular(LU, y, upper=True)
+
+    u = apply(rhs)
+    return u + apply(rhs - Mr @ u)
+
+
+def _reduced_variants(d):
+    """The port's reduced solve and the routes it was chosen from."""
+    from hitl_slam_torch.parallel import sharded_solver as S
+
+    def with_lu_solve(coef):
+        Mr, rhs = S._reduced_system(coef, d)
+        LU, piv, _ = torch.linalg.lu_factor_ex(Mr)
+        u = torch.linalg.lu_solve(LU, piv, rhs)
+        return u + torch.linalg.lu_solve(LU, piv, rhs - Mr @ u)
+
+    def batched_getrf(coef):
+        Mr, rhs = S._reduced_system(coef, d)
+        LU, piv, _ = torch.linalg.lu_factor_ex(Mr.expand(2, *Mr.shape))
+        P = torch.lu_unpack(LU[0], piv[0], unpack_data=False)[0]
+
+        def apply(b):
+            y = torch.linalg.solve_triangular(LU[0], P.mT @ b, upper=False,
+                                              unitriangular=True)
+            return torch.linalg.solve_triangular(LU[0], y, upper=True)
+
+        u = apply(rhs)
+        return u + apply(rhs - Mr @ u)
+
+    return {
+        "_reduced_solve (lu_factor_ex, lu_unpack, 2 solve_triangular)":
+            lambda c: S._reduced_solve(c, d),
+        "lu_factor_ex + 2 lu_solve": with_lu_solve,
+        "lu_factor_ex alone": lambda c: torch.linalg.lu_factor_ex(
+            S._reduced_system(c, d)[0])[0],
+        "batched getrf (2 copies) + lu_unpack + 2 solve_triangular":
+            batched_getrf,
+        "plain-ops LU": lambda c: _plain_lu_solve(*S._reduced_system(c, d)),
+    }
+
+
+def reduced_in_while(d: int, name: str, call, dev) -> dict:
+    """call(coef + k) for k = 0, 1 in a WHILE body; then 20 trips timed."""
+    coef = _coefficients(d, dev)
+    row = {"d": d, "case": name, "eager_kernels": _kernels(lambda: call(coef))}
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call(coef)
+        row["sync_debug_error"] = None
+    except RuntimeError as e:
+        row["sync_debug_error"] = str(e).splitlines()[0][:200]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    shape = tuple(call(coef).shape)
+
+    def fn(coef, trips):
+        out = torch.zeros(shape, dtype=coef.dtype, device=coef.device)
+        k = torch.zeros((), dtype=torch.int32, device=coef.device)
+        cond = torch.ones((), dtype=torch.bool, device=coef.device)
+
+        def body():
+            out.copy_(call(coef + 1e-3 * k.to(coef.dtype)))
+            k.add_(1)
+            torch.lt(k, trips, out=cond)
+
+        device_while(cond, body, 64)
+        return out, k
+
+    two = torch.full((), 2, dtype=torch.int32, device=dev)
+    want, _ = fn(coef, two)
+    prog = DeviceProgram(fn, (coef, two), dev,
+                         warm=lambda: call(coef.clone()))
+    try:
+        got, k = prog.run(coef, two)
+    except RuntimeError as e:
+        torch.cuda.synchronize(dev)
+        row.update(captured=False, error=str(e).splitlines()[0][:300])
+        return row
+    gr = prog.graph()
+    row.update(captured=True, trips=int(k),
+               replay_bit_equal=bool(torch.equal(got, want)),
+               max_abs_diff=float((got - want).abs().max()),
+               capture_ms=gr.capture_ms, pool_mib=gr.pool_mib,
+               body_nodes=gr.body_nodes,
+               piece_node_types=[
+                   gr.node_types(ctypes.c_void_p(p.raw_cuda_graph()))
+                   for p in gr._pieces])
+    many = torch.full((), 50, dtype=torch.int32, device=dev)
+    prog.run(coef, many)
+    torch.cuda.synchronize(dev)
+    t0, t1 = torch.cuda.Event(True), torch.cuda.Event(True)
+    with prog.turn():
+        load_into(prog.inputs, (coef, many))
+        t0.record()
+        prog.replay()
+        t1.record()
+    torch.cuda.synchronize(dev)
+    row["us_per_trip"] = t0.elapsed_time(t1) * 1e3 / 50
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("linalg_capture_probe: no CUDA device", file=sys.stderr)
@@ -281,6 +422,15 @@ def main() -> int:
     print(f"[device] {smi}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     rows = {}
+    if "--reduced" in sys.argv[1:]:
+        for d in (4, 8):
+            for name, call in _reduced_variants(d).items():
+                res = reduced_in_while(d, name, call, dev)
+                print(f"[linalg] reduced solve d = {d}, {name}: {res}",
+                      flush=True)
+                rows[f"d{d} {name}"] = res
+        print(json.dumps({"linalg_capture_reduced": rows}))
+        return 0
     if "--batched" in sys.argv[1:]:
         for name, (B, n, call) in BATCHED.items():
             res = batched_in_while(name, B, n, call, dev)

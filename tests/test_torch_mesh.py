@@ -290,3 +290,156 @@ def test_checkerboard_mesh_device_groups(route):
     p1, c1 = checkerboard_localize(*args, o, **kw)
     np.testing.assert_allclose(n(p4), n(p1), atol=1e-4)
     np.testing.assert_allclose(n(c4), n(c1), atol=1e-4)
+
+
+# ------------------------------------------------------------ carry form
+
+def _old_sharded_loop(mesh, problem, poses0, config):
+    """sharded_lm_solve as its LM loop was before the carry form: a Python
+    loop that reads `done` after each iteration, the state rebound to new
+    tensors (the helpers are the module's)."""
+    from hitl_slam_torch.ops import residuals as res
+    from hitl_slam_torch.parallel import mesh as M
+    from hitl_slam_torch.parallel import sharded_solver as S
+    from hitl_slam_torch.solver.lm import LMResult
+
+    groups = M.groups_of(mesh.axis("pose"))
+    d = groups[-1].hi
+    Pl = poses0.shape[0] // d
+    dtype = poses0.dtype
+    dev0 = groups[0].device
+
+    def parts(t_):
+        return M.split(t_.reshape(d, Pl, *t_.shape[1:]), groups)
+
+    odom = S._pad_factors(problem.odom)
+    odom = [res.OdometryFactors(*f) for f in zip(
+        parts(odom.axis), parts(odom.radial), parts(odom.rotation),
+        parts(odom.inv_sigma))]
+    ch = problem.compact
+    compact = list(zip(parts(ch.q0), parts(ch.A), parts(ch.c)))
+    k = [ch.k.to(grp.device) for grp in groups]
+
+    def assemble(x):
+        return S._local_assemble(x, odom, compact, k, groups, d)
+
+    def scalars(v):
+        return [torch.tensor(v, dtype=dtype, device=grp.device)
+                for grp in groups]
+
+    x = parts(poses0)
+    D, U, g, c = assemble(x)
+    c0 = c[0]
+    mu, nu = scalars(config.initial_mu), scalars(2.0)
+    done = [torch.zeros((), dtype=torch.bool, device=grp.device)
+            for grp in groups]
+    it = 0
+    while it < config.max_iterations:
+        Dd, Ug, gg, diag = [], [], [], []
+        for Di, Ui, gi, mi, grp in zip(D, U, g, mu, groups):
+            if grp.lo == 0:
+                Di, Ui, gi = Di.clone(), Ui.clone(), gi.clone()
+                Di[0, 0] = torch.eye(3, dtype=dtype, device=grp.device)
+                Ui[0, 0] = 0.0
+                gi[0, 0] = 0.0
+            dg = torch.clamp(torch.diagonal(Di, dim1=-2, dim2=-1),
+                             config.min_diagonal, config.max_diagonal)
+            Dd.append(Di + mi * torch.diag_embed(dg))
+            Ug.append(Ui)
+            gg.append(gi)
+            diag.append(dg)
+        step = S._spike_solve(Dd, Ug, gg, groups, d)
+        x_new = [xi + si for xi, si in zip(x, step)]
+        Dn, Un, gn, c_new = assemble(x_new)
+        pred = M.psum([(si * (mi * dg * si - gi)).flatten(1).sum(1)
+                       for si, mi, dg, gi in zip(step, mu, diag, gg)],
+                      groups)
+        for i in range(len(groups)):
+            rho = (c[i] - c_new[i]) / torch.clamp(0.5 * pred[i], min=1e-30)
+            acc = (rho > 0) & torch.isfinite(c_new[i])
+            x[i] = torch.where(acc, x_new[i], x[i])
+            D[i] = torch.where(acc, Dn[i], D[i])
+            U[i] = torch.where(acc, Un[i], U[i])
+            g[i] = torch.where(acc, gn[i], g[i])
+            t_ = 2.0 * rho - 1.0
+            factor = torch.clamp(1.0 - t_ * (t_ * t_), min=1.0 / 3.0)
+            mu[i] = torch.clamp(torch.where(acc, mu[i] * factor,
+                                            mu[i] * nu[i]), 1e-32, 1e32)
+            nu[i] = torch.where(acc, 2.0, nu[i] * 2.0)
+            fdone = acc & (torch.abs(c[i] - c_new[i])
+                           <= config.function_tolerance * c[i])
+            c[i] = torch.where(acc, c_new[i], c[i])
+            done[i] = done[i] | fdone | (mu[i] >= config.mu_collapse)
+        xnorm = M.psum([(xi * xi).flatten(1).sum(1) for xi in x], groups)
+        snorm = M.psum([(si * si).flatten(1).sum(1) for si in step], groups)
+        for i in range(len(groups)):
+            done[i] = done[i] | (
+                torch.sqrt(snorm[i]) <= config.parameter_tolerance
+                * (torch.sqrt(xnorm[i]) + config.parameter_tolerance))
+        it += 1
+        if bool(done[0]):
+            break
+    return LMResult(
+        poses=torch.cat([xi.reshape(-1, 3).to(dev0) for xi in x]),
+        final_cost=c[0], initial_cost=c0,
+        iterations=torch.tensor(it, dtype=torch.int32, device=dev0),
+        converged=done[0],
+        final_mu=torch.tensor(config.initial_mu, dtype=dtype, device=dev0))
+
+
+@pytest.mark.parametrize("devices", [_stacked, _cross],
+                         ids=["stacked", "cross"])
+@pytest.mark.parametrize("iters", [ITERS, 3])
+def test_sharded_carry_form_bit_equal_to_old_loop(chain, devices, iters):
+    """The carry form (device_while over buffers written with copy_) and
+    the Python loop it replaced, kept above: bit-equal on one group of 8
+    stacked partitions and on 8 groups of one, run to convergence and cut
+    by the iteration cap."""
+    from hitl_slam_torch.solver.lm import LMConfig
+
+    poses, _, tprob = chain
+    mesh = _mesh((1, 8), devices)
+    config = LMConfig(max_iterations=iters)
+    got = _sharded(chain, (1, 8), devices, iters=iters)
+    want = _old_sharded_loop(mesh, tprob, t(poses), config)
+    for name in ("poses", "final_cost", "initial_cost", "iterations",
+                 "converged", "final_mu"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert got.iterations.dtype == torch.int32
+    assert int(got.iterations) == (iters if iters == 3 else
+                                   int(want.iterations))
+
+
+def test_sharded_trip_brings_no_host_tensor(chain):
+    """One trip of the sharded LM's carry form, run as device_while's body
+    outside the loop, on one group and on 8: no read back to the host and
+    no data made on the host reaching the carry (what a CUDA graph could
+    not hold); the detector sees the old loop's host-made scalars."""
+    from test_torch_enml_program import _HostTraffic
+
+    from hitl_slam_torch.parallel import sharded_solver as S
+    from hitl_slam_torch.solver.lm import LMConfig
+
+    poses, _, tprob = chain
+    for devices in (_stacked, _cross):
+        bodies = []
+
+        def one_trip(cond, body, max_trips):
+            bodies.append(body)
+            return 0
+
+        orig = S.device_while
+        S.device_while = one_trip
+        try:
+            S.sharded_lm_solve(_mesh((1, 8), devices), tprob, t(poses),
+                               LMConfig(max_iterations=5))
+        finally:
+            S.device_while = orig
+        assert len(bodies) == 1
+        with _HostTraffic() as mode:
+            bodies[0]()
+        assert mode.reads.reads == [] and mode.copies == [], devices
+    with _HostTraffic() as mode:
+        _old_sharded_loop(_mesh((1, 8), _stacked), tprob, t(poses),
+                          LMConfig(max_iterations=1))
+    assert mode.copies

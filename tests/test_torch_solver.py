@@ -520,3 +520,75 @@ def test_relative_pose_factors_match_jax():
     scale = float(np.abs(np.asarray(jref)).max())
     np.testing.assert_allclose(n(jac), np.asarray(jref), rtol=1e-4,
                                atol=1e-5 * scale)
+
+
+# ------------------------------------------------------------ repair_step
+
+def test_repair_step_eager_matches_jax():
+    """repair_step(eager=True), the code its program captures, on the
+    64-pose golden map's first logged correction (refit and counts by the
+    JAX package, ordering by order_and_filter), against the JAX package's
+    jitted repair_step with LMConfig(max_iterations=20): integers exact,
+    poses to 1e-4, costs to 1e-5 relative above an absolute floor of 1e-8
+    (the step starts at its optimum: its costs are ~1e-9, f32 round-off
+    of the two packages' sums)."""
+    import os
+
+    from test_torch_cycle import _check_table, _repair_args
+
+    from hitl_slam_torch.core.state import make_map_state as tmake
+    from hitl_slam_torch.io import logs, stfs
+    from hitl_slam_torch.models.hitl import em_input as TE
+    from hitl_slam_torch.models.hitl.repair import repair_step
+    from hitl_slam_torch.solver.lm import LMConfig as TCfg
+    from hitl_slam_tpu.core.state import make_map_state
+    from hitl_slam_tpu.models.hitl import em_input as JE
+    from hitl_slam_tpu.models.hitl.repair import repair_step as jrepair
+    from hitl_slam_tpu.solver.lm import LMConfig as JCfg
+    from torch_port_helpers import np_fields
+
+    data_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    data = stfs.load_stfs_covars(os.path.join(data_dir, "golden.stfs.covars"))
+    entry = logs.load_log(os.path.join(data_dir, "golden.log"))[0]
+    assert len(data.poses) == 64
+    jst = make_map_state(data.poses, data.covariances, data.point_clouds,
+                         data.normal_clouds, constraint_capacity=256)
+    tst = tmake(data.poses, data.covariances, data.point_clouds,
+                data.normal_clouds, constraint_capacity=256, device="cpu")
+    world = jnp.asarray(jst.world_points())
+    mask = jnp.asarray(jst.point_mask)
+    raw = np.asarray(entry.points, np.float32)
+    refit = np.asarray(JE.endpoint_adjust_batch(
+        world, mask, jnp.asarray(np.stack([raw[0:2], raw[2:4]])))
+    ).reshape(4, 2)
+    c1, c2 = (np.asarray(c) for c in JE.observation_counts(
+        world, mask, jnp.asarray(refit)))
+    o = TE.order_and_filter(c1, c2, refit)
+    group, last, anch, corr = _repair_args(o)
+    gmask = np.zeros(len(data.poses), bool)
+    gmask[group] = True
+    ctype = int(entry.correction_type)
+    sel = o.selected_points.astype(np.float32)
+    offset = 3
+    got = repair_step(tst.poses, tst.covariances, tst.constraints, ctype,
+                      t(sel), t(gmask), last, t(anch), t(corr),
+                      o.backprop_start, o.backprop_end, offset,
+                      lm_config=TCfg(max_iterations=20), eager=True)
+    i32 = lambda v: jnp.asarray(v, jnp.int32)   # noqa: E731
+    ref = jrepair(jst.poses, jst.covariances, jst.constraints, i32(ctype),
+                  jnp.asarray(sel), jnp.asarray(gmask), i32(last),
+                  jnp.asarray(anch), jnp.asarray(corr),
+                  i32(o.backprop_start), i32(o.backprop_end), i32(offset),
+                  lm_config=JCfg(max_iterations=20))
+    assert int(got.num_new_constraints) == int(ref.num_new_constraints) > 0
+    assert int(got.lm.iterations) == int(ref.lm.iterations)
+    assert bool(got.lm.converged) == bool(ref.lm.converged)
+    for k in ("pre_solve_poses", "poses"):
+        np.testing.assert_allclose(n(getattr(got, k)),
+                                   np.asarray(getattr(ref, k)), atol=1e-4,
+                                   err_msg=k)
+    for k in ("initial_cost", "final_cost"):
+        np.testing.assert_allclose(float(getattr(got.lm, k)),
+                                   float(getattr(ref.lm, k)), rtol=1e-5,
+                                   atol=1e-8, err_msg=k)
+    _check_table(got.constraints, np_fields(ref.constraints))
