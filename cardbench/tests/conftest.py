@@ -1,0 +1,24 @@
+"""CPU tests of the benchmark. Tests that need the card carry the `cuda`
+marker and decide inside the test whether there is one."""
+
+import os
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs a CUDA card; skips without one")
+
+
+@pytest.fixture
+def card():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return "cuda"
