@@ -496,7 +496,7 @@ def _rounds_program(example: tuple, config: lm.LMConfig) -> DeviceProgram:
     key = (signature(example), config, dev.index)
     return _rounds_programs.get(key, lambda: DeviceProgram(
         lambda p0, tbl, offs: _solve_rounds(p0, tbl, offs, config),
-        example, dev))
+        example, dev, name="rounds"))
 
 
 def _solve_rounds(poses0, table, offsets, config):
@@ -511,7 +511,7 @@ def _solve_rounds(poses0, table, offsets, config):
         acc.copy_(torch.sum(r.poses))
         its.index_copy_(0, k[None], r.iterations[None])
 
-    device_for(offsets.shape[0], round_, poses0.device)
+    device_for(offsets.shape[0], round_, poses0.device, name="round")
     return acc, its
 
 

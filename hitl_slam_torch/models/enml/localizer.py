@@ -627,7 +627,7 @@ def _sweep(points, normals, point_mask, initial_poses, o: EnmlOptions,
         t.add_(1)
         torch.lt(t, P, out=go)
 
-    device_while(go, node, P)
+    device_while(go, node, P, name="node")
     # pose 0 is the gauge
     covariances[0] = torch.eye(3, dtype=dtype, device=dev) * 1e-6
     poses[:, 2] = angle_mod(poses[:, 2])
@@ -687,7 +687,7 @@ def _sweep_segment(points, normals, point_mask, poses, covs, pre, t0,
         j.add_(1)
         torch.lt(j, segment, out=go)
 
-    device_while(go, node, segment)
+    device_while(go, node, segment, name="node")
     poses[:, 2] = angle_mod(poses[:, 2])
     return poses, covs
 

@@ -459,7 +459,7 @@ def _checkerboard(points, normals, point_mask, initial_poses,
             tgt.index_copy_(0, j1, t_[None])
             valid.index_copy_(0, j1, v_[None])
 
-        device_for(ck, window, dev)
+        device_for(ck, window, dev, name="window")
         return tgt, valid
 
     def gn_chunk(ch, wposes, tgt, valid, eval_only=False):
@@ -529,7 +529,7 @@ def _checkerboard(points, normals, point_mask, initial_poses,
             out.index_copy_(0, sel, torch.where(
                 tl.active.index_select(0, sel)[..., None], wp, w0))
 
-        device_for(tl.n_chunks, trip, dev)
+        device_for(tl.n_chunks, trip, dev, name="chunk")
         return out
 
     def half_pass(poses, tl):
@@ -578,7 +578,7 @@ def _checkerboard(points, normals, point_mask, initial_poses,
                                      np_[..., 2])
             out.index_copy_(0, c * (ck * W) + arw, cov.reshape(-1, 3, 3))
 
-        device_for(tl.n_chunks, trip, dev)
+        device_for(tl.n_chunks, trip, dev, name="chunk")
         return out
 
     even = tilings[0]

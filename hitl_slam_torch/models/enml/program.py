@@ -96,7 +96,8 @@ class SweepProgram(DeviceProgram):
 
         W = min(o.max_history, P)
         super().__init__(fn, example, dev,
-                         warm=lambda: _warm_linalg(3 * W, dtype, dev))
+                         warm=lambda: _warm_linalg(3 * W, dtype, dev),
+                         name="enml_sweep")
 
 
 class WindowProgram(DeviceProgram):
@@ -121,7 +122,8 @@ class WindowProgram(DeviceProgram):
                                   ltf_segs, gates)
 
         super().__init__(fn, example, dev,
-                         warm=lambda: _warm_linalg(3 * W, dtype, dev))
+                         warm=lambda: _warm_linalg(3 * W, dtype, dev),
+                         name="enml_window")
 
 
 def sweep_program(points: Tensor, options: EnmlOptions,
@@ -206,7 +208,8 @@ class CheckerboardProgram(DeviceProgram):
             return _checkerboard(points, normals, point_mask, poses, o,
                                  n_passes, force_grid, held["plans"], gates)
 
-        super().__init__(fn, example, dev, warm=warm)
+        super().__init__(fn, example, dev, warm=warm,
+                         name="enml_checkerboard")
 
 
 def checkerboard_program(points: Tensor, options: EnmlOptions,

@@ -219,7 +219,7 @@ class CycleProgram(DeviceProgram):
                     odom_inv_sigma=odom_inv_sigma,
                     mu0=mu if warm_start else None)
 
-        super().__init__(solve, example, device)
+        super().__init__(solve, example, device, name="hitl", clock=True)
         self.lm_config = lm_config
         self.odom_sigma = odom_sigma
         self.ticket = em_scan_kernel.new_ticket(self.device)
@@ -237,11 +237,13 @@ class CycleProgram(DeviceProgram):
     def _inputs(self, points, point_mask, poses, covariances, constraints,
                 sel, n, odom_inv_sigma) -> tuple:
         """run's inputs for DeviceProgram, `mu` the config's initial
-        damping."""
+        damping; a host selection (an array) is copied into its buffer
+        directly."""
         if (odom_inv_sigma is None) == self.odom_sigma:
             raise ValueError("CycleProgram: odom_inv_sigma given to a program "
                              "made without it, or the reverse")
-        return (points, point_mask, poses, covariances, constraints, sel, n,
+        return (points, point_mask, poses, covariances, constraints,
+                torch.as_tensor(sel, dtype=torch.float32), n,
                 self.lm_config.initial_mu, odom_inv_sigma)
 
     def run(self, ctype: int, points: Tensor, point_mask: Tensor,
@@ -249,8 +251,8 @@ class CycleProgram(DeviceProgram):
             sel: Tensor, n,
             odom_inv_sigma: Tensor | None = None) -> CycleOutput:
         """One cycle as a replay, on the current stream (`n` a Python int
-        or a scalar tensor): load, replay, and a copy of the outputs that
-        later replays leave alone."""
+        or a scalar tensor, `sel` a tensor or a host array): load, replay,
+        and a copy of the outputs that later replays leave alone."""
         return super().run(
             *self._inputs(points, point_mask, poses, covariances,
                           constraints, sel, n, odom_inv_sigma),

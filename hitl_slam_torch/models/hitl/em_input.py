@@ -113,7 +113,7 @@ def endpoint_adjust_batch(world_pts: Tensor, mask: Tensor, segs: Tensor) -> Tens
                                 torch.zeros_like(moved_now)))
         go.copy_(torch.any(moved > ENDPOINT_STABLE))
 
-    device_while(go, adjust_round, MAX_ADJUST_ROUNDS)
+    device_while(go, adjust_round, MAX_ADJUST_ROUNDS, name="em_refit")
     return s
 
 

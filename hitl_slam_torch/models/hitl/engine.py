@@ -15,6 +15,16 @@ chain (`run_queue`) reads back its per-cycle flags once at its end.
 Whatever outlives the next replay (the new state, the undo snapshot, a
 speculative result) is a copy, never the graph's own memory.
 
+Spans (utils/timing.py): a correction is the span `hitl.correction`, with
+the children `hitl.speculation` (where a speculative dispatch is pending:
+waiting for it, adopting it), `hitl.load` (the inputs' load, the
+selection's upload among them), `hitl.launch` (the replay, or the eager
+cycle on the CPU), `hitl.copy_out` (the outputs' copy), `hitl.report_read`
+(the report's six scalars: the wait for the device and the transfer) and
+`hitl.commit`; a speculative dispatch runs `hitl.dispatch` on its worker,
+under the id of the correction that adopts it. Every host read counts as
+`host_reads`.
+
 Speculative dispatch: when the second drag completes a selection, the whole
 cycle for it starts on a worker thread (on a CUDA stream of its own when the
 device is a card), so that it computes during the pause before run() is
@@ -41,7 +51,7 @@ from ...core.state import (
     make_map_state,
 )
 from ...solver.lm import LMConfig
-from ...utils.timing import FunctionTimer
+from ...utils.timing import count, new_correction, span
 from .cycle import (CycleOutput, CycleProgram, cycle_program, cycle_step,
                     queue_chain)
 
@@ -58,11 +68,13 @@ class CycleReport:
     initial_cost: float = 0.0
     final_cost: float = 0.0
     dropped_rows: int = 0   # constraint rows lost to a full table this cycle
+    # ms of the correction's child spans by name (or of its chain's span)
     timings_ms: dict = field(default_factory=dict)
 
 
 def _read_scalars(*ts) -> list[float]:
     """One device -> host transfer for a handful of scalar tensors."""
+    count("host_reads")
     return torch.stack([t.to(torch.float64) for t in ts]).cpu().tolist()
 
 
@@ -83,6 +95,7 @@ class _Speculation:
     num_constraints: int
     thread: threading.Thread
     box: dict
+    correction: int          # the id of the correction that adopts it
 
 
 class HitLSLAM:
@@ -202,20 +215,24 @@ class HitLSLAM:
                    num_constraints: int,
                    program: CycleProgram | None = None) -> CycleOutput:
         """One cycle on the current stream: a replay of the map's program
-        (or `program`) on a card, its outputs copied out of the graph;
-        eager on the CPU."""
-        sel_t = torch.as_tensor(sel, dtype=torch.float32, device=self.device)
+        (or `program`) on a card, the selection loaded with its inputs and
+        its outputs copied out of the graph (spans hitl.load, hitl.launch,
+        hitl.copy_out); eager on the CPU."""
         if self.device.type == "cuda":
             return (program or self._program(st)).run(
                 ctype, st.points, st.point_mask, st.poses, st.covariances,
-                st.constraints, sel_t, num_constraints,
+                st.constraints, sel, num_constraints,
                 odom_inv_sigma=self.odom_inv_sigma)
-        return cycle_step(
-            st.points, st.point_mask, st.poses, st.covariances,
-            st.constraints, ctype, sel_t, num_constraints,
-            lm_config=self.lm_config,
-            odom_inv_sigma=self.odom_inv_sigma,
-        )
+        with span("hitl.load"):
+            sel_t = torch.as_tensor(sel, dtype=torch.float32,
+                                    device=self.device)
+        with span("hitl.launch"):
+            return cycle_step(
+                st.points, st.point_mask, st.poses, st.covariances,
+                st.constraints, ctype, sel_t, num_constraints,
+                lm_config=self.lm_config,
+                odom_inv_sigma=self.odom_inv_sigma,
+            )
 
     def _dispatch_speculative(self):
         """Start the cycle for the just-completed selection on a worker
@@ -246,17 +263,21 @@ class HitLSLAM:
             stream = self._spec_stream
             stream.wait_stream(torch.cuda.current_stream(self.device))
         box: dict = {}
+        correction = new_correction()
+
+        def cycle():
+            out = self._run_cycle(st, ctype, sel, n, prog)
+            with span("hitl.report_read"):
+                return out, _report_scalars(out)
 
         def work():
             try:
-                if stream is None:
-                    out = self._run_cycle(st, ctype, sel, n)
-                    vals = _report_scalars(out)
-                else:
-                    with torch.cuda.stream(stream):
-                        out = self._run_cycle(st, ctype, sel, n, prog)
-                        vals = _report_scalars(out)
-                box["out"], box["vals"] = out, vals
+                with span("hitl.dispatch", correction=correction):
+                    if stream is None:
+                        box["out"], box["vals"] = cycle()
+                    else:
+                        with torch.cuda.stream(stream):
+                            box["out"], box["vals"] = cycle()
             except Exception as e:   # handed to the run() that uses it
                 box["error"] = e
 
@@ -264,7 +285,7 @@ class HitLSLAM:
                               name="hitl-speculative-cycle")
         th.start()
         self._speculative = _Speculation(ctype, sel.tobytes(), st.poses, n,
-                                         th, box)
+                                         th, box, correction)
 
     def _discard_speculative(self) -> _Speculation | None:
         """Take the pending speculative dispatch, if any, after its worker
@@ -488,20 +509,22 @@ class HitLSLAM:
                                   np.asarray(s.points, np.float32))
                 for s in inputs]
         runs = [(s, sel) for s, sel in zip(inputs, live) if sel is not None]
-        timer = FunctionTimer("queue")
         flags = []
+        timings = {}
         if runs:
-            sels = torch.as_tensor(np.stack([sel for _, sel in runs]),
-                                   dtype=torch.float32, device=self.device)
-            poses, covs, table, _, per = queue_chain(
-                st.points, st.point_mask, st.poses, st.covariances,
-                st.constraints, [int(s.correction_type) for s, _ in runs],
-                sels, self.num_constraints, lm_config=self.lm_config,
-                odom_inv_sigma=self.odom_inv_sigma)
-            # the chain's one host read
-            flags = torch.stack([c.to(torch.float64) for c in per],
-                                dim=1).cpu().tolist()
-            timer.lap("queue_chain")
+            with span("hitl.chain") as chain:
+                sels = torch.as_tensor(np.stack([sel for _, sel in runs]),
+                                       dtype=torch.float32, device=self.device)
+                poses, covs, table, _, per = queue_chain(
+                    st.points, st.point_mask, st.poses, st.covariances,
+                    st.constraints, [int(s.correction_type) for s, _ in runs],
+                    sels, self.num_constraints, lm_config=self.lm_config,
+                    odom_inv_sigma=self.odom_inv_sigma)
+                # the chain's one host read
+                count("host_reads")
+                flags = torch.stack([c.to(torch.float64) for c in per],
+                                    dim=1).cpu().tolist()
+            timings = {chain.name: chain.ms}
             self.state = st.replace(poses=poses, covariances=covs,
                                     constraints=table)
         reports: list[CycleReport] = []
@@ -534,7 +557,7 @@ class HitLSLAM:
                     num_new_constraints=int(n_new),
                     lm_iterations=int(lm_it),
                     initial_cost=c0, final_cost=c1,
-                    timings_ms=timer.laps_ms()))
+                    timings_ms=dict(timings)))
             n_total += int(n_new)
         self.num_constraints += n_total
         self._clip_cursor()
@@ -552,46 +575,72 @@ class HitLSLAM:
         self.reset_correction_inputs()
         return report
 
+    def _matches(self, spec: _Speculation, ctype: CorrectionType,
+                 sel: np.ndarray) -> bool:
+        """Whether the speculative dispatch `spec` was made for this exact
+        cycle: type, selection bytes, pose tensor identity, constraint
+        count."""
+        return (spec.ctype == int(ctype)
+                and spec.sel_bytes == sel.astype(np.float32).tobytes()
+                and spec.poses is self.state.poses
+                and spec.num_constraints == self.num_constraints)
+
     def _cycle(self, ctype: CorrectionType, sel: np.ndarray,
                record_history: bool) -> CycleReport:
-        st = self.state
-        timer = FunctionTimer("cycle")
+        """One correction, the span `hitl.correction` (under the id of the
+        speculative dispatch it adopts, if any); its report's timings_ms
+        are the ms of the span's children."""
         sel_p = self._prepare_sel(ctype, sel)
         if sel_p is None:
             return CycleReport(False, f"unsupported selection shape {sel.shape}")
-        sel = sel_p
+        spec = self._speculative
+        adopt = spec is not None and self._matches(spec, ctype, sel_p)
+        with span("hitl.correction", correction=spec.correction if adopt
+                  else new_correction()) as root:
+            report = self._correct(ctype, sel_p, record_history, adopt)
+        report.timings_ms = root.children_ms()
+        return report
 
+    def _correct(self, ctype: CorrectionType, sel: np.ndarray,
+                 record_history: bool, adopt: bool) -> CycleReport:
+        st = self.state
         prev_poses = st.poses
         prev_covariances = st.covariances
         prev_n = self.num_constraints
 
         # take the speculative dispatch when it was made for this exact
-        # cycle (type, selection bytes, pose tensor identity, constraint
-        # count); anything else has been waited for and is dropped here
+        # cycle (`adopt`); anything else has been waited for and is dropped
+        # here
         out = vals = None
-        spec = self._discard_speculative()
-        if (spec is not None and spec.ctype == int(ctype)
-                and spec.sel_bytes == sel.astype(np.float32).tobytes()
-                and spec.poses is st.poses
-                and spec.num_constraints == self.num_constraints):
-            out, vals = self._adopt_speculative(spec)
-            self.speculative_hits += 1
+        if self._speculative is not None:
+            with span("hitl.speculation"):
+                spec = self._discard_speculative()
+                if adopt:
+                    out, vals = self._adopt_speculative(spec)
+                    self.speculative_hits += 1
         if out is None:
             out = self._run_cycle(st, int(ctype), sel, self.num_constraints)
-            vals = _report_scalars(out)
+            with span("hitl.report_read"):
+                vals = _report_scalars(out)
+        with span("hitl.commit"):
+            return self._commit(ctype, sel, record_history, out, vals,
+                                prev_poses, prev_covariances, prev_n)
+
+    def _commit(self, ctype, sel, record_history, out, vals, prev_poses,
+                prev_covariances, prev_n) -> CycleReport:
+        """The state, history and undo snapshot after a cycle, and its
+        report."""
+        st = self.state
         verified, order_valid, n_new, lm_it, c0, c1 = vals
-        timer.lap("cycle_step")
         self.num_completed_cycles += 1
 
         # a non-finite solve leaves the session state untouched
         if bool(order_valid) and bool(verified) and not np.isfinite(c1):
             return CycleReport(False, "solver diverged (non-finite cost); "
-                               "state preserved",
-                               timings_ms=timer.laps_ms())
+                               "state preserved")
 
         if not bool(verified):
-            return CycleReport(False, "input not verified near observations",
-                               timings_ms=timer.laps_ms())
+            return CycleReport(False, "input not verified near observations")
 
         # history is recorded once the input verifies, even if ordering then
         # rejects it, with the snapshot taken before the ordering check
@@ -604,7 +653,7 @@ class HitLSLAM:
 
         if not bool(order_valid):
             return CycleReport(False, "selection overlap / no backprop window",
-                               points_verified=4, timings_ms=timer.laps_ms())
+                               points_verified=4)
 
         self.prev_poses = prev_poses
         self.prev_covariances = prev_covariances
@@ -623,5 +672,4 @@ class HitLSLAM:
             initial_cost=c0,
             final_cost=c1,
             dropped_rows=dropped,
-            timings_ms=timer.laps_ms(),
         )

@@ -234,4 +234,4 @@ def _program(fn, example: tuple, static: tuple,
 
     key = (fn, signature(example), static, dev.index)
     return _programs.get(key, lambda: DeviceProgram(
-        lambda *a: fn(*a, *static), example, dev, warm=warm))
+        lambda *a: fn(*a, *static), example, dev, warm=warm, name="refine"))

@@ -147,7 +147,8 @@ def repair_program(example: tuple, ctype: int,
     dev = example[0].device
     key = (signature(example), int(ctype), lm_config, dev.index)
     return _programs.get(key, lambda: DeviceProgram(
-        lambda *a: _repair(*a, int(ctype), lm_config), example, dev))
+        lambda *a: _repair(*a, int(ctype), lm_config), example, dev,
+        name="repair"))
 
 
 def _repair(poses, covariances, constraints, sel, group_mask, last_pose,

@@ -244,7 +244,7 @@ def _extract(pts: Tensor, mask: Tensor, draws: Draws,
             one_round(r, _pick_available(avail, csum, u[:, 0]),
                       _pick_available(avail, csum, u[:, 1]))
 
-        device_for(S, round_from_uniforms, dev)
+        device_for(S, round_from_uniforms, dev, name="round")
     else:
         r = torch.zeros((), dtype=torch.int64, device=dev)
         for k in range(S):
@@ -284,4 +284,5 @@ def ransac_program(pts: Tensor, params: RansacParams = RansacParams()
         return _extract(pts, mask, u, params)
 
     return _programs.get((shape, dtype, params, dev.type, dev.index),
-                         lambda: DeviceProgram(fn, example, dev))
+                         lambda: DeviceProgram(fn, example, dev,
+                                               name="ransac"))

@@ -154,7 +154,7 @@ def _build_sdf(poses, points, point_mask, origin, height: int, width: int,
                      / ((weights + w).clamp(min=1e-12)))
         weights.add_(w)
 
-    device_for(poses.shape[0], pose_update, dev)
+    device_for(poses.shape[0], pose_update, dev, name="pose")
     # never-observed pixels read min_sdf_value ("behind surface"), not the
     # accumulator's 0 / eps = 0 ("at surface")
     values = torch.where(weights > 0, values, p.min_sdf_value)
@@ -188,7 +188,7 @@ def sdf_program(poses: Tensor, points: Tensor, height: int, width: int,
 
     return _programs.get(
         (P, N, dtype, height, width, params, dev.type, dev.index),
-        lambda: DeviceProgram(fn, example, dev))
+        lambda: DeviceProgram(fn, example, dev, name="sdf"))
 
 
 def dynamic_mask(sdf: SdfImage, params: SdfParams = SdfParams()) -> Tensor:

@@ -315,7 +315,7 @@ def sharded_program(example: tuple, config: LMConfig, d: int,
     key = (signature(example), config, d, dev.index)
     return _programs.get(key, lambda: DeviceProgram(
         lambda problem, poses0: _sharded(problem, poses0, config, groups),
-        example, dev))
+        example, dev, name="spike"))
 
 
 def _sharded(problem: JointProblem, poses0: Tensor, config: LMConfig,

@@ -92,7 +92,7 @@ def pcg_solve(
         it.add_(1)
         torch.gt(torch.linalg.vector_norm(r) / b_norm, tolerance, out=go)
 
-    device_while(go, iteration, max_iterations)
+    device_while(go, iteration, max_iterations, name="cg")
     return x, torch.linalg.vector_norm(r) / b_norm, it
 
 

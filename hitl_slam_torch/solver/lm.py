@@ -165,7 +165,8 @@ def solve_program(example: tuple, config: LMConfig = LMConfig(),
         return out, flags[0]
 
     key = (signature(example), config, solver, use_soa, dev.index)
-    return _solve_programs.get(key, lambda: DeviceProgram(fn, example, dev))
+    return _solve_programs.get(key, lambda: DeviceProgram(fn, example, dev,
+                                                          name="lm"))
 
 
 def _solve(problem, poses0, config, linear_solver=None, use_soa=True,
@@ -243,7 +244,7 @@ def _solve(problem, poses0, config, linear_solver=None, use_soa=True,
         done.copy_(done | fdone | sdone | mdone)
         go.copy_(~done & (it < config.max_iterations))
 
-    device_while(go, iteration, config.max_iterations)
+    device_while(go, iteration, config.max_iterations, name="lm")
     return LMResult(
         poses=x, final_cost=c, initial_cost=c0, iterations=it,
         converged=done, final_mu=mu,
@@ -316,7 +317,8 @@ def batched_program(example: tuple, config: LMConfig = LMConfig(),
             return _solve_batched_captured(build(poses0_b, table_b),
                                            poses0_b, config, solver)
     key = (signature(example), config, solver, build, dev.index)
-    return _batched_programs.get(key, lambda: DeviceProgram(fn, example, dev))
+    return _batched_programs.get(key, lambda: DeviceProgram(
+        fn, example, dev, name="lm_batched"))
 
 
 def _solve_batched_captured(problem_b, poses0_b, config, linear_solver):

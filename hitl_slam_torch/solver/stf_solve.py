@@ -567,10 +567,10 @@ def stf_pcg_lm_solve(
         nu.copy_(nu_new)
         it.add_(1)
         done.copy_(done | done_new)
-        device_while(accept & ~done, reassemble, 1)
+        device_while(accept & ~done, reassemble, 1, name="reassemble")
         torch.logical_not(done, out=go)
 
-    device_while(go, iteration, config.max_iterations)
+    device_while(go, iteration, config.max_iterations, name="lm")
     return STFSolveResult(
         poses=x, final_cost=c, initial_cost=c0, iterations=it,
         num_matches=torch.sum(stf_s.valid).to(torch.int32),
@@ -673,10 +673,10 @@ def stf_lm_solve(
             H.copy_(torch.where(accept, H_new, H))
             g.copy_(torch.where(accept, g_new, g))
         else:
-            device_while(accept & ~done, reassemble, 1)
+            device_while(accept & ~done, reassemble, 1, name="reassemble")
         torch.logical_not(done, out=go)
 
-    device_while(go, iteration, config.max_iterations)
+    device_while(go, iteration, config.max_iterations, name="lm")
     return STFSolveResult(
         poses=x, final_cost=c, initial_cost=c0, iterations=it,
         num_matches=torch.sum(stf.valid).to(torch.int32),

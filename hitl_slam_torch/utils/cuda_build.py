@@ -39,7 +39,9 @@ class LaunchCounter:
 
     An eager launch adds one on the host. A launch captured into a CUDA
     graph launches nothing at capture time: it captures, beside the kernel,
-    an add of one to a device counter, so that every replay counts the
+    one one-thread kernel that adds one to a device counter and, inside a
+    LoopGraph, marks the graph's stage clock with the counter's name
+    (csrc/graph_loop.cu::count_and_mark), so that every replay counts the
     launches it makes, and inside a device loop (utils/device_loop.py) only
     those of the trips that run. The device counter is made before the
     capture (`prepare`), outside the graph's memory. `count` is the host's
@@ -74,7 +76,12 @@ class LaunchCounter:
                 f"{self.name}: a launch captured into a CUDA graph needs "
                 f"its device counter made before the capture "
                 f"(LaunchCounter.prepare)")
-        counter.add_(1)
+        from .device_loop import capture_mark
+
+        clock, mark = capture_mark(self.name)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        check(library().hitl_clock_mark(counter.data_ptr(), clock, mark,
+                                        stream), self.name + " mark")
 
     @property
     def count(self) -> int:
@@ -228,9 +235,13 @@ def library() -> ctypes.CDLL:
         pp, ull = ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_ulonglong)
         for name, args in (("hitl_loop_graph_new", [pp]),
                            ("hitl_loop_append", [vp, pp, vp]),
-                           ("hitl_loop_add_while", [vp, pp, vp, pp, ull]),
+                           ("hitl_loop_add_while",
+                            [vp, pp, vp, pp, ull, vp, i]),
                            ("hitl_loop_close_body",
-                            [vp, vp, ctypes.c_ulonglong, vp]),
+                            [vp, vp, ctypes.c_ulonglong, vp, vp, i]),
+                           ("hitl_loop_add_clock", [vp, pp, vp, i]),
+                           ("hitl_clock_mark", [vp, vp, i, vp]),
+                           ("hitl_clock_stamp", [vp, vp]),
                            ("hitl_loop_graph_nodes", [vp, ull]),
                            ("hitl_loop_node_types", [vp, ull, i]),
                            ("hitl_loop_instantiate", [vp, pp]),

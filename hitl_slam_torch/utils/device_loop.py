@@ -37,22 +37,42 @@ scripts/graph_loop_probe.py checks them on the card, nested ones too).
 `device_for` is the loop of a static trip count (a chunk, a pose or a
 round index): eagerly a Python loop that reads nothing, captured a WHILE
 node over an index held on the device.
+
+A LoopGraph made with `clock=True` carries a `StageClock`: a buffer on the
+device, made before the capture, that the graph's one-thread kernels stamp
+with %globaltimer (csrc/graph_loop.cu). The cycle's graphs carry one, the
+only program a metric reads; the others go without, since a mark costs each
+trip of a loop about half a microsecond or more (on an H100 the SDF build's
+replay, 1,027 marks, ran 3.1 % slower with a clock). A loop's test marks
+the clock with the loop's `name`, a kernel wrapper's launch counter with
+the counter's name (utils/cuda_build.py::LaunchCounter), and two nodes of
+the top graph mark its `begin` and `end`; the clock sums the nanoseconds
+between consecutive marks by (previous mark, mark), and keeps each replay's
+begin and end and a log of the last marks. A WHILE body gains no node, the
+top graph two. Nothing is read back during a replay; `read_clocks`
+(utils/timing.py::snapshot) synchronises and reads every live clock (a
+clock goes with its graph), and `calibrate` maps the device's timer onto
+the host's `time.perf_counter_ns`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import itertools
 import threading
 import time
 import warnings
+import weakref
 from collections import OrderedDict
 from contextlib import contextmanager
 from typing import Callable
 
+import numpy as np
 import torch
 
 from . import cuda_build
+from .timing import count, span
 
 Tensor = torch.Tensor
 
@@ -64,28 +84,33 @@ _capture_lock = threading.Lock()
 
 
 def device_while(cond: Tensor, body: Callable[[], None],
-                 max_trips: int) -> int | None:
+                 max_trips: int, name: str = "loop") -> int | None:
     """While `cond` (a scalar bool tensor) holds, at most `max_trips`
     times, run `body()`, which updates the carry and `cond` in place.
+    `name` is the loop's mark on its graph's stage clock.
 
-    Returns the number of trips when run eagerly; None inside a
-    `LoopGraph` capture, where the trips happen at replay."""
+    Returns the number of trips when run eagerly (each test a host read,
+    counted as `host_reads`); None inside a `LoopGraph` capture, where the
+    trips happen at replay."""
     if cond.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
         capture = getattr(_local, "capture", None)
         if capture is None:
             raise RuntimeError("device_while: a loop can be captured only "
                                "inside a LoopGraph")
-        capture.loop(cond, body, max_trips)
+        capture.loop(cond, body, max_trips, name)
         return None
     trips = 0
-    while trips < max_trips and bool(cond):
+    while trips < max_trips:
+        count("host_reads")
+        if not bool(cond):
+            break
         body()
         trips += 1
     return trips
 
 
 def device_for(trips: int, body: Callable[[Tensor], None],
-               device) -> None:
+               device, name: str = "for") -> None:
     """`body(i)` for i = 0 .. trips - 1, `i` a 0-dim int64 tensor on
     `device`: the reference's `lax.map` or `lax.scan` over a static range.
     `body` updates its carry in place, as device_while's does. Eagerly a
@@ -102,11 +127,134 @@ def device_for(trips: int, body: Callable[[Tensor], None],
             i.add_(1)
             torch.lt(i, trips, out=go)
 
-        device_while(go, trip, trips)
+        device_while(go, trip, trips, name)
         return
     for _ in range(trips):
         body(i)
         i.add_(1)
+
+
+# the stage clock's layout in int64 words (csrc/graph_loop.cu): marks a
+# graph may name (0 and 1 are begin and end), replays the ring holds, marks
+# the log holds
+CLOCK_MARKS = 32
+CLOCK_RING = 4096
+CLOCK_LOG = 65536
+_EDGE_NS = 4
+_EDGE_HITS = _EDGE_NS + CLOCK_MARKS * CLOCK_MARKS
+_HITS = _EDGE_HITS + CLOCK_MARKS * CLOCK_MARKS
+_RING = _HITS + CLOCK_MARKS
+_LOG = _RING + 2 * CLOCK_RING
+CLOCK_WORDS = _LOG + 2 * CLOCK_LOG
+
+# the live StageClocks by index (a clock goes with its graph)
+clocks: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
+_clock_index = itertools.count()
+# per device index: calibration points (device ns, host ns, bracket ns)
+_calibration: dict = {}
+
+
+class StageClock:
+    """The stage clock of one LoopGraph (module docstring): its buffer on
+    `device`, made outside any graph's memory, the names of its marks by id
+    (`begin`, `end`, then in order of first use; past CLOCK_MARKS - 1 names
+    every further one is `other`), and `launches`, the replays started,
+    counted on the host. `label` names the graph's program."""
+
+    def __init__(self, device, label: str):
+        self.label = label
+        self.device = torch.device(device)
+        self.buf = torch.zeros((CLOCK_WORDS,), dtype=torch.int64,
+                               device=self.device)
+        self.marks = ["begin", "end"]
+        self.launches = 0
+        self.index = next(_clock_index)
+        clocks[self.index] = self
+
+    def mark(self, name: str) -> int:
+        """The id of mark `name`, given one at its first use."""
+        if name not in self.marks:
+            if len(self.marks) >= CLOCK_MARKS - 1:
+                name = "other"
+            if name not in self.marks:
+                self.marks.append(name)
+        return self.marks.index(name)
+
+    def read(self) -> dict:
+        """The buffer read back (waits for the device): the edges' ns and
+        hits [m, m] and the marks' hits [m] for the m named marks, the
+        replays, the ring's (replay, begin ns, end ns) of the last
+        CLOCK_RING replays and the log's (ns, mark id) of the last
+        CLOCK_LOG marks, oldest first, in the device's ns."""
+        b = self.buf.cpu().numpy()
+        m = len(self.marks)
+        M = CLOCK_MARKS
+        replays, logged = int(b[2]), int(b[3])
+        ring = b[_RING:_LOG].reshape(CLOCK_RING, 2)
+        first = max(0, replays - CLOCK_RING)
+        n = np.arange(first, replays)
+        log = b[_LOG:].reshape(CLOCK_LOG, 2)
+        k = np.arange(max(0, logged - CLOCK_LOG), logged) % CLOCK_LOG
+        return dict(
+            label=self.label, index=self.index, marks=list(self.marks),
+            edge_ns=b[_EDGE_NS:_EDGE_HITS].reshape(M, M)[:m, :m].copy(),
+            edge_hits=b[_EDGE_HITS:_HITS].reshape(M, M)[:m, :m].copy(),
+            hits=b[_HITS:_HITS + m].copy(), replays=replays,
+            ring=np.column_stack([n, ring[n % CLOCK_RING]]),
+            log=log[k].copy())
+
+
+def calibrate(device, trials: int = 64) -> tuple[int, int, int]:
+    """One point of the map from the device's %globaltimer to the host's
+    `time.perf_counter_ns` on CUDA `device`: `trials` one-thread stamps,
+    each launched between two host reads, the second after a synchronise;
+    of the tightest bracket, (device ns, the bracket's middle, its width).
+    Kept as a calibration point of the device."""
+    lib = cuda_build.library()
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.synchronize(dev)
+    stream = torch.cuda.current_stream(dev)
+    out = torch.zeros((trials,), dtype=torch.int64, device=dev)
+    brackets = []
+    for k in range(trials):
+        t0 = time.perf_counter_ns()
+        cuda_build.check(lib.hitl_clock_stamp(out[k].data_ptr(),
+                                              stream.cuda_stream),
+                         "clock stamp")
+        stream.synchronize()
+        brackets.append((t0, time.perf_counter_ns()))
+    stamps = out.cpu().tolist()
+    k = min(range(trials), key=lambda i: brackets[i][1] - brackets[i][0])
+    t0, t1 = brackets[k]
+    point = (int(stamps[k]), (t0 + t1) // 2, t1 - t0)
+    _calibration.setdefault(dev.index, []).append(point)
+    return point
+
+
+def read_clocks() -> dict:
+    """Every live stage clock on a card read, and its device's
+    calibration, after a fresh calibration point on each device that has a
+    clock: {"clocks": [StageClock.read()], "calibration": {device index:
+    [points]}}. Nothing on a machine without clocks."""
+    cards = sorted((c for c in list(clocks.values())
+                    if c.device.type == "cuda"), key=lambda c: c.index)
+    devices = sorted({c.device.index for c in cards})
+    for d in devices:
+        calibrate(torch.device("cuda", d))
+    read = [dict(c.read(), device=c.device.index) for c in cards]
+    return {"clocks": read,
+            "calibration": {d: list(_calibration[d]) for d in devices}}
+
+
+def capture_mark(name: str) -> tuple[int, int]:
+    """(the clock's address, the id of mark `name`) of the LoopGraph this
+    thread captures; (0, 0) outside one, or for a graph without a clock."""
+    capture = getattr(_local, "capture", None)
+    if capture is None or capture.clock is None:
+        return 0, 0
+    return capture.clock.buf.data_ptr(), capture.clock.mark(name)
 
 
 class LoopGraph:
@@ -115,17 +263,21 @@ class LoopGraph:
     `replay()` runs it on the current stream. `outputs` is what `fn`
     returned: tensors in the graph's memory, overwritten by every replay.
 
+    With `clock`, the graph carries a StageClock (`clock`, else None),
+    labelled `label` (its program's name), made before the capture and
+    dropped with the graph.
+
     `pool` (a `torch.cuda.graph_pool_handle()`) may be shared by several
     LoopGraphs that are never replayed at the same time and are captured on
     one `stream` (the pool's free memory is kept by stream). Any failure of the
     capture raises; nothing falls back to eager execution. `capture_ms`
     is the host time of the capture and instantiation, `nodes` the graph's
-    nodes (those of every captured piece, each loop body once, and the
-    three a loop adds: its first test, the WHILE node, the test after a
-    trip), `body_nodes` each loop's body nodes (one trip's captured pieces,
-    not those of a loop inside it), `levels` each loop's depth (1: a loop
-    of the top graph, 2: a loop inside a loop's trip), `level_nodes` the
-    nodes at each depth (0: the top graph's; k: those in the bodies of the
+    nodes (those of every captured piece, each loop body once, the three a
+    loop adds: its first test, the WHILE node, the test after a trip, and
+    the clock's begin and end), `body_nodes` each loop's body nodes (one
+    trip's captured pieces, not those of a loop inside it), `levels` each
+    loop's depth (1: a loop of the top graph, 2: a loop inside a loop's
+    trip), `level_nodes` the nodes at each depth (0: the top graph's; k: those in the bodies of the
     loops of depth k, their inner loops' first tests and WHILE nodes
     included), `pool_mib` the device memory the capture reserved. A
     LoopGraph is not captured inside another, and captures of several
@@ -137,8 +289,11 @@ class LoopGraph:
     beside the pools of dropped programs)."""
 
     def __init__(self, fn: Callable[[], object], device, pool=None,
-                 stream: torch.cuda.Stream | None = None):
+                 stream: torch.cuda.Stream | None = None,
+                 label: str = "graph", clock: bool = False):
         self.device = torch.device(device)
+        if self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self._lib = cuda_build.library()
         self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
         self.stream = (torch.cuda.Stream(self.device) if stream is None
@@ -155,11 +310,16 @@ class LoopGraph:
         # the graphs being filled: the top graph, then each open loop's
         # body, each with its last node and its node count
         self._stack: list = []
+        # (the clock's index, the replay's number) of the last replay
+        self.last_replay: tuple[int, int] | None = None
         self._check(self._lib.hitl_loop_graph_new(ctypes.byref(self._graph)),
                     "graph create")
         if getattr(_local, "capture", None) is not None:
             raise RuntimeError("LoopGraph: captures do not nest")
-        with _capture_lock:
+        with _capture_lock, span(label + ".capture"):
+            if clock and self.device.index not in _calibration:
+                calibrate(self.device)
+            self.clock = StageClock(self.device, label) if clock else None
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(self.device)
@@ -169,9 +329,11 @@ class LoopGraph:
                 _local.capture = self
                 try:
                     self._push(self._graph)
+                    self._clock_node(0)
                     self._begin()
                     self.outputs = fn()
                     self._end()
+                    self._clock_node(1)
                     self._pop()
                 except BaseException:
                     self._abort()
@@ -192,6 +354,21 @@ class LoopGraph:
         if code != 0:
             msg = self._lib.hitl_cuda_error_string(code).decode()
             raise RuntimeError(f"LoopGraph {what}: CUDA error {code} ({msg})")
+
+    def _clock_ptr(self) -> int:
+        return self.clock.buf.data_ptr() if self.clock is not None else 0
+
+    def _clock_node(self, end: int) -> None:
+        """The clock's begin (end = 0) or end node, appended to the top
+        graph."""
+        if self.clock is None:
+            return
+        level = self._stack[-1]
+        self._check(self._lib.hitl_loop_add_clock(
+            level[0], ctypes.byref(level[1]), self._clock_ptr(), end),
+            "add clock node")
+        level[2] += 1
+        self.nodes += 1
 
     def _push(self, graph: ctypes.c_void_p) -> None:
         self._stack.append([graph, ctypes.c_void_p(), 0])
@@ -247,12 +424,14 @@ class LoopGraph:
             self._open = None
 
     def loop(self, cond: Tensor, body: Callable[[], None],
-             max_trips: int) -> None:
+             max_trips: int, name: str = "loop") -> None:
         """Close the open piece, add the WHILE node to the innermost open
         graph, capture one trip into its body (a loop inside the trip
         nests there), close the body with its test and open the piece
-        after the loop (device_while's capture)."""
+        after the loop (device_while's capture). Both tests mark the clock
+        with `name`."""
         dev = cond.device
+        mark = self.clock.mark(name) if self.clock is not None else 0
         trips = torch.zeros((), dtype=torch.int32, device=dev)
         go = torch.logical_and(cond, trips < max_trips)
         self._keep += [trips, go]
@@ -262,7 +441,8 @@ class LoopGraph:
         handle = ctypes.c_ulonglong()
         self._check(self._lib.hitl_loop_add_while(
             outer[0], ctypes.byref(outer[1]), go.data_ptr(),
-            ctypes.byref(inner), ctypes.byref(handle)), "add while")
+            ctypes.byref(inner), ctypes.byref(handle), self._clock_ptr(),
+            mark), "add while")
         outer[2] += 2
         self.nodes += 2
         k = len(self.body_nodes)
@@ -276,7 +456,8 @@ class LoopGraph:
         self._end()
         level = self._stack[-1]
         self._check(self._lib.hitl_loop_close_body(
-            level[0], level[1], handle, go.data_ptr()), "close body")
+            level[0], level[1], handle, go.data_ptr(), self._clock_ptr(),
+            mark), "close body")
         level[2] += 1
         self.nodes += 1
         self._pop()
@@ -300,10 +481,14 @@ class LoopGraph:
     # -- replay ------------------------------------------------------------
 
     def replay(self) -> None:
-        """Run the graph on the current stream."""
+        """Run the graph on the current stream; `last_replay` names the
+        replay in its clock's ring."""
         self._check(self._lib.hitl_loop_launch(
             self._exec, torch.cuda.current_stream(self.device).cuda_stream),
             "launch")
+        if self.clock is not None:
+            self.last_replay = (self.clock.index, self.clock.launches)
+            self.clock.launches += 1
 
     def __del__(self):
         lib = getattr(self, "_lib", None)
@@ -386,10 +571,14 @@ class DeviceProgram:
     what a library makes at its first call on a stream (a handle, a
     workspace) is made there, outside the graph. Each graph records its
     capture (LoopGraph's `capture_ms`, `nodes`, `body_nodes`, `levels`,
-    `level_nodes`, `pool_mib`)."""
+    `level_nodes`, `pool_mib`). With `clock` each graph carries a stage
+    clock labelled `name`; `name` also labels the spans of `run`:
+    `<name>.load`, `<name>.launch` (which carries the replay's place in its
+    clock's ring, None without a clock) and `<name>.copy_out`."""
 
     def __init__(self, fn: Callable, example, device,
-                 warm: Callable[[], None] | None = None):
+                 warm: Callable[[], None] | None = None,
+                 name: str = "program", clock: bool = False):
         dev = torch.device(device)
         if dev.type != "cuda":
             raise ValueError(f"a device program runs on a CUDA device, not "
@@ -397,6 +586,8 @@ class DeviceProgram:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
+        self.name = name
+        self.clock = clock
         self.fn = fn
         self.inputs = static_like(example, dev)
         self._warm = warm
@@ -421,7 +612,7 @@ class DeviceProgram:
                 self._warm()
         args = self.inputs if key is None else (*self.inputs, key)
         g = LoopGraph(lambda: self.fn(*args), dev, pool=self.pool,
-                      stream=self.stream)
+                      stream=self.stream, label=self.name, clock=self.clock)
         self.graphs[key] = g
         return g
 
@@ -449,8 +640,13 @@ class DeviceProgram:
         """Load `inputs`, replay the graph of `key`, and return a copy of
         its outputs."""
         with self.turn():
-            load_into(self.inputs, inputs)
-            return clone_tree(self.replay(key))
+            with span(self.name + ".load"):
+                load_into(self.inputs, inputs)
+            with span(self.name + ".launch") as launch:
+                outputs = self.replay(key)
+                launch.args = self.graphs[key].last_replay
+            with span(self.name + ".copy_out"):
+                return clone_tree(outputs)
 
 
 class ProgramCache:
