@@ -5,7 +5,7 @@
 
 Phases (any failure raises and exits non-zero; nothing falls back):
   1. device facts, then build the CUDA sources of hitl_slam_torch/csrc/
-     (both kernels and the graph loops' helper; ptxas registers, shared
+     (the kernels and the graph loops' helper; ptxas registers, shared
      memory and spills are printed);
   2. em_scan kernel vs its plain torch version on the 1024-pose golden map:
      exact counts and bit-equal minima, over threshold and edge cases, an
@@ -13,12 +13,18 @@ Phases (any failure raises and exits non-zero; nothing falls back):
   3. block-cyclic-reduction kernel vs its plain torch version and an f64
      direct solve, n = 1 .. 65536, each route (one block, clusters of 2 to
      16 blocks, top levels in device memory ahead of a cluster of 16);
+  3b. the LM trip kernel (csrc/lm_step.cu) against its plain version on
+     the card, P = 8 .. 16385 (each route and one pose past its end): the
+     first assembly and one trip from the same carry and step, the same
+     accept flag, count, done and go and the rest to f32 round-off; at
+     1024 and 8192 poses its device ms by torch.profiler beside its bound
+     (bytes / 3.35 TB/s), its event ms and the plain version's ms;
   4. the main path, HitLSLAM on cuda: replay_log of the small golden
      session (both tolerances of tests/test_golden.py), replay_log and
      run_queue of the 1024-pose golden session; each run's kernel launch
      counts are zeroed just before it and checked just after
-     (em_scan = 2 x cycles, bcr = LM iterations), and the run_queue's
-     repaired map is phase 15's;
+     (em_scan = 2 x cycles, bcr = LM iterations, lm_step = LM iterations
+     + cycles), and the run_queue's repaired map is phase 15's;
   5. the post-human STF refine on the repaired 1024-pose map (each refine
      and each half a replay of its device program, phase 21):
      post_optimize(matcher="auto") (accepted, cost not increased, finite,
@@ -619,10 +625,13 @@ def _reset_counts():
     from hitl_slam_torch.ops import em_scan as E
     from hitl_slam_torch.solver import bcr_kernel as B
 
+    from hitl_slam_torch.solver import lm_step
+
     E.launches.count = 0
     B.launches.count = 0
     B.batched_launches.count = 0
     B.multi_launches.count = 0
+    lm_step.launches.count = 0
 
 
 def _read_counts():
@@ -630,6 +639,117 @@ def _read_counts():
     from hitl_slam_torch.solver import bcr_kernel as B
 
     return E.launches.count, B.launches.count
+
+
+# ---------------------------------------------------------------- phase 3b
+
+# the trip kernel's sizes: each route (a block, a cluster, two launches) and
+# one pose past each end; timed at the cycle's 1024 poses and the lone LM's
+# 8192
+LM_STEP_SIZES = (8, 1024, 1025, 8192, 16384, 16385)
+LM_STEP_TIMED = (1024, 8192)
+
+
+def lm_step_work(P: int) -> int:
+    """Bytes of one trip of the LM kernel: x, the step, D and g of the
+    carry, the chain factors' axis, radial, rotation and inv_sigma rows,
+    the human terms' A, c and q0 read once; x, D, U, g and the next
+    system's D and b written once."""
+    F = P - 1
+    read = P * (3 + 3 + 9 + 3 + 9 + 3 + 3) + F * (4 + 1 + 1 + 3)
+    write = P * (3 + 9 + 3 + 9 + 3) + F * 9
+    return 4 * (read + write)
+
+
+def _lm_step_gap(k, p, config):
+    """The kernel's carry `k` against the plain carry `p`: the largest
+    difference over each field's f32 round-off tolerance (within 1e-5 of
+    its largest entry and 1e-6 of D's: g and b cancel terms of that size),
+    and whether the flags agree."""
+    from hitl_slam_torch.solver import lm_step as S
+
+    scale = float(p.D.abs().max())
+    (kD, _, kb), (pD, _, pb) = S.system(k, config), S.system(p, config)
+    worst = 0.0
+    for got, want in ((k.x, p.x), (k.D, p.D), (k.U, p.U), (k.g, p.g),
+                      (k.c, p.c), (k.mu, p.mu), (k.nu, p.nu), (kD, pD),
+                      (kb, pb)):
+        if want.numel():
+            want = want.double()
+            tol = 1e-5 * max(float(want.abs().max()), 1.0) + 1e-6 * scale
+            worst = max(worst, float((got.double() - want).abs().max()) / tol)
+    flags = all(bool((getattr(k, n) == getattr(p, n)).all())
+                for n in ("it", "done", "go"))
+    return worst, flags
+
+
+def phase_lm_step(torch):
+    """The LM trip kernel against its plain version on the card, and its
+    times. Returns (its launches, the worst gap over tolerance, {P: times})."""
+    import numpy as np
+
+    from hitl_slam_torch.bench import seeded_chain
+    from hitl_slam_torch.solver import bcr_kernel as B, joint, lm_step as S
+    from hitl_slam_torch.solver.lm import LMConfig
+
+    config = LMConfig()
+    S.launches.count = 0
+    worst, times = 0.0, {}
+    for P in LM_STEP_SIZES:
+        poses, table = seeded_chain(P, P, DEVICE)
+        poses = torch.as_tensor(poses, device=DEVICE)
+        problem = joint.build_problem(poses, table)
+        jitter = np.random.default_rng(P).normal(
+            0, [0.05, 0.05, 0.01], (P, 3)).astype(np.float32)
+        jitter[0] = 0.0
+        start = poses + torch.as_tensor(jitter, device=DEVICE)
+        k = S.begin(problem, start, config)
+        p = S.begin_reference(S.soa_assembler(problem), start, config)
+        first, first_flags = _lm_step_gap(k, p, config)
+        step = B.bcr_solve(*S.system(p, config))
+        accept = bool(S.trip_reference(p, step, config))
+        S.trip(k, step, config)
+        _sync()
+        gap, flags = _lm_step_gap(k, p, config)
+        k_accept = bool(k.accepted[0]) if k.accepted is not None else accept
+        check(first_flags and flags and first <= 1.0 and gap <= 1.0
+              and k_accept == accept,
+              f"lm_step P={P}: kernel against plain version, first "
+              f"assembly {first:.3f} and trip {gap:.3f} of tolerance, flags "
+              f"{first_flags} {flags}, accept {k_accept} / {accept}")
+        worst = max(worst, first, gap)
+        plan = S.launch_plan(P)
+        line = (f"[lm_step] P={P} ({plan.route}, {plan.blocks} x "
+                f"{plan.threads}): first assembly {first:.3f}, trip "
+                f"{gap:.3f} of the f32 tolerance; accept {accept}")
+        if P in LM_STEP_TIMED:
+            run = lambda: S.trip(k, step, config)   # noqa: E731
+            ms = time_cuda(run, 200)
+            per_launch, dev_ms, dev_all = device_ms(run, "lm_step_kernel")
+            plain_ms = time_cuda(lambda: S.trip_reference(p, step, config),
+                                 20)
+            bound_ms = lm_step_work(P) / HBM_BYTES_PER_S * 1e3
+            times[P] = dict(ms=ms, device_ms=per_launch,
+                            device_ms_per_call=dev_ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by="bytes",
+                            bytes=lm_step_work(P), library_ms=None)
+            line += (f"; events {ms:.5f} ms, device {per_launch:.5f} ms a "
+                     f"launch (all device work a call {dev_all:.5f} ms), "
+                     f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+                     f"({lm_step_work(P)} bytes)")
+        log(line)
+    _sync()
+    return S.launches.count, worst, times
+
+
+def lm_step_count() -> int:
+    from hitl_slam_torch.solver import lm_step
+
+    return lm_step.launches.count
+
+
+# the trip kernel's launches on the main path (phase 4), for the kernels line
+LM_STEP_LAUNCHES: list[int] = []
 
 
 def _engine(data, capacity):
@@ -670,6 +790,11 @@ def run_main_path(torch, name, data, entries, capacity, expected, tols,
           f"{name}: em_scan launches {n_em} != 2 x {cycles} cycles")
     check(n_bcr == sum(iters),
           f"{name}: bcr launches {n_bcr} != LM iterations {sum(iters)}")
+    n_step = lm_step_count()
+    check(n_step == sum(iters) + cycles,
+          f"{name}: lm_step launches {n_step} != LM iterations "
+          f"{sum(iters)} + {cycles} solves")
+    LM_STEP_LAUNCHES.append(n_step)
     got = eng.get_poses()
     check(np.all(np.isfinite(got)) and got.shape == data.poses.shape,
           f"{name}: poses not finite / wrong shape")
@@ -682,7 +807,8 @@ def run_main_path(torch, name, data, entries, capacity, expected, tols,
         errs.append(f"{dxy:.2e} m / {dth:.2e} rad (<= {atol_xy} / {atol_th})")
     log(f"[main] {name}: {cycles} cycles accepted, per-cycle wall ms "
         f"{[round(w, 3) for w in walls]}{' (chain mean)' if fused else ''}, "
-        f"LM iterations {iters}, launches em_scan={n_em} bcr={n_bcr}, "
+        f"LM iterations {iters}, launches em_scan={n_em} bcr={n_bcr} "
+        f"lm_step={n_step}, "
         f"pose error {'; '.join(errs)}")
     return n_em, n_bcr, eng
 
@@ -5042,8 +5168,9 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_build.library()
     info = cuda_build.build_info
-    log(f"[build] {info.path} in {time.perf_counter() - t0:.1f} s "
-        f"({'cached' if info.cached else 'nvcc, 3 sources in parallel'})")
+    how = ("cached" if info.cached
+           else f"nvcc, {len(cuda_build.SOURCES)} sources in parallel")
+    log(f"[build] {info.path} in {time.perf_counter() - t0:.1f} s ({how})")
     log_ptxas("build", info.log)
 
     small = stfs.load_stfs_covars(os.path.join(DATA, "golden.stfs.covars"))
@@ -5059,6 +5186,8 @@ def main() -> int:
     em_err = phase_em_scan(torch, state, large_log)
     # ---- 3. bcr kernel vs plain vs f64 ----
     bcr_err = phase_bcr(torch)
+    # ---- 3b. the LM trip kernel vs plain ----
+    n_step, step_gap, step_times = phase_lm_step(torch)
     # ---- 4. the main path ----
     (n_em, n_bcr), repaired = phase_main(torch, small, small_log, large,
                                          large_log)
@@ -5159,6 +5288,13 @@ def main() -> int:
          "solve_program_launches": o_bcr,
          "max_abs_err": max(bcr_err, scale_err[1]), **times["bcr_solve"],
          **scale_times["bcr_solve"]},
+        {"name": "lm_step", "route": "cuda",
+         "source": "hitl_slam_torch/csrc/lm_step.cu",
+         "replaces": None,
+         "launches": n_step + sum(LM_STEP_LAUNCHES),
+         "main_path_launches": sum(LM_STEP_LAUNCHES),
+         "max_gap_over_tolerance": step_gap,
+         **step_times[1024], "at": "P=1024", "P8192": step_times[8192]},
         {"name": "bcr_solve_batched", "route": "cuda",
          "source": "hitl_slam_torch/csrc/bcr.cu",
          "replaces": "hitl_slam_tpu/solver/pallas_bcr.py:94",

@@ -9,7 +9,11 @@ Port of hitl_slam_tpu/solver/lm.py with the same semantics:
     collapse (mu >= mu_collapse); rejected steps count as iterations;
   - the optional `mu0` warm start, clipped into [1e-6, 1e-1].
 
-Each iteration does one residual+Jacobian pass at the trial point. The
+Each iteration does one residual+Jacobian pass at the trial point. Outside
+the linear solve an iteration is solver/lm_step.py's `trip`: on a card one
+launch of its kernel (the trial point's assembly, accept, the damping
+update, the exit tests and the next damped system), on the CPU its plain
+version, which is the SoA assembly and the tail below, op for op. The
 on-device `lax.while_loop` of the reference becomes
 `utils/device_loop.py::device_while`: eagerly a Python loop that reads one
 flag from the device an iteration, inside a CUDA graph capture
@@ -44,6 +48,7 @@ import torch
 
 from ..utils.device_loop import (DeviceProgram, ProgramCache, device_while,
                                  replays, signature)
+from . import lm_step
 from .assembly_soa import normal_equations_soa, soa_constants
 from .joint import JointProblem, normal_equations
 
@@ -171,83 +176,45 @@ def solve_program(example: tuple, config: LMConfig = LMConfig(),
 
 def _solve(problem, poses0, config, linear_solver=None, use_soa=True,
            mu0=None, *, accepts=None) -> LMResult:
-    """solve's carry form, eager or captured."""
+    """solve's carry form, eager or captured. A trip is the linear solve
+    and lm_step.trip: on a card, one launch of the BCR kernel and one of
+    the trip kernel (the first assembly one more before the loop); on the
+    CPU, and with the AoS assembly, the plain version."""
     if linear_solver is None:
         linear_solver = _default_linear_solver(poses0.device)
-    assemble = _assembler(problem, use_soa)
     dev = poses0.device
-
-    D, U, g, c = assemble(poses0)
-    c0 = c
-    x = poses0.clone()
-    c = c.clone()
-    if mu0 is None:
-        mu = _scalar(config.initial_mu, poses0)
+    if use_soa:
+        s = lm_step.begin(problem, poses0, config, mu0)
     else:
-        mu = torch.clamp(torch.as_tensor(mu0, dtype=poses0.dtype,
-                                         device=dev), 1e-6, 1e-1)
-    nu = _scalar(2.0, poses0)
-    two = _scalar(2.0, poses0)
-    third = _scalar(1.0 / 3.0, poses0)
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    go = ~done & (it < config.max_iterations)
+        s = lm_step.begin_reference(_assembler(problem, False), poses0,
+                                    config, mu0)
     captured = dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
-    accepted = None
-    if accepts is not None and captured:
-        accepted = torch.zeros((config.max_iterations,), dtype=torch.bool,
-                               device=dev)
-        accepts.append(accepted)
+    # the plain version hands back each accept flag; the kernel writes them
+    # into its [max_iterations] flags
+    flags = s.accepted
+    if flags is None and accepts is not None and captured:
+        flags = torch.zeros((config.max_iterations,), dtype=torch.bool,
+                            device=dev)
 
     def iteration():
-        diag = torch.clamp(torch.diagonal(D, dim1=-2, dim2=-1),
-                           config.min_diagonal, config.max_diagonal)
-        D_damped = D + mu * torch.diag_embed(diag)
-        step = linear_solver(D_damped, U, -g)
-        x_new = x + step
-        D_new, U_new, g_new, c_new = assemble(x_new)
-
-        # model decrease L(0) - L(step) in the MNT form
-        pred = 0.5 * torch.sum(step * (mu * diag * step - g))
-        rho = (c - c_new) / torch.clamp(pred, min=1e-30)
-
-        accept = (rho > 0) & torch.isfinite(c_new)
-        if accepted is not None:
-            accepted.index_put_((it.long()[None],), accept[None])
+        step = linear_solver(*lm_step.system(s, config))
+        accept = lm_step.trip(s, step, config)
+        if accept is None:
+            return
+        if flags is not None:
+            flags.index_put_((s.it.long()[None] - 1,), accept[None])
         elif accepts is not None:
             accepts.append(accept)
-        x_next = torch.where(accept, x_new, x)
-        D.copy_(torch.where(accept, D_new, D))
-        U.copy_(torch.where(accept, U_new, U))
-        g.copy_(torch.where(accept, g_new, g))
-        c_next = torch.where(accept, c_new, c)
 
-        t = 2.0 * rho - 1.0
-        factor = torch.maximum(third, 1.0 - t * (t * t))
-        mu_next = torch.where(accept, mu * factor, mu * nu)
-        nu.copy_(torch.where(accept, two, nu * 2.0))
-        mu_next = torch.clamp(mu_next, 1e-32, 1e32)
-
-        # relative function decrease (accepted steps only), relative step
-        # size (every step), or trust-region collapse
-        fdone = accept & (torch.abs(c - c_new)
-                          <= config.function_tolerance * c)
-        xnorm = torch.sqrt(torch.sum(x_next * x_next))
-        sdone = (torch.sqrt(torch.sum(step * step))
-                 <= config.parameter_tolerance
-                 * (xnorm + config.parameter_tolerance))
-        mdone = mu_next >= config.mu_collapse
-        x.copy_(x_next)
-        c.copy_(c_next)
-        mu.copy_(mu_next)
-        it.add_(1)
-        done.copy_(done | fdone | sdone | mdone)
-        go.copy_(~done & (it < config.max_iterations))
-
-    device_while(go, iteration, config.max_iterations, name="lm")
+    trips = device_while(s.go, iteration, config.max_iterations, name="lm")
+    if accepts is not None and flags is not None:
+        if trips is None:
+            accepts.append(flags)
+        else:
+            accepts.extend(flags[:trips].unbind(0))
     return LMResult(
-        poses=x, final_cost=c, initial_cost=c0, iterations=it,
-        converged=done, final_mu=mu,
+        poses=s.x, final_cost=s.c, initial_cost=s.c0, iterations=s.it,
+        converged=s.done, final_mu=s.mu,
     )
 
 

@@ -27,9 +27,10 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # per-source extra flags: em_scan must not contract a*b+c into an FMA, so
 # that its per-point squared distances are bit-identical to the separate
-# torch ops of its plain version (exact counts at the threshold)
-EXTRA = {"em_scan.cu": ["--fmad=false"]}
-SOURCES = ("em_scan.cu", "bcr.cu", "graph_loop.cu")
+# torch ops of its plain version (exact counts at the threshold); nor must
+# lm_step, so that its assembly rounds as the plain version's separate ops
+EXTRA = {"em_scan.cu": ["--fmad=false"], "lm_step.cu": ["--fmad=false"]}
+SOURCES = ("em_scan.cu", "bcr.cu", "graph_loop.cu", "lm_step.cu")
 LIB_NAME = "libhitl_kernels.so"
 
 
@@ -46,10 +47,16 @@ class LaunchCounter:
     those of the trips that run. The device counter is made before the
     capture (`prepare`), outside the graph's memory. `count` is the host's
     count plus the device counters' (reading those waits for the device);
-    setting it sets the host's and zeroes the device counters."""
+    setting it sets the host's and zeroes the device counters.
 
-    def __init__(self, name: str):
+    A counter made with `mark=False` counts without marking the stage
+    clock: a kernel inside a loop whose edges a reader fixes (the LM's
+    `lm` and `bcr_solve`, cardbench/stages.py) then adds its time to the
+    edge it runs in rather than a new one."""
+
+    def __init__(self, name: str, mark: bool = True):
         self.name = name
+        self.mark = mark
         self._host = 0
         self._device: dict = {}
         counters.append(self)
@@ -78,7 +85,7 @@ class LaunchCounter:
                 f"(LaunchCounter.prepare)")
         from .device_loop import capture_mark
 
-        clock, mark = capture_mark(self.name)
+        clock, mark = capture_mark(self.name) if self.mark else (0, 0)
         stream = torch.cuda.current_stream(device).cuda_stream
         check(library().hitl_clock_mark(counter.data_ptr(), clock, mark,
                                         stream), self.name + " mark")
@@ -103,7 +110,7 @@ def all_counters() -> list[LaunchCounter]:
     exist before a capture whatever the caller imported: a wrapper first
     imported inside a capture could not count its launches there."""
     from ..ops import em_scan  # noqa: F401
-    from ..solver import bcr_kernel  # noqa: F401
+    from ..solver import bcr_kernel, lm_step  # noqa: F401
 
     return list(counters)
 
@@ -232,6 +239,10 @@ def library() -> ctypes.CDLL:
         lib.hitl_bcr_solve_multi.argtypes = [vp, vp, vp, vp, vp, ll, ll, ll,
                                              i, i, i, i, i, i, i, i, vp]
         lib.hitl_bcr_solve_multi.restype = i
+        lib.hitl_lm_step.argtypes = [ctypes.POINTER(vp),
+                                     ctypes.POINTER(f),
+                                     ctypes.POINTER(i), vp]
+        lib.hitl_lm_step.restype = i
         pp, ull = ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_ulonglong)
         for name, args in (("hitl_loop_graph_new", [pp]),
                            ("hitl_loop_append", [vp, pp, vp]),
