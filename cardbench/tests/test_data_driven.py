@@ -1,13 +1,17 @@
 """A new configuration, traffic, mix, metric and cell take new files only:
-dropped into a copy of the benchmark, they are found by name, and no file
-that was there changes."""
+dropped into a copy of the benchmark, they are found by name, the CPU cut
+of the configuration too (tiny/<config>.json), and no file that was there
+changes."""
 
 import hashlib
 import json
 import os
 import shutil
 
+import pytest
+
 from cardbench import harness
+from cardbench.tests.tiny import tiny_cell
 
 MIX = '''
 import time
@@ -53,7 +57,10 @@ def _digest(root):
     return out
 
 
-def test_new_cell_needs_only_new_files(tmp_path):
+def _toy(tmp_path, cut=True):
+    """A copy of the benchmark with the toy configuration, mix, metrics and
+    cell dropped in (and the toy configuration's CPU cut, where `cut`), the
+    manifest that names them, and the digest of the copy before."""
     base = tmp_path / "cardbench"
     shutil.copytree(harness.HERE, base,
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -65,7 +72,11 @@ def test_new_cell_needs_only_new_files(tmp_path):
     (base / "traffic" / "toy-mix.json").write_text(
         json.dumps({"driver": "toy", "items": 50}))
     (base / "configs" / "toy-config.json").write_text(
-        json.dumps({"scale": 2, "assumed": [], "reduced": []}))
+        json.dumps({"scale": 2, "shape": {"rows": 4, "cols": 8},
+                    "assumed": [], "reduced": []}))
+    if cut:
+        (base / "tiny" / "toy-config.json").write_text(
+            json.dumps({"scale": 1, "shape": {"rows": 2}}))
     (base / "workloads" / "toy-config.toy-mix.json").write_text(
         json.dumps({"config": "toy-config", "traffic": "toy-mix",
                     "limits": {"sum_gap": 0}}))
@@ -83,6 +94,11 @@ def test_new_cell_needs_only_new_files(tmp_path):
                                "better": "higher", "source": "program_counter",
                                "layer": "toy layer", "moves": "toy_items_s",
                                "workloads": ["toy-config.toy-mix"]})
+    return base, bench, before
+
+
+def test_new_cell_needs_only_new_files(tmp_path):
+    base, bench, before = _toy(tmp_path)
     cell = harness.find_cell("toy-config.toy-mix", bench, str(base),
                              str(tmp_path))
     line, _ = harness.run_cell(cell, 1, 0.1, False, "cpu")
@@ -90,5 +106,19 @@ def test_new_cell_needs_only_new_files(tmp_path):
     assert set(line["metrics"]) == {"toy_items_s", "setup_s"}
     line, _ = harness.run_cell(cell, 1, 0.1, True, "cpu")
     assert line["metrics"]["toy_total"]["value"] == sum(range(100))
+    # the CPU cut is the configuration's overlay, found by its name
+    cell = tiny_cell("toy-config.toy-mix", bench, str(base), str(tmp_path))
+    assert cell.config["scale"] == 1
+    assert cell.config["shape"] == {"rows": 2, "cols": 8}
+    line, _ = harness.run_cell(cell, 1, 0.1, True, "cpu")
+    assert line["correct"] is True
+    assert line["metrics"]["toy_total"]["value"] == sum(range(50))
     after = _digest(base)
     assert {k: after[k] for k in before} == before
+
+
+def test_a_configuration_without_a_cut_is_refused(tmp_path):
+    """No overlay, no CPU run: the error names the file that is missing."""
+    base, bench, _ = _toy(tmp_path, cut=False)
+    with pytest.raises(FileNotFoundError, match="tiny/toy-config.json"):
+        tiny_cell("toy-config.toy-mix", bench, str(base), str(tmp_path))

@@ -143,11 +143,18 @@ def test_readers_on_a_program_without_the_recorder(monkeypatch):
 
 
 def test_readers_declare_the_manifest_entries():
+    """Each reader's entry matches it, and lists only cells of the
+    corrections mix, the mix whose window `stages.window` counts back."""
     bench = harness.load_json(os.path.join(harness.ROOT, "BENCHMARK.json"))
     rows = {m["name"]: m for m in bench["per_layer"]}
+    drivers = {w["name"]: harness.load_json(os.path.join(
+        harness.HERE, "traffic", f"{w['traffic']}.json"))["driver"]
+        for w in bench["workloads"]}
     for n in NAMES:
         mod = _reader(n)
         assert (mod.LAYER, mod.UNIT, mod.MOVES, mod.SOURCE) == (
             rows[n]["layer"], rows[n]["unit"], rows[n]["moves"],
             rows[n]["source"])
-        assert rows[n]["workloads"] == ["hitl-figure8-1024.corrections"]
+        cells = rows[n]["workloads"]
+        assert all(drivers.get(c) == "corrections" for c in cells), (n, cells)
+        assert "hitl-figure8-1024.corrections" in cells
