@@ -34,7 +34,7 @@ from ...ops.geometry import pose_to_world
 from ...solver.joint import build_problem
 from ...solver.lm import LMConfig, LMResult, solve as lm_solve
 from ...utils.device_loop import (DeviceProgram, ProgramCache, clone_tree,
-                                  load_into)
+                                  load_into, stage_mark)
 from . import em_input
 from .backprop import backprop
 from .explicit import apply_explicit, constraint_deltas
@@ -139,10 +139,12 @@ def cycle_solve(
         dpar, dperp, dth, pen, pair_valid & valid, write_offset)
 
     # --- backprop + angle wrap ---
+    stage_mark("backprop")
     poses2, cov2 = backprop(poses1, covariances, C, o.bp_min, o.bp_max)
     poses2 = _wrap_theta(poses2)
 
     # --- joint LM solve over odometry + all human factors ---
+    stage_mark("build_problem")
     problem = build_problem(poses2, table, odom_inv_sigma=odom_inv_sigma)
     # part of the cycle's program when captured, and eager with an eager
     # cycle (never a program of its own)

@@ -83,12 +83,9 @@ class LaunchCounter:
                 f"{self.name}: a launch captured into a CUDA graph needs "
                 f"its device counter made before the capture "
                 f"(LaunchCounter.prepare)")
-        from .device_loop import capture_mark
+        from .device_loop import mark_node
 
-        clock, mark = capture_mark(self.name) if self.mark else (0, 0)
-        stream = torch.cuda.current_stream(device).cuda_stream
-        check(library().hitl_clock_mark(counter.data_ptr(), clock, mark,
-                                        stream), self.name + " mark")
+        mark_node(self.name, device, counter.data_ptr(), self.mark)
 
     @property
     def count(self) -> int:

@@ -45,8 +45,9 @@ only program a metric reads; the others go without, since a mark costs each
 trip of a loop about half a microsecond or more (on an H100 the SDF build's
 replay, 1,027 marks, ran 3.1 % slower with a clock). A loop's test marks
 the clock with the loop's `name`, a kernel wrapper's launch counter with
-the counter's name (utils/cuda_build.py::LaunchCounter), and two nodes of
-the top graph mark its `begin` and `end`; the clock sums the nanoseconds
+the counter's name (utils/cuda_build.py::LaunchCounter), a `stage_mark`
+node with its stage's name, and two nodes of the top graph with its
+`begin` and `end`; the clock sums the nanoseconds
 between consecutive marks by (previous mark, mark), and keeps each replay's
 begin and end and a log of the last marks. A WHILE body gains no node, the
 top graph two. Nothing is read back during a replay; `read_clocks`
@@ -255,6 +256,29 @@ def capture_mark(name: str) -> tuple[int, int]:
     if capture is None or capture.clock is None:
         return 0, 0
     return capture.clock.buf.data_ptr(), capture.clock.mark(name)
+
+
+def mark_node(name: str, device, counter: int | None = None,
+              mark: bool = True) -> None:
+    """Capture one one-thread kernel node (csrc/graph_loop.cu::
+    count_and_mark) on `device`'s current stream: it adds one to the int64
+    at address `counter` where one is given, and, with `mark`, stamps mark
+    `name` on the stage clock of the LoopGraph this thread captures, where
+    it has one. The one place such a node is made: launch counters
+    (cuda_build.LaunchCounter.bump) and stage marks (`stage_mark`)."""
+    clock, mark_id = capture_mark(name) if mark else (0, 0)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    cuda_build.check(cuda_build.library().hitl_clock_mark(
+        counter, clock, mark_id, stream), name + " mark")
+
+
+def stage_mark(name: str) -> None:
+    """Mark stage `name` in the LoopGraph this thread captures: a
+    `mark_node` with no counter. Nothing outside such a capture: eager, on
+    the CPU, or in a capture of another kind."""
+    capture = getattr(_local, "capture", None)
+    if capture is not None:
+        mark_node(name, capture.device)
 
 
 class LoopGraph:

@@ -286,7 +286,7 @@ def _engine(device):
 @pytest.mark.cuda
 def test_cycle_lm_loop_counts_marks_and_nodes(cuda_device, monkeypatch):
     """The cycle program with the kernel in its LM loop: the stage clock's
-    marks are the six the readers fix; a correction launches the trip
+    marks are the eight the readers fix; a correction launches the trip
     kernel once a trip and once a solve, BCR once a trip and em_scan twice;
     and the LM body has far fewer nodes than the same capture with the
     plain version (both printed)."""
@@ -308,7 +308,8 @@ def test_cycle_lm_loop_counts_marks_and_nodes(cuda_device, monkeypatch):
         assert em_scan.launches.count == 2
         marks = prog.graphs[ct].clock.marks
         assert sorted(marks) == sorted(["begin", "end", "em_scan",
-                                        "em_refit", "lm", "bcr_solve"])
+                                        "em_refit", "backprop",
+                                        "build_problem", "lm", "bcr_solve"])
     kernel = prog.graph(ct)
     args = (*prog.inputs, ct)
 

@@ -429,6 +429,34 @@ def test_replay_marks_count_the_lm_trips(cuda_device):
 
 
 @pytest.mark.cuda
+def test_replay_marks_its_pre_solve_stages_once(cuda_device):
+    """A replay of the cycle program marks `backprop` and `build_problem`
+    once each, between the count scan and the LM's first test, so the
+    pre-solve is three edges; the replay's edges, folded from its log,
+    still sum to its begin-to-end."""
+    eng, entries = _engine(cuda_device, "golden_large")
+    e = entries[0]
+    eng.replay_log(e)
+    prog = eng._program(eng.state)
+    clock = prog.graphs[int(e.correction_type)].clock.read()
+    log = clock["log"]
+    begin = np.nonzero(log[:, 1] == 0)[0][-1]
+    seq = [clock["marks"][int(k)] for k in log[begin:, 1]]
+    assert seq.count("backprop") == 1 and seq.count("build_problem") == 1
+    i = seq.index("backprop")
+    assert seq[i - 1:i + 3] == ["em_scan", "backprop", "build_problem", "lm"]
+    st = timing.Stages.of_replays([clock],
+                                  [(clock["index"], clock["replays"] - 1)])
+    edges = st.edges_ms()
+    for k in ("em_scan->backprop", "backprop->build_problem",
+              "build_problem->lm"):
+        assert edges[k][1] == 1.0, k
+    assert "em_scan->lm" not in edges
+    n, b, t_end = clock["ring"][-1]
+    assert st.mean_ms() * 1e6 == pytest.approx(t_end - b, abs=1)
+
+
+@pytest.mark.cuda
 def test_clock_adds_two_top_nodes_and_none_to_a_body(cuda_device):
     eng, entries = _engine(cuda_device, "golden_large")
     e = entries[0]
