@@ -19,12 +19,21 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      accept flag, count, done and go and the rest to f32 round-off; at
      1024 and 8192 poses its device ms by torch.profiler beside its bound
      (bytes / 3.35 TB/s), its event ms and the plain version's ms;
+  3c. the EM refit kernel (csrc/em_refit.cu) against its plain version on
+     the benchmark's two maps (cardbench/: 1024 and 8192 poses, held as
+     the engine holds them, 256 slots a pose) at their cells' strokes: one round from the same carry, the same inlier
+     count of each stroke and endpoints within 1e-5 m; its device ms by
+     torch.profiler beside its bound (bytes / 3.35 TB/s), its event ms,
+     the plain round's ms, each stroke's inliers and where the kernel
+     fitted them from (tests/test_torch_em_refit.py holds the same on
+     edge cases, replays and the cycle's graph);
   4. the main path, HitLSLAM on cuda: replay_log of the small golden
      session (both tolerances of tests/test_golden.py), replay_log and
      run_queue of the 1024-pose golden session; each run's kernel launch
      counts are zeroed just before it and checked just after
      (em_scan = 2 x cycles, bcr = LM iterations, lm_step = LM iterations
-     + cycles), and the run_queue's repaired map is phase 15's;
+     + cycles, em_refit = refit rounds, the em_refit -> em_refit hits of
+     the stage clocks), and the run_queue's repaired map is phase 15's;
   5. the post-human STF refine on the repaired 1024-pose map (each refine
      and each half a replay of its device program, phase 21):
      post_optimize(matcher="auto") (accepted, cost not increased, finite,
@@ -625,8 +634,10 @@ def _reset_counts():
     from hitl_slam_torch.ops import em_scan as E
     from hitl_slam_torch.solver import bcr_kernel as B
 
+    from hitl_slam_torch.ops import em_refit
     from hitl_slam_torch.solver import lm_step
 
+    em_refit.launches.count = 0
     E.launches.count = 0
     B.launches.count = 0
     B.batched_launches.count = 0
@@ -752,6 +763,150 @@ def lm_step_count() -> int:
 LM_STEP_LAUNCHES: list[int] = []
 
 
+# ---------------------------------------------------------------- phase 3c
+
+# the refit kernel on the benchmark's maps: (cell's map, configuration,
+# traffic) files under cardbench/
+EM_REFIT_CELLS = (("1024", "hitl-figure8-1024.json", "corrections.json"),
+                  ("8192", "hitl-figure8-8192.json", "colinear-session.json"))
+# endpoints, kernel against plain version (tests/test_torch_em_refit.py)
+EM_REFIT_TOL_M = 1e-5
+
+
+def em_refit_work(M: int, S: int = 2) -> int:
+    """Bytes of one refit round over M slots: the points and the mask read
+    once, the carry (endpoints, moved, the loop's flag) read and written
+    once; the inliers' trip through the kernel's scratch is its own."""
+    return M * (8 + 1) + 2 * S * (16 + 4) + 1
+
+
+def _cell_strokes(torch, config: str, traffic: str):
+    """The cell's map at its seed-0 jitter as the engine holds it on the
+    card (make_map_state's padding: world points [P, N, 2], mask [P, N])
+    and its traffic's strokes sketched on the initial poses, each
+    [2, 2, 2] on the card."""
+    import numpy as np
+
+    from cardbench.frozen.sessions import sketch
+    from cardbench.mixes.corrections import decode_specs, make_map
+    from hitl_slam_torch.core.state import make_map_state
+
+    with open(os.path.join(HERE, "cardbench", "configs", config)) as f:
+        cfg = json.load(f)
+    with open(os.path.join(HERE, "cardbench", "traffic", traffic)) as f:
+        tr = json.load(f)
+    m = make_map(cfg, tr, 0)
+    st = make_map_state(np.asarray(m.poses), np.asarray(m.covariances),
+                        m.point_clouds, m.normal_clouds, device=DEVICE)
+    strokes = []
+    for spec in decode_specs(tr["specs"], len(m.poses)):
+        try:
+            sel = sketch(m, spec, m.poses)
+        except ValueError:
+            continue
+        strokes.append(torch.as_tensor(np.asarray(sel, np.float32),
+                                       device=DEVICE).reshape(2, 2, 2))
+    return st.world_points(), st.point_mask, strokes
+
+
+def phase_em_refit(torch):
+    """The EM refit kernel against its plain version on the benchmark's
+    maps, and its times. Returns (its launches, the largest endpoint gap in
+    m, {cell: times and inliers})."""
+    from hitl_slam_torch.ops import em_refit as R
+    from hitl_slam_torch.ops.geometry import dist_to_segment
+
+    R.launches.count = 0
+    worst, out = 0.0, {}
+    for cell, config, traffic in EM_REFIT_CELLS:
+        world, mask, strokes = _cell_strokes(torch, config, traffic)
+        P, N = mask.shape
+        flat, fmask = world.reshape(-1, 2).contiguous(), mask.reshape(-1)
+        M = flat.shape[0]
+        check(strokes, f"em_refit {cell}: no stroke could be sketched")
+        buffers = R.scratch(M, 2, DEVICE)
+        inliers, routes, cell_gap = [], [], 0.0
+        for k, segs in enumerate(strokes):
+            inf = torch.full((2,), float("inf"), device=DEVICE)
+            s, mv = segs.clone(), inf.clone()
+            go = torch.ones((), dtype=torch.bool, device=DEVICE)
+            stats = torch.full((2, 2), -1, dtype=torch.int32, device=DEVICE)
+            R.round_cuda(flat, fmask, s, mv, go, stats, buffers)
+            ps, pmv, pgo = segs.clone(), inf.clone(), go.clone()
+            R.round_reference(flat, fmask, ps, pmv, pgo)
+            d = dist_to_segment(segs[:, None, 0], segs[:, None, 1], flat[None])
+            want = (fmask[None] & (d < R.INLIER_THRESHOLD)).sum(-1)
+            gap = float(max((s - ps).abs().max(), (mv - pmv).abs().max()))
+            check(stats[:, 0].tolist() == want.tolist()
+                  and gap <= EM_REFIT_TOL_M and bool(go) == bool(pgo),
+                  f"em_refit {cell} stroke {k}: inliers {stats.tolist()} "
+                  f"against {want.tolist()}, endpoint gap {gap:.3e} m, go "
+                  f"{bool(go)} / {bool(pgo)}")
+            cell_gap = max(cell_gap, gap)
+            inliers.append(stats[:, 0].tolist())
+            routes.append([R.ROUTES[int(r)] for r in stats[:, 1]])
+        segs = strokes[0]
+        s, mv = segs.clone(), torch.empty(2, device=DEVICE)
+        go = torch.ones((), dtype=torch.bool, device=DEVICE)
+
+        def run():
+            s.copy_(segs)
+            mv.fill_(float("inf"))
+            R.round_cuda(flat, fmask, s, mv, go, None, buffers)
+
+        def plain():
+            s.copy_(segs)
+            mv.fill_(float("inf"))
+            R.round_reference(flat, fmask, s, mv, go)
+
+        ms = time_cuda(run, 200)
+        per_launch, _, dev_all = device_ms(run, "em_refit_kernel")
+        plain_ms = time_cuda(plain, 20)
+        work = em_refit_work(M)
+        bound_ms = work / HBM_BYTES_PER_S * 1e3
+        plan = R.launch_plan(M)
+        out[cell] = dict(ms=ms, device_ms=per_launch, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by="bytes", bytes=work,
+                         map=[P, N], slots=M, blocks=plan.blocks,
+                         inliers=inliers,
+                         routes=routes, max_endpoint_gap_m=cell_gap,
+                         library_ms=None)
+        worst = max(worst, cell_gap)
+        log(f"[em_refit] {P} x {N} ({M} slots, a cluster of "
+            f"{plan.blocks}): strokes' inliers {inliers}, fitted from "
+            f"{routes}; endpoints within {cell_gap:.2e} m of the plain round; "
+            f"events {ms:.5f} ms (the carry's reset included), device "
+            f"{per_launch:.5f} ms a launch (all device work a call "
+            f"{dev_all:.5f} ms), plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.6f} ms ({work} bytes)")
+    _sync()
+    return R.launches.count, worst, out
+
+
+def em_refit_count() -> int:
+    from hitl_slam_torch.ops import em_refit
+
+    return em_refit.launches.count
+
+
+def refit_rounds() -> dict:
+    """The EM refit rounds each live stage clock has seen, by clock: its
+    em_refit -> em_refit hits (one a round, the loop's test to the next)."""
+    from hitl_slam_torch.utils import device_loop
+
+    out = {}
+    for c in list(device_loop.clocks.values()):
+        if "em_refit" in c.marks:
+            i = c.marks.index("em_refit")
+            out[c.index] = int(c.read()["edge_hits"][i, i])
+    return out
+
+
+# the refit kernel's launches on the main path (phase 4), for the kernels
+# line
+EM_REFIT_LAUNCHES: list[int] = []
+
+
 def _engine(data, capacity):
     from hitl_slam_torch.models.hitl.engine import HitLSLAM
 
@@ -768,6 +923,7 @@ def run_main_path(torch, name, data, entries, capacity, expected, tols,
     eng = _engine(data, capacity)
     torch.cuda.synchronize()
     _reset_counts()
+    rounds0 = refit_rounds()
     walls = []
     if fused:
         t0 = time.perf_counter()
@@ -795,6 +951,12 @@ def run_main_path(torch, name, data, entries, capacity, expected, tols,
           f"{name}: lm_step launches {n_step} != LM iterations "
           f"{sum(iters)} + {cycles} solves")
     LM_STEP_LAUNCHES.append(n_step)
+    n_refit = em_refit_count()
+    rounds = sum(n - rounds0.get(i, 0) for i, n in refit_rounds().items())
+    check(rounds >= cycles and n_refit == rounds,
+          f"{name}: em_refit launches {n_refit}, refit rounds {rounds} "
+          f"(the clocks' em_refit -> em_refit hits), cycles {cycles}")
+    EM_REFIT_LAUNCHES.append(n_refit)
     got = eng.get_poses()
     check(np.all(np.isfinite(got)) and got.shape == data.poses.shape,
           f"{name}: poses not finite / wrong shape")
@@ -808,7 +970,7 @@ def run_main_path(torch, name, data, entries, capacity, expected, tols,
     log(f"[main] {name}: {cycles} cycles accepted, per-cycle wall ms "
         f"{[round(w, 3) for w in walls]}{' (chain mean)' if fused else ''}, "
         f"LM iterations {iters}, launches em_scan={n_em} bcr={n_bcr} "
-        f"lm_step={n_step}, "
+        f"lm_step={n_step} em_refit={n_refit}, "
         f"pose error {'; '.join(errs)}")
     return n_em, n_bcr, eng
 
@@ -5188,6 +5350,8 @@ def main() -> int:
     bcr_err = phase_bcr(torch)
     # ---- 3b. the LM trip kernel vs plain ----
     n_step, step_gap, step_times = phase_lm_step(torch)
+    # ---- 3c. the EM refit kernel vs plain ----
+    n_refit, refit_gap, refit_times = phase_em_refit(torch)
     # ---- 4. the main path ----
     (n_em, n_bcr), repaired = phase_main(torch, small, small_log, large,
                                          large_log)
@@ -5295,6 +5459,15 @@ def main() -> int:
          "main_path_launches": sum(LM_STEP_LAUNCHES),
          "max_gap_over_tolerance": step_gap,
          **step_times[1024], "at": "P=1024", "P8192": step_times[8192]},
+        {"name": "em_refit", "route": "cuda",
+         "source": "hitl_slam_torch/csrc/em_refit.cu",
+         "replaces": None,
+         "launches": n_refit + sum(EM_REFIT_LAUNCHES),
+         "main_path_launches": sum(EM_REFIT_LAUNCHES),
+         "max_endpoint_gap_m": refit_gap,
+         **refit_times["1024"],
+         "at": "{} x {}".format(*refit_times["1024"]["map"]),
+         "P8192": refit_times["8192"]},
         {"name": "bcr_solve_batched", "route": "cuda",
          "source": "hitl_slam_torch/csrc/bcr.cu",
          "replaces": "hitl_slam_tpu/solver/pallas_bcr.py:94",

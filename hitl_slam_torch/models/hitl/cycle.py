@@ -91,11 +91,14 @@ def cycle_solve(
     lm_config: LMConfig = LMConfig(),
     odom_inv_sigma: Tensor | None = None,  # [P-1,3] loop-closure weighting
     mu0: Tensor | None = None,             # warm-start damping
+    refit_stats: Tensor | None = None,     # [2,2] int32, the refit kernel's
 ) -> tuple[CycleOutput, LMResult, Tensor]:
     """cycle_step's cycle, its LM solve's own result (whose iteration
     count is that of every solve, valid or not: BCR launches once an
     iteration) and em_scan's per-pose inlier counts of the refit
-    selections ([P, 2] int32)."""
+    selections ([P, 2] int32). On a card the EM refit's kernel writes each
+    stroke's inliers in its last round and where it fitted them from to
+    `refit_stats` where one is given (ops/em_refit.py)."""
     ctype = int(ctype)
     world = pose_to_world(poses[:, None, :], points)
 
@@ -117,7 +120,8 @@ def cycle_solve(
         refit = sel_raw
     else:
         segs = em_input.endpoint_adjust_batch(
-            world, point_mask, torch.stack([sel_raw[0:2], sel_raw[2:4]]))
+            world, point_mask, torch.stack([sel_raw[0:2], sel_raw[2:4]]),
+            stats=refit_stats)
         refit = segs.reshape(4, 2)
     # POINT selections count inliers in the wider verify-radius disc
     threshold = (em_input.VERIFY_THRESHOLD if is_point
@@ -197,7 +201,11 @@ class CycleProgram(DeviceProgram):
     all in one memory pool and on one stream. The EM refit and the LM
     solve are WHILE nodes, so a replay reads nothing back. `replay(ctype)`
     gives the CycleOutput in the graph's memory, which the next replay
-    overwrites; `run` and `chain` return copies."""
+    overwrites; `run` and `chain` return copies. `refit_stats` [2, 2]
+    int32 holds, after the last replay that ran the EM refit, each
+    stroke's inliers in its last round and where the kernel fitted them
+    from (an index into ops/em_refit.py's ROUTES; -1 before any): read it
+    after the replays that matter, never in a correction's path."""
 
     def __init__(self, P: int, N: int, capacity: int, lm_config: LMConfig,
                  odom_sigma: bool, warm_start: bool, device):
@@ -219,12 +227,15 @@ class CycleProgram(DeviceProgram):
                     points, point_mask, poses, covariances, table, ctype,
                     sel, n, lm_config=lm_config,
                     odom_inv_sigma=odom_inv_sigma,
-                    mu0=mu if warm_start else None)
+                    mu0=mu if warm_start else None,
+                    refit_stats=self.refit_stats)
 
         super().__init__(solve, example, device, name="hitl", clock=True)
         self.lm_config = lm_config
         self.odom_sigma = odom_sigma
         self.ticket = em_scan_kernel.new_ticket(self.device)
+        self.refit_stats = torch.full((2, 2), -1, dtype=torch.int32,
+                                      device=self.device)
 
     def replay(self, ctype: int) -> CycleOutput:
         """Replay the cycle of `ctype` on the loaded inputs (capturing it

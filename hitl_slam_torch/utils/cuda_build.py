@@ -28,9 +28,13 @@ COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # per-source extra flags: em_scan must not contract a*b+c into an FMA, so
 # that its per-point squared distances are bit-identical to the separate
 # torch ops of its plain version (exact counts at the threshold); nor must
-# lm_step, so that its assembly rounds as the plain version's separate ops
-EXTRA = {"em_scan.cu": ["--fmad=false"], "lm_step.cu": ["--fmad=false"]}
-SOURCES = ("em_scan.cu", "bcr.cu", "graph_loop.cu", "lm_step.cu")
+# lm_step, so that its assembly rounds as the plain version's separate ops;
+# nor em_refit, so that its inlier test and its terms round as its plain
+# version's (the same inliers, bit for bit)
+EXTRA = {"em_scan.cu": ["--fmad=false"], "lm_step.cu": ["--fmad=false"],
+         "em_refit.cu": ["--fmad=false"]}
+SOURCES = ("em_scan.cu", "bcr.cu", "graph_loop.cu", "lm_step.cu",
+           "em_refit.cu")
 LIB_NAME = "libhitl_kernels.so"
 
 
@@ -106,7 +110,7 @@ def all_counters() -> list[LaunchCounter]:
     kernel wrappers' modules are imported here, so that their counters
     exist before a capture whatever the caller imported: a wrapper first
     imported inside a capture could not count its launches there."""
-    from ..ops import em_scan  # noqa: F401
+    from ..ops import em_refit, em_scan  # noqa: F401
     from ..solver import bcr_kernel, lm_step  # noqa: F401
 
     return list(counters)
@@ -240,6 +244,10 @@ def library() -> ctypes.CDLL:
                                      ctypes.POINTER(f),
                                      ctypes.POINTER(i), vp]
         lib.hitl_lm_step.restype = i
+        lib.hitl_em_refit.argtypes = [ctypes.POINTER(vp),
+                                      ctypes.POINTER(f),
+                                      ctypes.POINTER(i), vp]
+        lib.hitl_em_refit.restype = i
         pp, ull = ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_ulonglong)
         for name, args in (("hitl_loop_graph_new", [pp]),
                            ("hitl_loop_append", [vp, pp, vp]),

@@ -3,8 +3,10 @@
 (hitl_slam_torch/utils/timing.py): the cycle program's stage edges a
 replay, its loops' trips, the engine's spans a correction, each
 correction's wall, device and host-exposed time, over the window's
-corrections (cardbench/stages.py) and over the process's, and the device
-timer's calibration (bracket, drift) and step (scripts/clock_cost.py).
+corrections (cardbench/stages.py) and over the process's, the EM refit
+kernel's inlier counts and route in the last round of each cycle program,
+and the device timer's calibration (bracket, drift) and step
+(scripts/clock_cost.py).
 
     python scripts/stage_table.py [--workload <cell>] [--seed <n>]
         [--seconds <s>] [--trace 0|1] [--cost 0|1]
@@ -108,6 +110,24 @@ def stage_rows(st, rows, mean_wall) -> dict:
             (st.mean_ms() + exposed) / mean_wall - 1.0}
 
 
+def refit_inliers() -> list:
+    """Each live cycle program's EM refit record, read after the window:
+    each stroke's inliers in the last refit round and where the kernel
+    fitted them from (models/hitl/cycle.py::CycleProgram.refit_stats;
+    ops/em_refit.py::ROUTES), for the program's map shape."""
+    from hitl_slam_torch.models.hitl import cycle
+    from hitl_slam_torch.ops import em_refit
+
+    out = []
+    for prog in list(cycle._programs._programs.values()):
+        stats = prog.refit_stats.tolist()
+        P, N = prog.inputs[0].shape[:2]
+        out.append({"map": [P, N], "inliers": [r[0] for r in stats],
+                    "routes": [em_refit.ROUTES[r[1]] if r[1] >= 0 else None
+                               for r in stats]})
+    return out
+
+
 def span_cost(n: int = 20000) -> dict:
     """Host µs of one empty span, without and with a (CPU) profiler
     running, and of an empty `with` for comparison."""
@@ -190,6 +210,7 @@ def main(argv=None) -> int:
         "one_clock": one_clock(snap, traces[0]["events"], tracing)
         if traces else None,
         "counters": snap.counters,
+        "em_refit_last_round": refit_inliers(),
         "timer": snap.timer(),
         "timer_steps_ns": timer_steps(torch),
         "checks": {c.name: c.value for c in run.checks},
